@@ -12,9 +12,12 @@ What it does, one JSON line per phase:
 3. ``kernels``: calls each hand-written kernel's wrapper on the paper
    matrix's own arrays and holds it against its plain PyTorch version on the
    same inputs, with variants (weighted values, bf16 input, ragged shapes, a
-   block whose slots are all padding).  Times kernel, plain version and,
-   where one PyTorch call computes the same function, that call, and works
-   out the least time the card could take (``bound_ms``).
+   block whose slots are all padding; for ``topk_score``: f32, int8 with
+   kvquant scales, a valid width with an index offset, a ragged last tile and
+   three-way ties, at the paper universe and at 256 x 1,048,576, compared
+   with ``torch.equal``).  Times kernel, plain version and, where one PyTorch
+   call computes the same function, that call, and works out the least time
+   the card could take (``bound_ms``).
 4. ``solve_sparse_exact`` / 5. ``solve_dense_exact`` / 6. ``solve_randomized``
    / 7. ``solve_scaled``: ``repro_torch.core.api.svd`` on the paper's
    539 x 170,897 matrix (COO and dense input, exact and rank-16) and on two
@@ -24,9 +27,25 @@ What it does, one JSON line per phase:
    solve and never added up across solves.  Stage times come from the
    solver's own stage timers (``repro_torch.core.stages``) around further
    warm solves.
-8. One line ``{"kernels": [...]}`` with every kernel's numbers, then the card
-   as ``nvidia-smi`` names it, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. ``stream_exact``: ``svd_init`` + ``svd_update`` of the paper matrix in 4
+   row batches at full rank, held against float64 singular values.
+9. ``stream_serve``: the user's configuration: the paper rows in batches of
+   64 at rank 16 (held against the same stream on the CPU), served by
+   ``serve_init`` / ``serve_topk`` in waves of 32 (f32 and int8; every wave
+   equal to the plain version bit for bit), one cold-start wave through
+   ``project_rows``, 200 waves with no ingest beside them, then waves
+   answered while an ingest thread on its own CUDA stream folds in the
+   remaining batches and commits them.
+10. ``serve_scaled``: a 1,048,576-item catalogue at rank 64 built by two
+   ingests, served in waves of 256 with k_top 100, f32 and int8.
+   Phases 8-10 also hold ``sparse_gram`` against its plain version on
+   repaired batches that their ingests factor.
+11. ``merge_driver_ab``: the streams of phases 8 and 9 on three seeds under
+   each cuSOLVER driver of the merge SVD, orthogonality and time.
+12. ``stage_summary`` (one ingest, one serve wave), one line
+   ``{"kernels": [...]}`` with every kernel's numbers, then the card as
+   ``nvidia-smi`` names it, then the last line ``{"ok": true, "device":
+   {...}}``.
 
 It takes no arguments, runs every phase, exits non-zero at the first phase
 that fails, and right away when no CUDA device is present: nothing here runs
@@ -47,12 +66,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs.ranky_paper import RankyPaperConfig  # noqa: E402
-from repro_torch.core import api, ranky, sparse, stages  # noqa: E402
+from repro_torch.core import api, hierarchy, ranky, sparse, stages  # noqa: E402
 from repro_torch.data import bipartite  # noqa: E402
 from repro_torch.kernels import blockgram as bg_mod  # noqa: E402
 from repro_torch.kernels import build as kernel_build  # noqa: E402
 from repro_torch.kernels import sketch_panel as sp_mod  # noqa: E402
 from repro_torch.kernels import sparse_gram as sg_mod  # noqa: E402
+from repro_torch.kernels import topk_score as tk_mod  # noqa: E402
+from repro_torch.serve import kvquant, ranker  # noqa: E402
+from repro_torch.stream import state as stream_state  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and float32 rate outside the tensor cores.  bound_ms is stated against them.
@@ -64,8 +86,14 @@ DEVICE = "cuda"
 # (M, N) of the two matrices of phase 7; density 5e-4 like the paper's.
 SCALED_EXACT = (2048, 1_048_576)
 SCALED_TALL = (32_768, 262_144)
+# Serving shapes: the paper universe answered in waves of 32 queries at the
+# user stream's rank 16, and the scaled catalogue of phase 10.
+TOPK_PAPER = dict(b=32, k=16, k_top=10)
+STREAM_BATCH_ROWS = 64
+SCALED_SERVE = dict(n=1_048_576, rows=1024, batches=2, density=1e-3,
+                    rank=64, b=256, k_top=100)
 KERNEL_MODULES = {"sparse_gram": sg_mod, "blockgram": bg_mod,
-                  "sketch_panel": sp_mod}
+                  "sketch_panel": sp_mod, "topk_score": tk_mod}
 # ``launches_in``: the solve of the main path whose count is the kernel's
 # ``launches`` (the first solve that should reach it).  The counts of every
 # solve stand beside it under ``launches_by_solve``.
@@ -82,6 +110,10 @@ KERNEL_INFO = {
                          source="src/repro_torch/csrc/sketch_panel.cu",
                          replaces="src/repro/kernels/sketch_panel.py:82",
                          launches_in="solve_randomized[p=8,q=2]"),
+    "topk_score": dict(route="cuda",
+                       source="src/repro_torch/csrc/topk_score.cu",
+                       replaces="src/repro/kernels/topk_score.py:125",
+                       launches_in="serve_topk[f32]"),
 }
 
 
@@ -317,11 +349,14 @@ def phase_kernels(state) -> None:
     check(float(s2[1].abs().max()) == 0.0,
           "sketch_panel: an all-padding block must give a zero panel")
 
+    topk_kernel_rows(state, cases, main)
+
     state["kernel_main"] = main
     emit("kernels", cases=cases, main_shapes=main,
          sparse_gram_weighted_bit_stable=state[
              "sparse_gram_weighted_bit_stable"],
-         tolerance="0 for 0/1 sparse_gram; else 1e-5 * max|plain| "
+         tolerance="0 for 0/1 sparse_gram and for topk_score (torch.equal "
+                   "on values and indices); else 1e-5 * max|plain| "
                    "(f32 summation order)")
 
 
@@ -709,6 +744,548 @@ def phase_solve_scaled(state) -> None:
 
 
 # ---------------------------------------------------------------------------
+# topk_score: the kernel against its plain version (phase 3)
+# ---------------------------------------------------------------------------
+
+def topk_bound(qs, v, k_top, scale):
+    """Bytes: v, the scale, the queries and the two outputs once; operations:
+    a multiply and an add per (query, item, factor)."""
+    b, k = qs.shape
+    n = v.shape[0]
+    nbytes = (v.numel() * v.element_size() + (n * 4 if scale is not None
+                                               else 0)
+              + qs.numel() * 4 + b * k_top * 8)
+    return bound(nbytes, 2.0 * b * n * k)
+
+
+def topk_case(cases, case, qs, v, k_top, *, scale=None, valid_n=None,
+              index_offset=0, block_n=512, plain_iters=5):
+    """Kernel vs plain version with torch.equal on values and indices, and
+    the times: kernel, plain version, one library call (timed only: its tie
+    order differs) and the bound."""
+    kw = dict(scale=scale, valid_n=valid_n, index_offset=index_offset)
+    got = tk_mod.topk_score(qs, v, k_top, block_n=block_n, **kw)
+    want = tk_mod.topk_score_ref(qs, v, k_top, **kw)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    err = max_err(got[0], want[0])
+    cases.append(dict(kernel="topk_score", case=case, equal=equal,
+                      max_abs_err=err, limit=0.0))
+    check(equal, f"topk_score[{case}]: differs from the plain version "
+          f"(max |dv| {err}, {int((got[1] != want[1]).sum())} indices)")
+    def library():
+        s = torch.mm(qs, v.float().T)
+        return torch.topk(s * scale[None, :] if scale is not None else s,
+                          k_top)
+
+    b_ms, b_by = topk_bound(qs, v, k_top, scale)
+    return dict(
+        case=case, shape=f"qs {tuple(qs.shape)}, v {tuple(v.shape)} "
+                         f"{str(v.dtype).replace('torch.', '')}, "
+                         f"k_top {k_top}",
+        max_abs_err=err,
+        ms=time_ms(lambda: tk_mod.topk_score(qs, v, k_top, block_n=block_n,
+                                             **kw)),
+        plain_ms=time_ms(lambda: tk_mod.topk_score_ref(qs, v, k_top, **kw),
+                         iters=plain_iters, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(library, iters=5, warmup=1))
+
+
+def topk_variants(cases, b, k, n, k_top, *, n_valid, seed, plain_iters):
+    """The five variants at one shape: f32; int8 + kvquant scale; valid_n <
+    N with an index offset; a ragged last tile; all scores tied three ways."""
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    qs = torch.randn((b, k), generator=gen, device=DEVICE)
+    v = torch.randn((n, k), generator=gen, device=DEVICE)
+    tag = f"B={b} k={k} N={n}"
+    rows = [topk_case(cases, f"{tag} f32, valid_n={n_valid}", qs, v, k_top,
+                      valid_n=n_valid, plain_iters=plain_iters)]
+    v_q, v_scale = kvquant.quantize(v, axis=-1)
+    rows.append(topk_case(cases, f"{tag} int8 + kvquant scale", qs, v_q,
+                          k_top, scale=v_scale[:, 0].contiguous(),
+                          valid_n=n_valid, plain_iters=plain_iters))
+    rows.append(topk_case(cases, f"{tag} valid_n={n - 3001} offset=5000", qs,
+                          v, k_top, valid_n=n - 3001, index_offset=5000,
+                          plain_iters=plain_iters))
+    n_rag = n - 37
+    rows.append(topk_case(cases, f"{tag} ragged N={n_rag} block_n=128", qs,
+                          v[:n_rag], k_top, block_n=128,
+                          plain_iters=plain_iters))
+    qi = torch.randint(-3, 4, (b, k), generator=gen, device=DEVICE).float()
+    base = torch.randint(-3, 4, (n // 3, k), generator=gen,
+                         device=DEVICE).float()
+    rows.append(topk_case(cases, f"{tag} all ties (integer rows x 3)", qi,
+                          base.repeat(3, 1), k_top, plain_iters=plain_iters))
+    return rows
+
+
+def topk_kernel_rows(state, cases, main) -> None:
+    ell = state["ell"]
+    n_pad = ell.num_blocks * ell.width
+    paper = topk_variants(cases, TOPK_PAPER["b"], TOPK_PAPER["k"], n_pad,
+                          TOPK_PAPER["k_top"], n_valid=ell.n, seed=11,
+                          plain_iters=5)
+    sc = SCALED_SERVE
+    scaled = topk_variants(cases, sc["b"], sc["rank"], sc["n"], sc["k_top"],
+                           n_valid=sc["n"], seed=12, plain_iters=2)
+    torch.cuda.empty_cache()
+    main["topk_score"] = dict(paper[0], variants=paper[1:],
+                              scaled_shape=scaled)
+    before = tk_mod.launches
+    e_v, e_i = tk_mod.topk_score(torch.empty((0, 16), device=DEVICE),
+                                 torch.ones((40, 16), device=DEVICE), 10)
+    check(e_v.shape == e_i.shape == (0, 10) and tk_mod.launches == before,
+          "topk_score: an empty wave must return (0, k_top) and launch "
+          "nothing")
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-10: streaming ingest and top-k serving
+# ---------------------------------------------------------------------------
+
+def coo_rows(coo, lo: int, hi: int) -> sparse.COOMatrix:
+    """Rows [lo, hi) of a COO matrix, in the same column universe."""
+    sel = (coo.rows >= lo) & (coo.rows < hi)
+    return sparse.COOMatrix(rows=(coo.rows[sel] - lo).astype(np.int32),
+                            cols=coo.cols[sel], vals=coo.vals[sel],
+                            shape=(hi - lo, coo.shape[1]))
+
+
+def ortho_err(x) -> float:
+    return float((x.T @ x - torch.eye(x.shape[1], device=x.device))
+                 .abs().max())
+
+
+def sum_stages(times) -> dict:
+    return {(f"{name} x{len(runs)}" if len(runs) > 1 else name): sum(runs)
+            for name, runs in times.items()}
+
+
+def stream_gram_case(cases, tag, st, delta, cfg, draws=None) -> None:
+    """sparse_gram against its plain version on the repaired blocks that
+    the ingest of ``delta`` into ``st`` factors (the same repair, key and
+    draws): exact for 0/1 data, else 1e-5 * max|plain|."""
+    blocks = ranky.split_and_repair(
+        stream_state.as_delta(delta, st), st.num_blocks, cfg.method,
+        ranky.derive_seed(st.seed, st.batches_seen), draws=draws)
+    ell = blocks.ell
+    zero_one = bool(((ell.col_vals == 0) | (ell.col_vals == 1)).all())
+    compare("sparse_gram",
+            sg_mod.sparse_gram(ell.col_rows, ell.col_vals, ell.m),
+            sg_mod.sparse_gram_ref(ell.col_rows, ell.col_vals, ell.m),
+            0.0 if zero_one else 1e-5, cases,
+            f"{tag}: repaired batch, rows/vals {tuple(ell.col_rows.shape)}, "
+            f"M={ell.m}, {'0/1 (exact)' if zero_one else 'weighted'}")
+
+
+def phase_stream_exact(state) -> None:
+    """The paper matrix in 4 row batches with the rank kept in full: the
+    stream is exact, so S is held against float64 like a one-shot solve."""
+    coo = state["coo"]
+    m, n = coo.shape
+    cfg = api.SolveConfig(method="none", truncate_rank=m,
+                          num_blocks=NUM_BLOCKS, use_kernel=True,
+                          want_right=True)
+    st = api.svd_init(n, cfg, device=DEVICE)
+    bounds = np.linspace(0, m, 5).astype(int)
+    walls, merge_ms, per_batch, befores = [], [], [], []
+    reset_counts()
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        befores.append(st)
+        with stages.record() as times:
+            res = api.svd_update(st, coo_rows(coo, int(lo), int(hi)), cfg)
+        st = res.state
+        walls.append(res.diagnostics.wall_time_s)
+        merge_ms.append(times["merge.svd"][0])
+        per_batch.append(sum_stages(times))
+        check(res.plan.backend == "single" and res.plan.strategy ==
+              "streaming" and res.plan.rank is None, "stream_exact: plan")
+    counts = read_counts()
+    keep_counts(state, "stream_exact", counts)
+    check(counts["sparse_gram"] == 4, f"stream_exact: sparse_gram launches "
+          f"{counts['sparse_gram']}, want one per batch")
+    check(st.rank == m and st.rows_seen == m, "stream_exact: rank/rows")
+    s_ref = reference_svals(ranky.split_and_repair(state["ell"], NUM_BLOCKS,
+                                                   "none"), NUM_BLOCKS)
+    ds = (st.s.double() - s_ref).abs()
+    limit = 2e-3 * float(s_ref[0])
+    check(float(ds.max()) <= limit,
+          f"stream_exact: max|dS| {float(ds.max())} > 2e-3*S[0] = {limit}")
+    u_err, v_err = ortho_err(st.u), ortho_err(st.v)
+    check(u_err <= 1e-4 and v_err <= 1e-4,
+          f"stream_exact: |U^T U - I| {u_err}, |V^T V - I| {v_err}")
+    gram_cases = []
+    for b, (before, lo, hi) in enumerate(zip(befores, bounds[:-1],
+                                              bounds[1:])):
+        stream_gram_case(gram_cases, f"stream_exact batch {b}", before,
+                         coo_rows(coo, int(lo), int(hi)), cfg)
+    emit("stream_exact", batches=[int(b) for b in np.diff(bounds)],
+         merge_driver=hierarchy.CUDA_SVD_DRIVER or "default",
+         wall_time_s=walls, merge_svd_ms=merge_ms, stage_ms=per_batch,
+         s0=float(st.s[0]), s_last=float(st.s[-1]), max_abs_dS=float(ds.max()),
+         dS_limit=limit, u_ortho_err=u_err, v_ortho_err=v_err,
+         kernel_checks=gram_cases, launches=counts)
+
+
+def port_draws(seed: int, method: str, ell) -> ranky.RepairDraws:
+    """The repair draws the port makes for this batch on the CPU, moved to
+    the GPU: its CUDA generator would draw other neighbor scores, and the GPU
+    stream is held against the CPU one."""
+    d, m, w, c = ell.num_blocks, ell.m, ell.width, ell.capacity[0]
+    rc = ranky.draw_random_cols(seed, method, d, m, w, "cpu")
+    sc = torch.stack([ranky.draw_neighbor_scores(seed, method, i, (m, c),
+                                                 "cpu") for i in range(d)])
+    return ranky.RepairDraws(rc.to(DEVICE), sc.to(DEVICE))
+
+
+def expected_wave(snap, queries, k_top):
+    """The plain version's answer on one snapshot, on the host."""
+    qs = ranker.fold_queries(snap, queries.to(snap.device))
+    if snap.quantized:
+        out = tk_mod.topk_score_ref(qs, snap.v_q, k_top,
+                                    scale=snap.v_scale[:, 0].contiguous(),
+                                    valid_n=snap.n)
+    else:
+        out = tk_mod.topk_score_ref(qs, snap.v, k_top, valid_n=snap.n)
+    return out[0].cpu(), out[1].cpu()
+
+
+def same(res, want) -> bool:
+    return (torch.equal(res.scores.cpu(), want[0])
+            and torch.equal(res.indices.cpu(), want[1]))
+
+
+def phase_stream_serve(state) -> None:
+    """The user's configuration: the paper rows streamed in batches of 64,
+    rank 16, served in waves of 32 while later batches are ingested."""
+    import threading
+
+    coo = state["coo"]
+    m, n = coo.shape
+    cfg = api.SolveConfig(method="neighbor_random", truncate_rank=16,
+                          oversample=8, num_blocks=NUM_BLOCKS,
+                          use_kernel=True)
+    bounds = list(range(0, m, STREAM_BATCH_ROWS)) + [m]
+    batches = [coo_rows(coo, lo, hi) for lo, hi in zip(bounds, bounds[1:])]
+    nb = len(batches)
+
+    # The same stream on the CPU, with the port's own draws.
+    t0 = time.perf_counter()
+    st_cpu = api.svd_init(n, cfg, device="cpu")
+    for delta in batches:
+        st_cpu = api.svd_update(st_cpu, delta, cfg).state
+    cpu_s = time.perf_counter() - t0
+
+    def draws_for(st, delta):
+        ell = sparse.block_ell_from_coo(delta, NUM_BLOCKS, device="cpu")
+        return port_draws(ranky.derive_seed(st.seed, st.batches_seen),
+                          cfg.method, ell)
+
+    st0 = st = api.svd_init(n, cfg, device=DEVICE)
+    reset_counts()
+    warm = []
+    for delta in batches[:4]:
+        res = api.svd_update(st, delta, cfg, draws=draws_for(st, delta))
+        st = res.state
+        warm.append(res.diagnostics.wall_time_s)
+    keep_counts(state, "stream_serve[ingest x4]", read_counts())
+    gram_cases = []
+    for b, before in ((0, st0), (4, st)):
+        stream_gram_case(gram_cases, f"stream_serve batch {b}", before,
+                         batches[b], cfg, draws_for(before, batches[b]))
+    with stages.record() as times:     # one more ingest, off the main path
+        api.svd_update(st, batches[4], cfg, draws=draws_for(st, batches[4]))
+    ingest_stages = sum_stages(times)
+
+    h32 = api.serve_init(st, api.ServeTopKConfig(batch_size=32, k_top=10))
+    h8 = api.serve_init(st, api.ServeTopKConfig(batch_size=32, k_top=10,
+                                                quantize=True))
+    check(h32.plan.backend == "single" and h32.plan.strategy == "serve_fused",
+          "stream_serve: R7 plan")
+    gen = torch.Generator(DEVICE).manual_seed(5)
+    q = torch.randn((32, 16), generator=gen, device=DEVICE)
+    reset_counts()
+    r32 = api.serve_topk(h32, q)
+    counts = read_counts()
+    keep_counts(state, "serve_topk[f32]", counts)
+    check(counts["topk_score"] == 1, "serve_topk[f32]: topk_score launches "
+          f"{counts['topk_score']}")
+    reset_counts()
+    r8 = api.serve_topk(h8, q)
+    keep_counts(state, "serve_topk[int8]", read_counts())
+    check(same(r32, expected_wave(h32.read(), q, 10)),
+          "serve_topk[f32] differs from the plain version")
+    check(same(r8, expected_wave(h8.read(), q, 10)),
+          "serve_topk[int8] differs from the plain version")
+    i32, i8 = r32.indices.cpu().tolist(), r8.indices.cpu().tolist()
+    overlap = float(np.mean([len(set(a) & set(b)) / 10
+                             for a, b in zip(i32, i8)]))
+    with stages.record() as times:
+        api.serve_topk(h32, q)
+    wave_stages = sum_stages(times)
+    # Cold start: raw interaction rows projected into factor space.
+    raw = torch.from_numpy(coo_rows(coo, 0, 8).todense()).to(DEVICE)
+    cold_q = ranker.project_rows(h32.read(), raw)
+    cold = api.serve_topk(h32, cold_q)
+    check(torch.isfinite(cold_q).all() and cold.indices.shape == (8, 10)
+          and same(cold, expected_wave(h32.read(), cold_q, 10)),
+          "stream_serve: cold-start wave")
+
+    def serve_waves(count=None, until=None):
+        """Answer waves of ``q`` on h32 until ``count`` waves are done or
+        ``until`` is set (and at least 50 waves); (waves, seconds)."""
+        out = []
+        t_start = time.perf_counter()
+        while (len(out) < count if count is not None
+               else not until.is_set() or len(out) < 50):
+            t1 = time.perf_counter()
+            res = api.serve_topk(h32, q)
+            torch.cuda.current_stream().synchronize()
+            lat = time.perf_counter() - t1
+            out.append((res, lat, h32.metrics()["snapshot_age_s"],
+                        until is not None and not until.is_set()))
+        return out, time.perf_counter() - t_start
+
+    def wave_stats(waves, seconds):
+        lat_ms = np.array([w[1] for w in waves]) * 1e3
+        return dict(waves=len(waves), waves_per_s=len(waves) / seconds,
+                    p50_wave_ms=float(np.percentile(lat_ms, 50)),
+                    p99_wave_ms=float(np.percentile(lat_ms, 99)))
+
+    # The same waves with no ingest beside them: the baseline of the live
+    # numbers below.
+    idle = wave_stats(*serve_waves(count=200))
+
+    # Serve under ingest: batches 4.. on a stream of their own, committed
+    # between waves.  The snapshot each commit publishes is kept; the
+    # answers every version should give are computed after the live window,
+    # so that no check runs beside the timed waves and ingests.
+    snaps = {h32.version: h32.read()}
+    ingest_stream = torch.cuda.Stream()
+    done = threading.Event()
+    errors, update_ms, commit_ms, final = [], [], [], {}
+
+    def ingest_loop():
+        try:
+            with torch.cuda.stream(ingest_stream):
+                s = st
+                for delta in batches[4:]:
+                    final["before_last"] = s
+                    res = api.svd_update(s, delta, cfg,
+                                         draws=draws_for(s, delta))
+                    t1 = time.perf_counter()
+                    snap = h32.commit(res.state)
+                    commit_ms.append((time.perf_counter() - t1) * 1e3)
+                    update_ms.append(res.diagnostics.wall_time_s * 1e3)
+                    snaps[snap.version] = snap
+                    s = res.state
+                final["state"] = s
+        except Exception as exc:       # reported by the main thread
+            errors.append(repr(exc))
+        finally:
+            done.set()
+
+    worker = threading.Thread(target=ingest_loop, daemon=True)
+    worker.start()
+    waves, live_s = serve_waves(until=done)
+    worker.join(timeout=600)
+    check(not worker.is_alive() and not errors,
+          f"stream_serve: ingest thread {errors or 'did not finish'}")
+    expected = {ver: expected_wave(snap, q, 10) for ver, snap in snaps.items()}
+    bad = [res.version for res, *_ in waves
+           if not same(res, expected[res.version])]
+    check(not bad, f"stream_serve: {len(bad)} waves differ from the answer "
+          f"for their version (versions {sorted(set(bad))})")
+    versions = sorted({w[0].version for w in waves})
+    check(len(versions) > 1, "stream_serve: no wave saw a new version")
+    stream_gram_case(gram_cases, f"stream_serve batch {nb - 1} (ragged)",
+                     final["before_last"], batches[-1], cfg,
+                     draws_for(final["before_last"], batches[-1]))
+
+    st_gpu = final["state"]
+    ds = float((st_gpu.s.cpu() - st_cpu.s).abs().max())
+    check(ds <= 1e-3 * float(st_cpu.s[0]),
+          f"stream_serve: GPU vs CPU max|dS| {ds}")
+    u_err, v_err = ortho_err(st_gpu.u), ortho_err(st_gpu.v)
+    check(u_err <= 1e-4 and v_err <= 1e-4,
+          f"stream_serve: |U^T U - I| {u_err}, |V^T V - I| {v_err}")
+    check((st_gpu.lonely_rows_seen, st_gpu.repaired_rows_seen)
+          == (st_cpu.lonely_rows_seen, st_cpu.repaired_rows_seen),
+          "stream_serve: lonely / repaired counts differ from the CPU run")
+    state["stage_summary"] = dict(ingest=ingest_stages, serve_wave=wave_stages)
+    emit("stream_serve", batches=nb, batch_rows=STREAM_BATCH_ROWS,
+         first_ingest_wall_s=warm[0], warm_ingest_wall_s=warm[1:],
+         cpu_stream_s=cpu_s, s0=float(st_gpu.s[0]), s15=float(st_gpu.s[-1]),
+         max_abs_dS_vs_cpu=ds, u_ortho_err=u_err, v_ortho_err=v_err,
+         lonely_rows=st_gpu.lonely_rows_seen,
+         repaired_rows=st_gpu.repaired_rows_seen,
+         int8_f32_top10_overlap=overlap,
+         cold_start_wave_ok=True, ingest_stage_ms=ingest_stages,
+         wave_stage_ms=wave_stages, kernel_checks=gram_cases,
+         no_ingest=idle,
+         live=dict(wave_stats(waves, live_s),
+                   waves_during_ingest=sum(w[3] for w in waves),
+                   versions_seen=versions,
+                   svd_update_ms=update_ms, commit_ms=commit_ms,
+                   snapshot_age_s_max=max(w[2] for w in waves)),
+         clocks="waves: host clock around serve_topk, the serving stream "
+                "synchronized; svd_update_ms: its own wall_time_s (the "
+                "whole device synchronized at both ends, so it also waits "
+                "for waves in flight); commit_ms: host clock around "
+                "handle.commit (snapshot, ingest-stream synchronize, "
+                "publish)")
+
+
+def phase_serve_scaled(state) -> None:
+    """A catalogue of 1,048,576 items at rank 64, served in waves of 256."""
+    sc = SCALED_SERVE
+    n = sc["n"]
+    cfg = api.SolveConfig(method="neighbor_random", truncate_rank=sc["rank"],
+                          num_blocks=NUM_BLOCKS, use_kernel=True)
+    st = api.svd_init(n, cfg, device=DEVICE)
+    ingest_s, ingested = [], []
+    deltas = [sparse.random_bipartite(sc["rows"], n, sc["density"],
+                                      seed=31 + b, power_law=True)
+              for b in range(sc["batches"])]
+    reset_counts()
+    for delta in deltas:
+        ingested.append((st, delta))
+        res = api.svd_update(st, delta, cfg)
+        st = res.state
+        ingest_s.append(res.diagnostics.wall_time_s)
+    counts = read_counts()
+    keep_counts(state, f"serve_scaled[ingest x{sc['batches']}]", counts)
+    check(st.rank == sc["rank"] and torch.isfinite(st.s).all(),
+          "serve_scaled: state")
+    check(counts["sparse_gram"] == sc["batches"], "serve_scaled: sparse_gram "
+          f"launches {counts['sparse_gram']}, want one per batch")
+    gram_cases = []
+    for b, (before, delta) in enumerate(ingested):
+        stream_gram_case(gram_cases, f"serve_scaled batch {b}", before,
+                         delta, cfg)
+    del ingested
+    torch.cuda.empty_cache()
+    gen = torch.Generator(DEVICE).manual_seed(6)
+    q = torch.randn((sc["b"], sc["rank"]), generator=gen, device=DEVICE)
+    out = {}
+    for name, quant in (("f32", False), ("int8", True)):
+        h = api.serve_init(st, api.ServeTopKConfig(
+            batch_size=sc["b"], k_top=sc["k_top"], quantize=quant))
+        reset_counts()
+        res = api.serve_topk(h, q)
+        keep_counts(state, f"serve_scaled[{name}]", read_counts())
+        check(same(res, expected_wave(h.read(), q, sc["k_top"])),
+              f"serve_scaled[{name}]: differs from the plain version")
+        snap = h.read()
+        qs = ranker.fold_queries(snap, q)
+        v = snap.v_q if quant else snap.v
+        scale = snap.v_scale[:, 0].contiguous() if quant else None
+        b_ms, b_by = topk_bound(qs, v, sc["k_top"], scale)
+        out[name] = dict(
+            wave_ms=time_ms(lambda: api.serve_topk(h, q)),
+            ms=time_ms(lambda: tk_mod.topk_score(qs, v, sc["k_top"],
+                                                 scale=scale, valid_n=n)),
+            plain_ms=time_ms(lambda: tk_mod.topk_score_ref(
+                qs, v, sc["k_top"], scale=scale, valid_n=n), iters=2,
+                warmup=1),
+            library_ms=time_ms(lambda: torch.topk(
+                torch.mm(qs, v.float().T) * (scale[None, :] if quant else 1.0),
+                sc["k_top"]), iters=5, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, plan_peak_bytes=h.plan.peak_bytes)
+        del h, snap, res
+    emit("serve_scaled", n=n, rank=sc["rank"], batches=sc["batches"],
+         batch_rows=sc["rows"], density=sc["density"],
+         ingest_wall_s=ingest_s, s0=float(st.s[0]), s_last=float(st.s[-1]),
+         kernel_checks=gram_cases, waves=out)
+    torch.cuda.empty_cache()
+
+
+MERGE_AB_SEEDS = (2020, 2021, 2022)
+
+
+def run_stream(coo, cfg, bounds):
+    """svd_init + one svd_update per row range; (state, merge.svd ms per
+    batch)."""
+    st = api.svd_init(coo.shape[1], cfg, device=DEVICE)
+    merge_ms = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        with stages.record() as times:
+            st = api.svd_update(st, coo_rows(coo, int(lo), int(hi)),
+                                cfg).state
+        merge_ms.append(times["merge.svd"][0])
+    return st, merge_ms
+
+
+def phase_merge_driver_ab(state) -> None:
+    """The merge SVD's cuSOLVER driver, torch's default (``gesvdj``)
+    against ``gesvd``, in one run: for paper-shaped matrices from three
+    seeds, the exact stream (4 batches, full rank) and the user stream
+    (batches of 64, rank 16) under each driver, the order of the drivers
+    alternating from seed to seed.  Records ||U^T U - I||, ||V^T V - I||,
+    the exact stream's max|dS| against float64, and merge.svd per batch.
+    The committed driver (``hierarchy.CUDA_SVD_DRIVER``) is held to 1e-4;
+    the other is only recorded."""
+    committed = hierarchy.CUDA_SVD_DRIVER
+    drivers = (None, "gesvd")
+    warm = torch.randn((170_904, 40), device=DEVICE)
+    for drv in drivers:                # cuSOLVER handles and workspaces
+        torch.linalg.svd(warm, full_matrices=False, driver=drv)
+    del warm
+    runs = []
+    try:
+        for i, seed in enumerate(MERGE_AB_SEEDS):
+            coo = bipartite.paper_coo(RankyPaperConfig(seed=seed))
+            m, n = coo.shape
+            ell = sparse.block_ell_from_coo(coo, NUM_BLOCKS, device=DEVICE)
+            s_ref = reference_svals(ranky.split_and_repair(
+                ell, NUM_BLOCKS, "none"), NUM_BLOCKS)
+            del ell
+            exact_cfg = api.SolveConfig(method="none", truncate_rank=m,
+                                        num_blocks=NUM_BLOCKS,
+                                        use_kernel=True)
+            user_cfg = api.SolveConfig(method="neighbor_random",
+                                       truncate_rank=16, oversample=8,
+                                       num_blocks=NUM_BLOCKS,
+                                       use_kernel=True)
+            exact_bounds = np.linspace(0, m, 5).astype(int)
+            user_bounds = list(range(0, m, STREAM_BATCH_ROWS)) + [m]
+            for drv in (drivers if i % 2 == 0 else drivers[::-1]):
+                hierarchy.CUDA_SVD_DRIVER = drv
+                st, ex_ms = run_stream(coo, exact_cfg, exact_bounds)
+                ex = dict(u_ortho_err=ortho_err(st.u),
+                          v_ortho_err=ortho_err(st.v),
+                          max_abs_dS=float((st.s.double() - s_ref)
+                                           .abs().max()),
+                          merge_svd_ms=ex_ms)
+                st, us_ms = run_stream(coo, user_cfg, user_bounds)
+                us = dict(u_ortho_err=ortho_err(st.u),
+                          v_ortho_err=ortho_err(st.v), merge_svd_ms=us_ms)
+                runs.append(dict(seed=seed, driver=drv or "default",
+                                 exact=ex, user=us))
+    finally:
+        hierarchy.CUDA_SVD_DRIVER = committed
+    summary = {}
+    for drv in drivers:
+        mine = [r for r in runs if r["driver"] == (drv or "default")]
+        summary[drv or "default"] = {
+            f"{kind}_{what}": max(r[kind][f"{what}_ortho_err"] for r in mine)
+            for kind in ("exact", "user") for what in ("u", "v")}
+        summary[drv or "default"].update(
+            exact_merge_svd_ms_total=sum(sum(r["exact"]["merge_svd_ms"])
+                                         for r in mine),
+            user_merge_svd_ms_total=sum(sum(r["user"]["merge_svd_ms"])
+                                        for r in mine))
+    worst = max(v for k, v in summary[committed or "default"].items()
+                if k.endswith(("_u", "_v")))
+    check(worst <= 1e-4, f"merge_driver_ab: the committed driver "
+          f"{committed or 'default'} reaches |X^T X - I| {worst} > 1e-4")
+    emit("merge_driver_ab", committed=committed or "default",
+         seeds=list(MERGE_AB_SEEDS), worst_ortho_err_and_ms=summary,
+         runs=runs, ortho_limit=1e-4)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -740,7 +1317,8 @@ def main() -> int:
 
     for phase in (phase_kernels, phase_solve_sparse_exact,
                   phase_solve_dense_exact, phase_solve_randomized,
-                  phase_solve_scaled):
+                  phase_solve_scaled, phase_stream_exact, phase_stream_serve,
+                  phase_serve_scaled, phase_merge_driver_ab):
         phase(state)
         torch.cuda.synchronize()
 
@@ -755,6 +1333,7 @@ def main() -> int:
             launches_by_solve={solve: counts[name]
                                for solve, counts in by_solve.items()},
             **state["kernel_main"][name]))
+    emit("stage_summary", **state["stage_summary"])
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -4,9 +4,11 @@ contribution), in PyTorch.
 Public surface (``__all__``):
 
 * ``api``: the one front door: ``api.svd(a, SolveConfig(...)) ->
-  SVDResult`` with an explainable plan (``api.plan``) and diagnostics.
+  SVDResult`` with an explainable plan (``api.plan``) and diagnostics;
+  streaming (``svd_init`` / ``plan_update`` / ``svd_update``) and serving
+  (``api.serve_init`` / ``api.serve_topk``).  The streaming names,
   ``SolveConfig`` / ``SVDResult`` / ``Plan`` / ``ASpec`` / ``plan`` are
-  re-exported here for convenience.
+  re-exported here for convenience, as in the reference.
 * ``ranky_svd``: the legacy entry point, a thin shim over the same engine.
 * ``sparse`` / ``randomized`` / ``planner`` / ``convert``: submodules.
 * ``stages``: opt-in wall times of a solve's stages (port only, until the
@@ -40,6 +42,9 @@ from repro_torch.core.api import (  # noqa: F401
     SVDResult,
     Diagnostics,
     plan,
+    plan_update,
+    svd_init,
+    svd_update,
 )
 from repro_torch.core.planner import ASpec, Plan, PlanError  # noqa: F401
 
@@ -47,6 +52,8 @@ __all__ = [
     # the unified front door
     "api", "SolveConfig", "SVDResult", "Diagnostics", "plan",
     "ASpec", "Plan", "PlanError", "planner", "DEFAULT_SEED",
+    # the streaming front door (repro_torch.stream underneath)
+    "svd_init", "svd_update", "plan_update",
     # legacy entry point (deprecation shim over the same engine)
     "ranky_svd",
     # submodules

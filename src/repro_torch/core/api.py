@@ -14,6 +14,15 @@
   wall time).
 * :func:`plan`: the planner alone: what WOULD ``svd`` do for a matrix
   of this shape, and why.
+* :func:`svd_init` / :func:`svd_update`: the STREAMING front door
+  (``repro_torch.stream`` underneath): fold batches of new rows into a
+  long-lived truncated factorization by merge-and-truncate, with
+  :func:`plan_update` answering rule R5's "does one ingest fit this
+  device" from the batch shape alone.  (``svd_stream``, the scan-window
+  driver of rule R6, is not ported yet.)
+* :func:`serve_init` / :func:`serve_topk`: the SERVING front door (rule
+  R7): a double-buffered snapshot of a streamed state, answered in
+  request waves by the fused score + top-k kernel.
 
 Device: the entry points run on the GPU.  ``device=None`` resolves to the
 current CUDA device and RAISES when there is none; pass ``device="cpu"``
@@ -21,9 +30,9 @@ to run on the host (the tests do).  A ``BlockEll`` or tensor input that
 already lies on a device is moved to the resolved one.
 
 Only ``backend="single"`` runs in this package so far: a plan whose
-backend is ``hierarchical`` or ``shard_map`` raises
-``NotImplementedError`` (never a silent single-host solve in its place).
-The streaming and serving entry points arrive with their slices.
+backend is ``hierarchical`` or ``shard_map`` (one-shot, streaming or
+serving) raises ``NotImplementedError`` (never a silent single-host solve
+in its place).
 
 Determinism: ``key=None`` everywhere resolves to the ONE documented
 default seed ``ranky.DEFAULT_SEED``, so repeated solves of the same input
@@ -566,6 +575,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _timed_start(device: torch.device):
+    """(t0, kernel build seconds before): the clock of a front-door call,
+    the device synchronized first."""
+    _sync(device)
+    return time.perf_counter(), kernel_build.build_seconds
+
+
+def _timed_finish(device: torch.device, t0: float, built_before):
+    """(wall, compile, run) seconds of a call started by _timed_start:
+    the kernels are built at most once per process, so this call paid for
+    the build exactly when the recorded build time appeared during it."""
+    _sync(device)
+    wall = time.perf_counter() - t0
+    compile_s = (kernel_build.build_seconds or 0.0) \
+        if built_before is None else 0.0
+    compile_s = min(wall, compile_s)
+    return wall, compile_s, wall - compile_s
+
+
 def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         device=None, draws: Optional[RepairDraws] = None,
         omega: Optional[torch.Tensor] = None, **overrides) -> SVDResult:
@@ -591,9 +619,7 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
     config = _reject_stream_knobs(_coerce_config(config, overrides), "svd")
     device = resolve_device(device)
 
-    _sync(device)
-    t0 = time.perf_counter()
-    built_before = kernel_build.build_seconds
+    t0, built_before = _timed_start(device)
     with stage("describe_and_plan"):
         d, note = _resolve_num_blocks(a, config, device)
         spec = describe(a, d)
@@ -640,13 +666,7 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         v = v[:, :k] if v is not None else None
     if v is not None:
         v = v[:spec.n]  # trim the adapter's zero-column padding back off
-    _sync(device)
-    wall = time.perf_counter() - t0
-    # The kernels are built at most once per process: this call paid for
-    # the build exactly when the recorded build time appeared during it.
-    compile_s = (kernel_build.build_seconds or 0.0) \
-        if built_before is None else 0.0
-    compile_s = min(wall, compile_s)
+    wall, compile_s, run_s = _timed_finish(device, t0, built_before)
 
     with stage("diagnostics"):       # after the clock: not in wall_time_s
         lonely = ranky.lonely_rows_per_block(a_norm, d)
@@ -660,7 +680,398 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         repaired_rows=repaired,
         strategy=p.strategy,
         estimated_peak_bytes=p.estimated_peak_bytes,
-        wall_time_s=wall, compile_time_s=compile_s,
-        run_time_s=wall - compile_s,
+        wall_time_s=wall, compile_time_s=compile_s, run_time_s=run_s,
     )
     return SVDResult(u=u, s=s, v=v, plan=p, diagnostics=diag)
+
+
+# ---------------------------------------------------------------------------
+# The streaming front door: svd_init / plan_update / svd_update
+# ---------------------------------------------------------------------------
+
+def _require_stream_config(config: SolveConfig) -> SolveConfig:
+    if config.truncate_rank is None:
+        raise ValueError(
+            "streaming needs SolveConfig.truncate_rank=k — the rank the "
+            "merge-and-truncate state is re-truncated to after every "
+            "ingest (svd_update has no exact fallback; an untruncated "
+            "stream would grow without bound)")
+    if config.backend not in ("auto", "single"):
+        raise ValueError(
+            f"invalid streaming config: backend={config.backend!r} — "
+            f"backend= picks the ONE-SHOT engine; streaming picks its "
+            f"engine with stream_backend= ('single', 'shard_map' or "
+            f"'auto'), so leave backend at 'auto'/'single'")
+    if config.sketch:
+        raise ValueError(
+            "invalid streaming config: sketch=True belongs to the "
+            "hierarchical tree merge; to force the randomized BATCH "
+            "factorization set rank=r instead")
+    if config.local_mode != "gram" or config.merge_mode != "gram":
+        raise ValueError(
+            f"invalid streaming config: local_mode="
+            f"{config.local_mode!r} / merge_mode={config.merge_mode!r} "
+            f"— the streaming batch factorization is gram-native and "
+            f"its merge is the fixed panel SVD; neither knob applies "
+            f"(and the plan would misreport what ran)")
+    return config
+
+
+def _delta_nnz_estimate(delta) -> int:
+    """Cheap nnz for the R5 plan's ASpec.  No R5 byte estimate or
+    decision consults nnz (it is informational, ``Plan.explain``), so the
+    ingest hot path must not scan or device-to-host-copy the batch for
+    it: exact O(1) for COO; exact O(1) for a BlockEll that recorded its
+    true nnz at construction (``block_ell_from_coo`` always does);
+    stored-slot capacity (an upper bound, no transfer) for one that did
+    not; m*n for dense."""
+    if isinstance(delta, sparse.COOMatrix):
+        return delta.nnz
+    if isinstance(delta, sparse.BlockEll):
+        if delta.nnz is not None:
+            return delta.nnz
+        return int(np.prod(delta.col_vals.shape))
+    shape = tuple(delta.shape) if isinstance(delta, torch.Tensor) \
+        else np.shape(delta)
+    return int(shape[0]) * int(shape[1])  # shape metadata, data untouched
+
+
+def _batch_universe(delta) -> Tuple[int, Optional[int]]:
+    """(n, num_blocks-or-None) a fresh stream should adopt from its
+    first delta."""
+    from repro_torch import stream as streaming
+
+    _, n = streaming.delta_shape(delta)
+    d = delta.num_blocks if isinstance(delta, sparse.BlockEll) else None
+    return n, d
+
+
+def svd_init(n: int, config: Optional[SolveConfig] = None, *,
+             device=None, **overrides):
+    """A fresh rank-0 streaming state over an ``n``-column universe, on
+    ``device`` (``None``: the GPU).
+
+    ``num_blocks`` resolves like everywhere else: explicit config wins,
+    else the planner default.  The state's seed chain root is
+    ``config.key`` (``ranky.DEFAULT_SEED`` when unset), so an unkeyed
+    stream is reproducible like every other entry point.
+    """
+    from repro_torch import stream as streaming
+
+    config = _require_stream_config(_coerce_config(config, overrides))
+    d = config.num_blocks or planner.DEFAULT_NUM_BLOCKS
+    return streaming.init_state(n, num_blocks=d, seed=config.resolved_key(),
+                                device=device)
+
+
+def plan_update(batch: Union[MatrixInput, ASpec],
+                config: Optional[SolveConfig] = None, *,
+                state=None, device=None, **overrides) -> Plan:
+    """What would :func:`svd_update` do for this batch, and why (rules
+    R5/R5d).  ``batch`` may be an :class:`~repro_torch.core.planner.ASpec`
+    (so "can I fold a 1M-row day of data into this model on one device"
+    is answerable with no data, only shapes) or an actual delta, in which
+    case ``state`` supplies the column universe.  The device count of
+    ``device`` (the state's device when a state is given; ``None``: the
+    GPU) feeds rule R5d's backend choice."""
+    from repro_torch import stream as streaming
+
+    config = _require_stream_config(_coerce_config(config, overrides))
+    if state is not None and device is None:
+        device = state.device
+    dev_count = _device_count(resolve_device(device))
+    if isinstance(batch, ASpec):
+        return planner.make_stream_plan(batch, config,
+                                        device_count=dev_count)
+    if state is None:
+        raise ValueError(
+            "plan_update needs state= (for the column universe) when "
+            "batch is an actual delta; pass an ASpec to plan from "
+            "shapes alone")
+    m_b, _ = streaming.delta_shape(batch)
+    spec = ASpec(m=m_b, n=state.n, nnz=_delta_nnz_estimate(batch),
+                 num_blocks=state.num_blocks, kind="stream")
+    p = planner.make_stream_plan(spec, config, device_count=dev_count)
+    # R5's closed form covers the merge working set; with a real state
+    # in hand the (linear-in-rows-seen) left-factor update is concrete,
+    # so say it out loud.
+    u_bytes = planner.BYTES_F32 * 2 * (state.rows_seen + m_b) \
+        * config.truncate_rank
+    return dataclasses.replace(p, reasons=p.reasons + (
+        f"state has rows_seen={state.rows_seen}: updating its left "
+        f"factor u touches a further ~{u_bytes:,}B (linear in rows "
+        f"seen; excluded from the R5 peak)",))
+
+
+def _state_to(state, device: torch.device):
+    if state.device == device:
+        return state
+    return dataclasses.replace(state, u=state.u.to(device),
+                               s=state.s.to(device), v=state.v.to(device))
+
+
+def svd_update(state, delta, config: Optional[SolveConfig] = None, *,
+               device=None, draws: Optional[RepairDraws] = None,
+               omega: Optional[torch.Tensor] = None,
+               **overrides) -> SVDResult:
+    """Fold a batch of new rows into an existing streaming state: the
+    incremental front door (``repro_torch.stream`` underneath).
+
+    Args:
+      state: a :class:`~repro_torch.stream.state.StreamingSVDState` from
+        :func:`svd_init` or a previous result's ``.state``.
+      delta: the new rows, in the state's column universe: dense
+        (m_b, n) rows, a ``sparse.COOMatrix``, or a pre-split
+        ``sparse.BlockEll`` (sparse deltas run sparse-natively).
+      config: a :class:`SolveConfig` with ``truncate_rank=k`` set;
+        ``history_decay`` < 1 forgets old rows exponentially;
+        ``rank=r`` forces the randomized batch factorization.
+      device: where the ingest runs; ``None`` is the state's own device
+        (a state on another device is moved there first).
+      draws / omega: inject this batch's random inputs (repair draws,
+        the sketch's (L, m_b) test matrix); by default batch ``b`` draws
+        from ``ranky.derive_seed(state.seed, b)``.
+
+    Returns an :class:`SVDResult` whose factors cover EVERY row
+    ingested so far (``u`` in ingestion order, ``v`` trimmed to the
+    original columns when ``want_right``), with the R5 plan, per-batch
+    diagnostics, and the updated ``state`` for the next call.
+    """
+    from repro_torch import stream as streaming
+
+    config = _require_stream_config(_coerce_config(config, overrides))
+    if not isinstance(state, streaming.StreamingSVDState):
+        raise TypeError(
+            f"svd_update needs a StreamingSVDState (from svd_init or a "
+            f"previous result's .state); got {type(state)}")
+    if (config.num_blocks is not None
+            and config.num_blocks != state.num_blocks):
+        raise ValueError(
+            f"config.num_blocks={config.num_blocks} but the state's "
+            f"column universe has num_blocks={state.num_blocks}; the "
+            f"universe is fixed at svd_init time")
+    device = state.device if device is None else resolve_device(device)
+    state = _state_to(state, device)
+
+    t0, built_before = _timed_start(device)
+    with stage("describe_and_plan"):
+        p = plan_update(delta, config, state=state)
+    if p.backend != "single":
+        raise NotImplementedError(
+            f"the stream plan's backend is {p.backend!r}, which is not "
+            f"ported yet: ROADMAP.md {_UNPORTED_BACKENDS[p.backend]}; set "
+            f"stream_backend='single' (plan: {'; '.join(p.reasons)})")
+    new_state, info = streaming.ingest(state, delta, config, p,
+                                       draws=draws, omega=omega)
+    wall, compile_s, run_s = _timed_finish(device, t0, built_before)
+
+    diag = Diagnostics(
+        lonely_rows_per_block=info.lonely_rows_per_block,
+        lonely_rows=info.lonely_rows,
+        repaired_rows=info.repaired_rows,
+        strategy=p.strategy,
+        estimated_peak_bytes=p.estimated_peak_bytes,
+        wall_time_s=wall, compile_time_s=compile_s, run_time_s=run_s,
+    )
+    v = new_state.trimmed_v() if config.want_right else None
+    return SVDResult(u=new_state.u, s=new_state.s, v=v, plan=p,
+                     diagnostics=diag, state=new_state)
+
+
+# ---------------------------------------------------------------------------
+# Serving front door: serve_init / serve_topk (planner rule R7)
+# ---------------------------------------------------------------------------
+
+SERVE_BACKENDS = ("single", "shard_map", "auto")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeTopKConfig:
+    """Every knob of the top-k serving path, validated on construction
+    (the ``SolveConfig`` contract: invalid configs cannot be built).
+
+    * ``batch_size`` — the request-wave width B the plan prices; waves
+      up to this many query rows are accepted per ``serve_topk`` call.
+    * ``k_top`` — items returned per query.
+    * ``block_n`` — score-tile width of the fused kernel (multiple of
+      128); the per-wave working set is one (B, block_n) tile,
+      independent of N.  On the GPU each thread block of the kernel
+      scans a run of whole tiles.
+    * ``quantize`` — serve int8 factors + per-item scales (kvquant
+      axis=-1) instead of f32 ``v`` (~4x smaller residency; the scale
+      folds into the score contraction, nothing is dequantized).
+    * ``keep_u`` — carry the state's ``u`` rows in the snapshot for
+      known-user lookups (``ranker.user_queries``); costs
+      4 * rows_seen * k resident bytes.
+    * ``use_kernel`` — fused score+top-k kernel vs the plain version
+      that materializes the (B, N) score matrix (planner rule R7 prices
+      both; results are bit-identical either way).
+    * ``serve_backend`` — ``"single"``, ``"shard_map"`` (one column
+      block per device; degrades honestly to single when the device
+      count does not match; the sharded ranker itself is not ported
+      yet) or ``"auto"``.
+    * ``num_blocks`` — column-block count; ``None`` takes the state's.
+    * ``memory_budget_bytes`` — R7 budget (default 4 GiB).
+    """
+
+    batch_size: int = 32
+    k_top: int = 10
+    block_n: int = 512
+    quantize: bool = False
+    keep_u: bool = False
+    use_kernel: bool = True
+    serve_backend: str = "auto"
+    num_blocks: Optional[int] = None
+    memory_budget_bytes: Optional[int] = None
+
+    def __post_init__(self):
+        # --- single-field domains -----------------------------------
+        if self.batch_size < 1:
+            raise ValueError(
+                f"invalid ServeTopKConfig: batch_size={self.batch_size} "
+                f"must be >= 1")
+        if self.k_top < 1:
+            raise ValueError(
+                f"invalid ServeTopKConfig: k_top={self.k_top} must be >= 1")
+        if self.block_n < 128 or self.block_n % 128:
+            # (the reference's wording, kept so that both packages raise
+            # the same message)
+            raise ValueError(
+                f"invalid ServeTopKConfig: block_n={self.block_n} must be "
+                f"a positive multiple of 128 (the TPU lane width)")
+        if self.serve_backend not in SERVE_BACKENDS:
+            raise ValueError(
+                f"invalid ServeTopKConfig: serve_backend="
+                f"{self.serve_backend!r} must be one of {SERVE_BACKENDS}")
+        if self.num_blocks is not None and self.num_blocks < 1:
+            raise ValueError(
+                f"invalid ServeTopKConfig: num_blocks={self.num_blocks} "
+                f"must be >= 1")
+        if (self.memory_budget_bytes is not None
+                and self.memory_budget_bytes < 1):
+            raise ValueError(
+                f"invalid ServeTopKConfig: memory_budget_bytes="
+                f"{self.memory_budget_bytes} must be >= 1")
+
+        # --- cross-field constraints (each names both fields) -------
+        if self.use_kernel and self.k_top > self.block_n:
+            raise _bad("k_top", self.k_top, "block_n", self.block_n,
+                       "the fused kernel's running top-k must fit one "
+                       "score tile (its merge buffer is tile-bounded); "
+                       "raise block_n or set use_kernel=False",
+                       kind="ServeTopKConfig")
+
+
+@dataclasses.dataclass
+class ServeHandle:
+    """One live serving endpoint: the double-buffered snapshot cell plus
+    the R7 plan and config that built it.  ``commit`` folds a freshly
+    ingested state in (stage + atomic publish); reads via ``serve_topk``
+    always see exactly one consistent snapshot."""
+
+    buffer: Any          # serve.snapshot.SnapshotBuffer
+    plan: Plan
+    config: ServeTopKConfig
+
+    def read(self):
+        return self.buffer.read()
+
+    @property
+    def version(self) -> int:
+        return self.buffer.version
+
+    def commit(self, state):
+        """Publish a new state to readers (between request waves)."""
+        if state.n != self.buffer.read().n:
+            raise ValueError(
+                f"state.n={state.n} does not match the serving "
+                f"universe n={self.buffer.read().n}; serve_init a new "
+                f"handle to change universes")
+        return self.buffer.commit(state)
+
+    def metrics(self) -> Dict[str, Any]:
+        """Live endpoint health: snapshot version + staleness from the
+        buffer itself and the plan's priced peak.  The serve-side
+        counters and latency quantiles of the observability layer are not
+        ported yet."""
+        return {
+            "snapshot_version": self.buffer.version,
+            "snapshot_age_s": self.buffer.age_seconds(),
+            "planned_peak_bytes": self.plan.estimated_peak_bytes,
+        }
+
+
+def _coerce_serve_config(config: Optional[ServeTopKConfig],
+                         overrides: Dict[str, Any]) -> ServeTopKConfig:
+    if config is None:
+        return ServeTopKConfig(**overrides)
+    if overrides:
+        return dataclasses.replace(config, **overrides)
+    return config
+
+
+def serve_init(state, config: Optional[ServeTopKConfig] = None,
+               **overrides) -> ServeHandle:
+    """Open a serving endpoint over a streamed state (planner rule R7).
+
+    Builds the initial :class:`~repro_torch.serve.snapshot.ServingSnapshot`
+    (quantized to int8 when configured) on the state's device and returns
+    a :class:`ServeHandle` whose ``commit(new_state)`` publishes ingests
+    to readers without ever exposing a torn state.  The R7 plan
+    (closed-form serving bytes, fused vs fallback, backend) rides the
+    handle; ``handle.plan.explain()`` narrates it.
+    """
+    from repro_torch.serve import snapshot as snapshot_mod
+
+    config = _coerce_serve_config(config, overrides)
+    if config.num_blocks is not None and config.num_blocks != state.num_blocks:
+        raise _bad("num_blocks", config.num_blocks,
+                   "state.num_blocks", state.num_blocks,
+                   "the serving plan must price the state's own column "
+                   "blocking; drop num_blocks= to take the state's",
+                   kind="ServeTopKConfig")
+    resolved = (config if config.num_blocks is not None
+                else dataclasses.replace(config,
+                                         num_blocks=state.num_blocks))
+    plan = planner.make_serve_plan(
+        state.n, state.rank, resolved,
+        device_count=_device_count(state.device))
+    if plan.backend != "single":
+        raise NotImplementedError(
+            f"the serve plan's backend is {plan.backend!r}, which is not "
+            f"ported yet: ROADMAP.md {_UNPORTED_BACKENDS[plan.backend]}; "
+            f"set serve_backend='single'")
+    snap = snapshot_mod.ServingSnapshot.from_state(
+        state, quantize=resolved.quantize, keep_u=resolved.keep_u)
+    return ServeHandle(buffer=snapshot_mod.SnapshotBuffer(snap),
+                       plan=plan, config=resolved)
+
+
+def serve_topk(handle: ServeHandle, queries,
+               k_top: Optional[int] = None):
+    """Answer one request wave against the handle's CURRENT snapshot.
+
+    ``queries`` are factor-space rows (B, k), B up to the configured
+    ``batch_size`` (the wave width the R7 plan priced); raw interaction
+    rows project through ``ranker.project_rows`` first.  Returns a
+    :class:`~repro_torch.serve.ranker.TopKResult`: scores descending,
+    ties to the lowest item id, stamped with the snapshot version.
+    """
+    from repro_torch.serve import ranker as ranker_mod
+
+    queries = torch.as_tensor(queries)
+    cfg = handle.config
+    if queries.dim() != 2:
+        raise ValueError(
+            f"queries must be a (B, k) batch of factor-space rows, got "
+            f"shape {tuple(queries.shape)}")
+    if queries.shape[0] > cfg.batch_size:
+        raise ValueError(
+            f"wave of {queries.shape[0]} queries exceeds the planned "
+            f"batch_size={cfg.batch_size}; split the wave or serve_init "
+            f"with a larger batch_size")
+    with stage("serve.topk"):
+        return ranker_mod.score_topk(
+            handle.read(), queries,
+            cfg.k_top if k_top is None else k_top,
+            block_n=cfg.block_n, use_kernel=cfg.use_kernel)

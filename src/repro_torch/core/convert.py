@@ -66,3 +66,39 @@ def draws_from_numpy(random_cols=None, neighbor_scores=None, *,
         else _tensor(random_cols, torch.int32, device),
         neighbor_scores=None if neighbor_scores is None
         else _tensor(neighbor_scores, torch.float32, device))
+
+
+def state_from_numpy(u, s, v, *, n: int, num_blocks: int, rows_seen: int,
+                     batches_seen: int, lonely_rows_seen: int,
+                     repaired_rows_seen: int, seed: ranky.Key = None,
+                     device=None):
+    """A reference ``StreamingSVDState`` (its ``u``, ``s``, ``v`` as numpy
+    arrays and its counters) -> the port's ``StreamingSVDState`` on
+    ``device``.  The reference's PRNG key has no counterpart: the port's
+    state chains its draws from the integer ``seed`` instead, so a
+    carried-over state re-draws only where the caller injects the draws."""
+    from repro_torch.stream.state import StreamingSVDState
+
+    device = resolve_device(device)
+    u, s, v = (np.asarray(x, np.float32) for x in (u, s, v))
+    if s.ndim != 1 or u.shape[1:] != s.shape or v.shape[1:] != s.shape:
+        raise ValueError(
+            f"state_from_numpy: u {u.shape}, s {s.shape}, v {v.shape} do "
+            f"not share one rank")
+    if u.shape[0] != rows_seen:
+        raise ValueError(
+            f"state_from_numpy: u has {u.shape[0]} rows, rows_seen="
+            f"{rows_seen}")
+    if v.shape[0] != num_blocks * sparse.block_width(n, num_blocks):
+        raise ValueError(
+            f"state_from_numpy: v has {v.shape[0]} rows, the universe "
+            f"n={n}, num_blocks={num_blocks} pads to "
+            f"{num_blocks * sparse.block_width(n, num_blocks)}")
+    return StreamingSVDState(
+        u=_tensor(u, torch.float32, device),
+        s=_tensor(s, torch.float32, device),
+        v=_tensor(v, torch.float32, device),
+        seed=ranky.seed_of(seed), n=int(n), num_blocks=int(num_blocks),
+        rows_seen=int(rows_seen), batches_seen=int(batches_seen),
+        lonely_rows_seen=int(lonely_rows_seen),
+        repaired_rows_seen=int(repaired_rows_seen))

@@ -10,10 +10,14 @@ returns a :class:`Plan` whose ``reasons`` spell out the decision.  The
 solve result (``api.SVDResult.plan``) echoes the plan back, so "why did
 it sketch?" is always answerable from the result object.
 
-This is the one-shot half (rules R1-R4) of the reference's
-``repro.core.planner``, carried over as pure arithmetic: every estimate,
-decision and reason string equals the reference's to the byte.  The
-streaming, window, recovery and serving rules arrive with their slices.
+This is the reference's ``repro.core.planner`` for the one-shot rules
+R1-R4, the streaming rules R5/R5d (:func:`make_stream_plan`) and the
+serving rule R7 (:func:`make_serve_plan`), carried over as pure
+arithmetic: every estimate, decision and reason string equals the
+reference's to the byte.  The window (R6) and recovery (R8) rules arrive
+with their slices.  A plan may name the ``shard_map`` backend (the
+arithmetic does not depend on what is ported); the front door raises
+``NotImplementedError`` for it.
 
 Byte estimates (float32, dominant term only):
 
@@ -125,6 +129,12 @@ def hierarchical_bytes(spec: ASpec, rank: Optional[int]) -> int:
     return BYTES_F32 * spec.num_blocks * spec.m * r
 
 
+def stream_panel_width(rank: int, oversample: int, batch_m: int) -> int:
+    """l_b = min(rank + oversample, batch rows): the batch's merge-panel
+    width (how many columns the batch contributes to the R5 merge)."""
+    return min(rank + oversample, batch_m)
+
+
 def solve_repair_bytes(spec: ASpec) -> int:
     """R1–R4 split-and-repair transient for DENSE one-shot inputs: the
     split (D, M, W) block view and the repaired copy, live while the
@@ -136,6 +146,81 @@ def solve_repair_bytes(spec: ASpec) -> int:
     the sketch's input.  ``Plan.peak_bytes`` keeps reporting the
     strategy's dominant term only, as documented above."""
     return BYTES_F32 * 2 * spec.m * spec.num_blocks * spec.width
+
+
+def stream_repair_bytes(batch: ASpec) -> int:
+    """R5 repair transient: ``split_and_repair`` materializes the split
+    (D, m, W) block view and the repaired copy before the masked blocks
+    reach the factorization: two batch-sized temporaries."""
+    return BYTES_F32 * 2 * batch.m * batch.num_blocks * batch.width
+
+
+def stream_repair_bytes_per_device(batch: ASpec) -> int:
+    """R5d repair transient per device: the (m, W) nonzero mask plus
+    the repaired block copy, and the two (m, m) buffers of the summed
+    global adjacency."""
+    return BYTES_F32 * 2 * (batch.m * batch.width + batch.m * batch.m)
+
+
+def _batch_rank(rank: int, oversample: int, batch: ASpec,
+                batch_rank: Optional[int]) -> int:
+    return (stream_panel_width(rank, oversample, batch.m)
+            if batch_rank is None else min(batch_rank, batch.m))
+
+
+def stream_merge_bytes(batch: ASpec, rank: int, oversample: int, *,
+                       batch_rank: Optional[int] = None) -> int:
+    """R5 merge term: the (N_pad, k + r_b) stacked panel
+    [V diag(s) | B^T U_b] plus an equal-sized SVD workspace, with
+    ``r_b = l_b`` by default or an explicitly forced ``batch_rank``.
+    No term depends on the rows already ingested."""
+    r_b = _batch_rank(rank, oversample, batch, batch_rank)
+    n_pad = batch.num_blocks * batch.width
+    return BYTES_F32 * 2 * n_pad * (rank + r_b)
+
+
+def stream_merge_bytes_per_device(batch: ASpec, rank: int, oversample: int,
+                                  *, batch_rank: Optional[int] = None) -> int:
+    """R5d merge term: the per-device (W, k + r_b) slice of the stacked
+    panel plus its same-sized output shard (``stream_merge_bytes`` with
+    N_pad replaced by the block width W)."""
+    r_b = _batch_rank(rank, oversample, batch, batch_rank)
+    return BYTES_F32 * 2 * batch.width * (rank + r_b)
+
+
+def streaming_bytes_per_device(batch: ASpec, rank: int, oversample: int, *,
+                               exact: bool,
+                               batch_rank: Optional[int] = None) -> int:
+    """R5d total: one sharded ``svd_update``'s PER-DEVICE peak = batch
+    factorization (exact: one local (m, m) gram + the reduction buffer;
+    sketch: the per-device (L, W) block sketch + (L, m) pullback / (m, L)
+    QR workspace) + the per-device repair transient + the per-device
+    merge slice.  Independent of the rows already ingested, like R5."""
+    r_b = _batch_rank(rank, oversample, batch, batch_rank)
+    if exact:
+        base = BYTES_F32 * batch.m * batch.m
+    else:
+        l = sketch_width(r_b, oversample, batch.m)
+        base = BYTES_F32 * (l * batch.width + 2 * batch.m * l)
+    return (base + stream_repair_bytes_per_device(batch)
+            + stream_merge_bytes_per_device(batch, rank, oversample,
+                                            batch_rank=batch_rank))
+
+
+def streaming_bytes(batch: ASpec, rank: int, oversample: int, *,
+                    exact: bool, batch_rank: Optional[int] = None) -> int:
+    """R5 total: one ``svd_update`` peak = batch factorization (exact
+    gram stack or randomized sketch of the BATCH: ``batch.m`` is the
+    batch row count, not the rows seen) + the split-and-repair transient
+    + the merge panel.  The sketch term is estimated at rank ``r_b``
+    (internal width ``min(r_b + oversample, m)``), the width the engine
+    allocates."""
+    r_b = _batch_rank(rank, oversample, batch, batch_rank)
+    base = (exact_bytes(batch) if exact
+            else sketch_bytes(batch, r_b, oversample))
+    return (base + stream_repair_bytes(batch)
+            + stream_merge_bytes(batch, rank, oversample,
+                                 batch_rank=batch_rank))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,3 +396,271 @@ def make_plan(spec: ASpec, config, *, device_count: int = 1,
             f"shard_map over {device_count} devices (one column block "
             f"per device)")
     return finish(backend, exact_strategy(), reasons)
+
+
+# ---------------------------------------------------------------------------
+# Rules R5 / R5d: one streaming ingest (api.svd_update)
+# ---------------------------------------------------------------------------
+
+def make_stream_plan(batch: ASpec, config, *, device_count: int = 1) -> Plan:
+    """Rules R5/R5d: plan one streaming ``svd_update`` from the BATCH
+    shape plus the device environment.
+
+    ``batch`` describes the incoming delta (``m`` = batch rows, ``n`` /
+    ``num_blocks`` = the state's column universe).  Two decisions:
+
+    * **backend** (R5d): ``config.stream_backend`` picks the engine.
+      ``"shard_map"`` (or ``"auto"`` when one device per column block is
+      available) shards the state's ``v`` and the merge panel; peak bytes
+      are then PER DEVICE.  A requested shard_map that the environment
+      cannot honor degrades honestly to the single-host engine with a
+      reason saying so.
+    * **batch factorization**: the returned plan's ``rank`` field:
+      ``None`` = exact per-block gram stack + eigh, ``r`` = randomized
+      rank-r sketch.  ``config.rank``, when set, forces the sketch.
+
+    Like R3, R5/R5d never raise: when nothing fits the budget the
+    planner degrades honestly to the cheaper batch factorization and
+    says so.
+    """
+    k = config.truncate_rank
+    if k is None:
+        raise ValueError(
+            "make_stream_plan needs SolveConfig.truncate_rank=k (the "
+            "streaming truncation rank); got truncate_rank=None")
+    budget = config.memory_budget_bytes or DEFAULT_MEMORY_BUDGET
+    l_b = stream_panel_width(k, config.oversample, batch.m)
+    est = {
+        "stream_exact": streaming_bytes(batch, k, config.oversample,
+                                        exact=True),
+        "stream_sketch": streaming_bytes(batch, k, config.oversample,
+                                         exact=False),
+    }
+
+    stream_backend = getattr(config, "stream_backend", "auto")
+    shard_ok = device_count == batch.num_blocks and device_count > 1
+    use_shard = shard_ok and stream_backend in ("auto", "shard_map")
+    degrade_reasons = []
+    if stream_backend == "shard_map" and not shard_ok:
+        why_not = (f"only {device_count} device is available"
+                   if device_count == batch.num_blocks else
+                   f"device_count={device_count} != num_blocks="
+                   f"{batch.num_blocks}")
+        degrade_reasons.append(
+            f"R5d: stream_backend='shard_map' requested but {why_not} "
+            f"(sharded ingest needs one column block per device, more "
+            f"than one device total); degrading honestly to the "
+            f"single-host merge")
+
+    if use_shard:
+        est["stream_exact_per_device"] = streaming_bytes_per_device(
+            batch, k, config.oversample, exact=True)
+        est["stream_sketch_per_device"] = streaming_bytes_per_device(
+            batch, k, config.oversample, exact=False)
+        backend, exact_key, sketch_key = ("shard_map",
+                                          "stream_exact_per_device",
+                                          "stream_sketch_per_device")
+        merge = stream_merge_bytes_per_device(batch, k, config.oversample)
+        rule = (f"R5d: sharded streaming merge-and-truncate over "
+                f"{device_count} devices (v column-block-sharded, batch "
+                f"partials psum'd, the (k + l_b)-sized rotation from one "
+                f"psum'd Gram) — PER-DEVICE peak = batch factorization + "
+                f"{merge:,}B merge slice (2 * W * (k={k} + l_b={l_b}) "
+                f"floats), independent of rows already ingested")
+    else:
+        backend, exact_key, sketch_key = ("single", "stream_exact",
+                                          "stream_sketch")
+        merge = stream_merge_bytes(batch, k, config.oversample)
+        rule = (f"R5: streaming merge-and-truncate — per-update peak = "
+                f"batch factorization + {merge:,}B merge panel "
+                f"(2 * N_pad * (k={k} + l_b={l_b}) floats), independent "
+                f"of rows already ingested (excludes the state's "
+                f"left-factor update, ~8*rows_seen*k B, linear in rows "
+                f"seen)")
+    head = [rule] + degrade_reasons
+
+    def finish(rank, peak, reasons):
+        return Plan(
+            backend=backend, strategy="streaming", method=config.method,
+            merge_mode=config.merge_mode, local_mode=config.local_mode,
+            rank=rank, truncate_to=None, sketch_leaves=False,
+            num_blocks=batch.num_blocks, spec=batch, estimates=dict(est),
+            budget=budget, reasons=tuple(head + reasons), peak_bytes=peak)
+
+    if config.rank is not None:
+        # The forced sketch runs at rank=config.rank, not l_b: estimate
+        # the width the engine will actually allocate.
+        est["stream_sketch"] = streaming_bytes(
+            batch, k, config.oversample, exact=False,
+            batch_rank=config.rank)
+        if use_shard:
+            est["stream_sketch_per_device"] = streaming_bytes_per_device(
+                batch, k, config.oversample, exact=False,
+                batch_rank=config.rank)
+        return finish(min(config.rank, batch.m), est[sketch_key], [
+            f"rank={config.rank} requested explicitly — randomized "
+            f"batch factorization ({est[sketch_key]:,}B)"])
+    if est[exact_key] <= budget and batch.m <= EXACT_TRUNC_MAX_M:
+        return finish(None, est[exact_key], [
+            f"exact batch factorization — {est[exact_key]:,}B "
+            f"fits the budget ({budget:,}B) and batch rows "
+            f"{batch.m} <= {EXACT_TRUNC_MAX_M} (more accurate than "
+            f"the sketch)"])
+    why = (f"exceeds the budget ({budget:,}B)"
+           if est[exact_key] > budget
+           else f"batch rows {batch.m} > exact ceiling {EXACT_TRUNC_MAX_M}")
+    if est[sketch_key] <= budget:
+        return finish(l_b, est[sketch_key], [
+            f"the exact batch gram stack needs "
+            f"{est[exact_key]:,}B which {why}; the "
+            f"(k+p)-row batch sketch fits at "
+            f"{est[sketch_key]:,}B"])
+    cheaper_exact = est[exact_key] <= est[sketch_key]
+    rank = None if cheaper_exact else l_b
+    peak = est[exact_key] if cheaper_exact else est[sketch_key]
+    return finish(rank, peak, [
+        f"NO batch factorization fits the budget ({budget:,}B): "
+        f"exact {est[exact_key]:,}B, sketch "
+        f"{est[sketch_key]:,}B; proceeding with the cheaper "
+        f"{'exact gram stack' if cheaper_exact else 'sketch'}"])
+
+
+# ---------------------------------------------------------------------------
+# Rule R7: serving bytes for the top-k retrieval front end (api.serve_*)
+# ---------------------------------------------------------------------------
+
+def serve_factor_bytes(cols: int, rank: int, *, quantized: bool = False) -> int:
+    """Resident item-factor bytes for ``cols`` rows of ``v`` at ``rank``:
+    f32 is ``4 * cols * k``; int8 is ``cols * k`` plus ``4 * cols`` for
+    the per-item dequant scales (kvquant axis=-1)."""
+    if quantized:
+        return cols * rank + BYTES_F32 * cols
+    return BYTES_F32 * cols * rank
+
+
+def serve_fused_bytes(batch: int, rank: int, k_top: int, block_n: int) -> int:
+    """Fused score+top-k working set, INDEPENDENT of the universe size:
+    the (B, k) queries, one (B, block_n) score tile, the (B, k_top)
+    running value/index pair, and the (B, k_top + block_n) merge
+    candidate pair (i32 indices are 4B like f32)."""
+    return BYTES_F32 * batch * (
+        rank + block_n + 2 * k_top + 2 * (k_top + block_n))
+
+
+def serve_fallback_bytes(batch: int, rank: int, cols: int, k_top: int) -> int:
+    """Plain fallback: materializes the FULL (B, cols) score matrix,
+    plus the queries and the (B, k_top) output pair."""
+    return BYTES_F32 * batch * (rank + cols + 2 * k_top)
+
+
+def serving_bytes(n: int, rank: int, batch: int, k_top: int, *,
+                  num_blocks: int = 1, quantized: bool = False,
+                  fused: bool = True, block_n: int = 512,
+                  per_device: bool = False) -> int:
+    """R7 total: resident factors + the score/select working set, plus,
+    under the sharded backend, the all-gathered (B, D*k_top) candidate
+    pair every device holds for the final merge.  ``per_device=True``
+    prices one device of the sharded engine (its (W, k) factor slice)."""
+    width = -(-n // num_blocks)
+    cols = width if per_device else num_blocks * width
+    if fused:
+        score = serve_fused_bytes(batch, rank, k_top, block_n)
+    else:
+        score = serve_fallback_bytes(batch, rank, cols, k_top)
+    gather = (2 * BYTES_F32 * batch * num_blocks * k_top
+              if per_device else 0)
+    return serve_factor_bytes(cols, rank, quantized=quantized) + score + gather
+
+
+def make_serve_plan(n: int, rank: int, config, *,
+                    device_count: int = 1) -> Plan:
+    """Rule R7: price and narrate the serving path for ``api.serve_init``.
+
+    ``n`` is the column universe, ``rank`` the snapshot's truncation
+    rank, ``config`` a ``ServeTopKConfig``.  Serving was explicitly
+    requested, so like R5 this NEVER raises; every compromise is a reason
+    on the plan:
+
+    * backend: ``shard_map`` when the config asks for it (or ``auto``
+      finds one device per column block) AND one device per column block
+      is available; otherwise single, with a reason when a sharded
+      request degraded.
+    * fused vs fallback: the fused kernel's working set never contains
+      the (B, N) score matrix; the plain fallback is chosen only when
+      ``use_kernel=False``, priced at the full score matrix.
+    * budget: when even the chosen path exceeds the budget there is no
+      cheaper serving strategy, so the plan keeps it and says so.
+    """
+    budget = config.memory_budget_bytes or DEFAULT_MEMORY_BUDGET
+    d = config.num_blocks
+    b, k_top, block_n = config.batch_size, config.k_top, config.block_n
+    quant = config.quantize
+    reasons = []
+
+    want_shard = config.serve_backend == "shard_map" or (
+        config.serve_backend == "auto" and device_count == d
+        and device_count > 1)
+    shard_ok = device_count == d and device_count > 1
+    if want_shard and not shard_ok:
+        reasons.append(
+            f"R7: serve_backend=shard_map needs one device per column "
+            f"block (D={d}, devices={device_count}); degrading to the "
+            f"single-device ranker")
+    sharded = want_shard and shard_ok
+    backend = "shard_map" if sharded else "single"
+    tag = "_per_device" if sharded else ""
+    scope = "PER-DEVICE " if sharded else ""
+
+    def sbytes(fused: bool) -> int:
+        return serving_bytes(n, rank, b, k_top, num_blocks=d,
+                             quantized=quant, fused=fused, block_n=block_n,
+                             per_device=sharded)
+
+    est = {
+        "serve_fused" + tag: sbytes(True),
+        "serve_fallback" + tag: sbytes(False),
+        "serve_factors" + tag: serve_factor_bytes(
+            (-(-n // d)) if sharded else d * (-(-n // d)),
+            rank, quantized=quant),
+    }
+    fused = bool(config.use_kernel)
+    strategy = "serve_fused" if fused else "serve_fallback"
+    peak = est[strategy + tag]
+    factors = est["serve_factors" + tag]
+    if fused:
+        reasons.append(
+            f"R7: fused score+top-k kernel — {scope}peak = factors "
+            f"({'int8+scales' if quant else 'f32'}) {factors:,}B + "
+            f"N-independent working set (queries + one (B={b}, "
+            f"block_n={block_n}) score tile + running top-{k_top} + merge "
+            f"candidates) = {peak:,}B; the (B, N) score matrix is never "
+            f"materialized")
+    else:
+        reasons.append(
+            f"R7: use_kernel=False — jnp fallback materializes the full "
+            f"(B={b}, N={n:,}) score matrix; {scope}peak = {peak:,}B vs "
+            f"{est['serve_fused' + tag]:,}B fused")
+    if sharded:
+        reasons.append(
+            f"R7: sharded ranker — each of the {d} devices scores its "
+            f"(W, k) factor slice and all-gathers a (B, D*k_top) "
+            f"candidate pair ({2 * BYTES_F32 * b * d * k_top:,}B) for "
+            f"the final merge; per-device peak is independent of the "
+            f"total column count")
+    if peak > budget:
+        reasons.append(
+            f"R7: {scope}peak {peak:,}B EXCEEDS budget {budget:,}B and "
+            f"serving was explicitly requested — no cheaper strategy "
+            f"exists"
+            + ("" if quant else "; quantize=True would shrink the "
+               "resident factors ~4x"))
+    else:
+        reasons.append(
+            f"R7: {scope}peak {peak:,}B <= budget {budget:,}B")
+    spec = ASpec(m=b, n=n, nnz=n * rank, num_blocks=d, kind="dense")
+    return Plan(
+        backend=backend, strategy=strategy, method="topk",
+        merge_mode="none", local_mode="none", rank=rank,
+        truncate_to=config.k_top, sketch_leaves=False, num_blocks=d,
+        spec=spec, estimates=est, budget=budget, reasons=tuple(reasons),
+        peak_bytes=peak)

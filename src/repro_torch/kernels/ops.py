@@ -9,3 +9,4 @@ padded or tiled on the way in.
 from repro_torch.kernels.blockgram import blockgram  # noqa: F401
 from repro_torch.kernels.sketch_panel import sketch_panel  # noqa: F401
 from repro_torch.kernels.sparse_gram import sparse_gram  # noqa: F401
+from repro_torch.kernels.topk_score import topk_score  # noqa: F401

@@ -1,6 +1,6 @@
-"""The port's three kernel modules against the JAX package, on the CPU.
+"""The port's four kernel modules against the JAX package, on the CPU.
 
-For each of sparse_gram, blockgram and sketch_panel the same inputs (made
+For each of sparse_gram, blockgram, sketch_panel and topk_score the same inputs (made
 with ``np.random.default_rng(seed)``) go through the port's plain PyTorch
 version and through the JAX function, twice: the pure-jnp oracle
 (``repro.kernels.ref``) and the Pallas kernel body in interpret mode.  The
@@ -10,7 +10,10 @@ against these same plain versions there.
 Tolerance: 1e-5 relative to max|out| everywhere (float32, the order of the
 sums differs between the implementations), looser only for bf16 input,
 where the two frameworks are compared after both widen to float32 (exact
-products, f32 summation order).
+products, f32 summation order).  topk_score is compared BITWISE (values and
+indices) on integer-valued inputs, where every sum is exact in float32 in
+any order; on Gaussian inputs its values are held at rtol 1e-6 and its
+indices wherever the reference's neighbouring scores lie further apart.
 """
 import subprocess
 import sys
@@ -25,6 +28,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import sketch_panel as jsp
 from repro.kernels import sparse_gram as jsg
+from repro.serve import kvquant as jkvquant
 
 import repro_torch
 from repro_torch.core import sparse as tsparse
@@ -32,6 +36,7 @@ from repro_torch.kernels import blockgram as tbg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sketch_panel as tsp
 from repro_torch.kernels import sparse_gram as tsg
+from repro_torch.kernels import topk_score as ttk
 
 from conftest import REPO
 from test_torch_helpers import assert_close_rel
@@ -197,6 +202,145 @@ def test_sketch_panel_ragged_duplicates_padding(monkeypatch, l, m, c, k, kw):
 
 
 # ---------------------------------------------------------------------------
+# topk_score
+# ---------------------------------------------------------------------------
+
+def _int_topk_inputs(b, k, n, seed=0, lo=-3, hi=4):
+    """Integer-valued queries and factors: every partial sum of a score is
+    a small integer, exact in float32 whatever the order of the sums, and
+    scores tie often."""
+    rng = np.random.default_rng(seed)
+    qs = rng.integers(lo, hi, size=(b, k)).astype(np.float32)
+    v = rng.integers(lo, hi, size=(n, k)).astype(np.float32)
+    return qs, v
+
+
+def _topk_three_ways(monkeypatch, qs, v, k_top, *, block_n=512, scale=None,
+                     valid_n=None, index_offset=0):
+    """(port plain version, reference oracle, reference Pallas body in
+    interpret mode), each as numpy (vals, idx)."""
+    t_scale = None if scale is None else torch.from_numpy(scale)
+    got = ttk.topk_score_ref(torch.from_numpy(qs), torch.from_numpy(v), k_top,
+                             scale=t_scale, valid_n=valid_n,
+                             index_offset=index_offset)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    j_scale = None if scale is None else jnp.asarray(scale)
+    kw = dict(scale=j_scale, valid_n=valid_n, index_offset=index_offset)
+    want = jref.topk_score(jnp.asarray(qs), jnp.asarray(v), k_top, **kw)
+    monkeypatch.setenv("REPRO_KERNELS", "interpret")
+    pallas = jops.topk_score(jnp.asarray(qs), jnp.asarray(v), k_top,
+                             block_n=block_n, **kw)
+    as_np = lambda pair: (np.asarray(pair[0]), np.asarray(pair[1]))  # noqa: E731
+    return (got[0].numpy(), got[1].numpy()), as_np(want), as_np(pallas)
+
+
+def _assert_bitwise(*pairs):
+    first = pairs[0]
+    for other in pairs[1:]:
+        np.testing.assert_array_equal(first[0], other[0])
+        np.testing.assert_array_equal(first[1], other[1])
+
+
+@pytest.mark.parametrize(
+    "b,k,n,k_top,block_n",
+    [
+        (3, 5, 700, 10, 256),    # ragged last tile
+        (8, 16, 512, 4, 512),    # single tile
+        (1, 3, 130, 7, 512),     # n < block_n, unaligned everything
+        (5, 16, 1024, 16, 128),  # k_top == block_n grid stress
+    ],
+)
+def test_topk_score_sweep_bitwise(monkeypatch, b, k, n, k_top, block_n):
+    """The reference's sweep on integer-valued inputs (many exact ties): the
+    plain version equals the oracle and the Pallas body bit for bit, values
+    and indices, ties to the lowest index."""
+    qs, v = _int_topk_inputs(b, k, n, seed=b * 100 + k)
+    _assert_bitwise(*_topk_three_ways(monkeypatch, qs, v, k_top,
+                                      block_n=block_n))
+
+
+def test_topk_score_three_way_ties_resolve_to_lowest_index(monkeypatch):
+    qs, base = _int_topk_inputs(4, 8, 75, seed=3)
+    v = np.concatenate([base, base, base])           # every score a 3-way tie
+    ours, want, pallas = _topk_three_ways(monkeypatch, qs, v, 9, block_n=128)
+    _assert_bitwise(ours, want, pallas)
+    # within a run of equal scores the indices ascend
+    same = ours[0][:, 1:] == ours[0][:, :-1]
+    assert (ours[1][:, 1:][same] > ours[1][:, :-1][same]).all()
+
+
+@pytest.mark.parametrize("valid_n,offset", [(613, 1000), (640, 0), (11, 7)])
+def test_topk_score_scale_offset_valid_n(monkeypatch, valid_n, offset):
+    """Per-item scales (powers of two: exact products), a global index
+    offset and a ragged valid width masking the padded tail."""
+    qs, v = _int_topk_inputs(5, 12, 640, seed=4)
+    scale = (2.0 ** np.random.default_rng(5).integers(-2, 3, size=640)
+             ).astype(np.float32)
+    ours, want, pallas = _topk_three_ways(
+        monkeypatch, qs, v, 11, block_n=256, scale=scale, valid_n=valid_n,
+        index_offset=offset)
+    _assert_bitwise(ours, want, pallas)
+    assert ours[1].min() >= offset and ours[1].max() < offset + valid_n
+
+
+def test_topk_score_int8_factors(monkeypatch):
+    """int8 factor rows + per-item dequant scales from ``kvquant``: the
+    quantized serving path, with integer-valued queries."""
+    rng = np.random.default_rng(6)
+    qs = rng.integers(-3, 4, size=(4, 8)).astype(np.float32)
+    v = rng.standard_normal((300, 8)).astype(np.float32) * 2.0
+    v_q, v_scale = jkvquant.quantize(jnp.asarray(v), axis=-1)
+    # Each score is an exact integer sum times one scale: a single
+    # rounding, the same in all three.
+    v_q = np.array(v_q)
+    scale = np.array(v_scale)[:, 0]
+    got = ttk.topk_score_ref(torch.from_numpy(qs), torch.from_numpy(v_q), 6,
+                             scale=torch.from_numpy(scale), valid_n=300)
+    want = jref.topk_score(jnp.asarray(qs), jnp.asarray(v_q), 6,
+                           scale=jnp.asarray(scale), valid_n=300)
+    monkeypatch.setenv("REPRO_KERNELS", "interpret")
+    pallas = jops.topk_score(jnp.asarray(qs), jnp.asarray(v_q), 6,
+                             scale=jnp.asarray(scale), valid_n=300,
+                             block_n=128)
+    for other in (want, pallas):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(other[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(other[1]))
+
+
+@pytest.mark.parametrize("b,k,n,k_top", [(6, 8, 900, 10), (2, 16, 333, 33)])
+def test_topk_score_gaussian(monkeypatch, b, k, n, k_top):
+    """Gaussian inputs: the sums are rounded in another order by each
+    implementation, so values are held at rtol 1e-6 and an index only where
+    the reference's scores around it lie further apart than that."""
+    rng = np.random.default_rng(n)
+    qs = rng.standard_normal((b, k)).astype(np.float32)
+    v = rng.standard_normal((n, k)).astype(np.float32)
+    ours, want, pallas = _topk_three_ways(monkeypatch, qs, v, k_top,
+                                          block_n=128)
+    for ref_vals, ref_idx in (want, pallas):
+        np.testing.assert_allclose(ours[0], ref_vals, rtol=1e-6, atol=1e-6)
+        gap = np.abs(np.diff(ref_vals, axis=1))
+        sep = np.ones_like(ref_vals, dtype=bool)
+        tight = gap <= 1e-6 * np.abs(ref_vals[:, 1:])
+        sep[:, 1:] &= ~tight
+        sep[:, :-1] &= ~tight
+        np.testing.assert_array_equal(ours[1][sep], ref_idx[sep])
+        assert sep.mean() > 0.9
+
+
+def test_topk_score_fewer_valid_columns_than_k_top_orders_masked_by_index():
+    """Masked columns score -inf and tie: they follow the valid ones in
+    ascending index order, as the stable sort (and the kernel's order)
+    leave them."""
+    qs, v = _int_topk_inputs(2, 4, 10, seed=9)
+    vals, idx = tops.topk_score(torch.from_numpy(qs), torch.from_numpy(v), 6,
+                                valid_n=3)
+    assert torch.isinf(vals[:, 3:]).all()
+    assert idx[:, 3:].tolist() == [[3, 4, 5], [3, 4, 5]]
+    assert sorted(idx[0, :3].tolist()) == [0, 1, 2]
+
+
+# ---------------------------------------------------------------------------
 # Dispatch and imports
 # ---------------------------------------------------------------------------
 
@@ -213,6 +357,16 @@ def test_wrappers_validate_their_inputs():
         tops.blockgram(torch.zeros((4, 4)))
     with pytest.raises(TypeError):
         tops.sketch_panel(torch.zeros((2, 3), dtype=torch.float64), rows, vals)
+    with pytest.raises(ValueError):
+        tops.topk_score(torch.zeros((2, 3)), torch.zeros((5, 4)), 2)
+    with pytest.raises(TypeError):
+        tops.topk_score(torch.zeros((2, 3)), torch.zeros((5, 3),
+                                                         dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="k_top"):
+        tops.topk_score(torch.zeros((2, 3)), torch.zeros((5, 3)), 6)
+    with pytest.raises(ValueError, match="scale"):
+        tops.topk_score(torch.zeros((2, 3)), torch.zeros((5, 3)), 2,
+                        scale=torch.ones(4))
 
 
 def test_cuda_request_without_cuda_raises_instead_of_plain_version():
@@ -239,17 +393,35 @@ def test_cuda_request_without_cuda_raises_instead_of_plain_version():
         tops.blockgram(torch.zeros((1, 4, 4), device="meta"))
     with pytest.raises(RuntimeError, match="unsupported device"):
         tops.sketch_panel(torch.zeros((2, 3), device="meta"), rows, vals)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tops.topk_score(torch.zeros((2, 3), device="meta"),
+                        torch.zeros((5, 3), device="meta"), 2)
 
 
 def test_launch_counters_do_not_move_on_the_cpu():
     """A wrapper counts where it launches its kernel and nowhere else."""
-    before = (tsg.launches, tbg.launches, tsp.launches)
+    before = (tsg.launches, tbg.launches, tsp.launches, ttk.launches)
     rows, vals = _random_ell(8, 16, 2)
     tops.sparse_gram(torch.from_numpy(rows), torch.from_numpy(vals), 8)
     tops.blockgram(torch.ones((1, 4, 8)))
     tops.sketch_panel(torch.ones((2, 8)), torch.from_numpy(rows),
                       torch.from_numpy(vals))
-    assert (tsg.launches, tbg.launches, tsp.launches) == before
+    tops.topk_score(torch.ones((2, 3)), torch.ones((7, 3)), 4)
+    assert (tsg.launches, tbg.launches, tsp.launches, ttk.launches) == before
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_topk_score_empty_wave_launches_nothing(device):
+    """A wave of zero queries returns empty (0, k_top) outputs before any
+    device dispatch: no launch, no count (on a meta tensor a dispatch would
+    raise "unsupported device")."""
+    before = ttk.launches
+    vals, idx = tops.topk_score(torch.zeros((0, 3), device=device),
+                                torch.zeros((7, 3), device=device), 4)
+    assert vals.shape == idx.shape == (0, 4)
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int32
+    assert vals.device.type == idx.device.type == device
+    assert ttk.launches == before
 
 
 def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
@@ -258,6 +430,8 @@ def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
         "import repro_torch, repro_torch.core, repro_torch.core.api\n"
         "import repro_torch.core.convert, repro_torch.data.bipartite\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.stream, repro_torch.serve\n"
+        "import repro_torch.serve.kvquant, repro_torch.core.hierarchy\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
