@@ -42,7 +42,22 @@ What it does, one JSON line per phase:
    repaired batches that their ingests factor.
 11. ``merge_driver_ab``: the streams of phases 8 and 9 on three seeds under
    each cuSOLVER driver of the merge SVD, orthogonality and time.
-12. ``stage_summary`` (one ingest, one serve wave), one line
+12. ``lm_serve``: LM serving of zamba2-2.7b at full width (54 Mamba-2
+   layers, d_model 2560, one shared attention block applied 9 times),
+   weights drawn from a seeded generator on the card: (a) ``prefill_forward``
+   of 8 prompts of 1,024 tokens in bf16 (``flash_attention`` launched 9
+   times and ``ssd_scan`` 54 times, checked exactly), then 32 greedy
+   ``decode_step``s, and a long prefill of 2 prompts of 3,000 tokens
+   (the same launch counts: every length goes to the kernels); (b) in a
+   float32 copy of the config, the kernels held inside the model:
+   ``prefill_forward`` of 2 x 256 tokens against ``engine.prefill_cache``
+   (decode steps, no kernel) of the same prompt, last logits and every
+   cache entry, and a control (the kernels fed bf16-rounded inputs) that
+   must exceed the same limit; (c) ``engine.generate`` of 4 short requests
+   x 32 tokens, greedy and sampled from a seeded generator.
+   Phase 3 holds ``flash_attention`` and ``ssd_scan`` against their plain
+   versions at this path's shapes, in bf16 and float32, with variants.
+13. ``stage_summary`` (one ingest, one serve wave), one line
    ``{"kernels": [...]}`` with every kernel's numbers, then the card as
    ``nvidia-smi`` names it, then the last line ``{"ok": true, "device":
    {...}}``.
@@ -53,6 +68,7 @@ on the CPU instead.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -65,21 +81,28 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.ranky_paper import RankyPaperConfig  # noqa: E402
 from repro_torch.core import api, hierarchy, ranky, sparse, stages  # noqa: E402
 from repro_torch.data import bipartite  # noqa: E402
 from repro_torch.kernels import blockgram as bg_mod  # noqa: E402
 from repro_torch.kernels import build as kernel_build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels import sketch_panel as sp_mod  # noqa: E402
 from repro_torch.kernels import sparse_gram as sg_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss_mod  # noqa: E402
 from repro_torch.kernels import topk_score as tk_mod  # noqa: E402
-from repro_torch.serve import kvquant, ranker  # noqa: E402
+from repro_torch.models import schema, transformer  # noqa: E402
+from repro_torch.serve import engine, kvquant, ranker  # noqa: E402
 from repro_torch.stream import state as stream_state  # noqa: E402
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
-# and float32 rate outside the tensor cores.  bound_ms is stated against them.
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
+# float32 rate outside the tensor cores and the dense bf16 tensor-core rate.
+# bound_ms is stated against them, by the type of the kernel's inputs.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 NUM_BLOCKS = 8
 DEVICE = "cuda"
@@ -92,8 +115,18 @@ TOPK_PAPER = dict(b=32, k=16, k_top=10)
 STREAM_BATCH_ROWS = 64
 SCALED_SERVE = dict(n=1_048_576, rows=1024, batches=2, density=1e-3,
                     rank=64, b=256, k_top=100)
+# LM serving (phase 12): zamba2-2.7b at full width; the prefill of the main
+# path, a long prefill (s * s above the 2048**2 at which the reference
+# leaves its kernel), the float32 check of the kernels inside the model
+# (10x its readings, 1.7e-5 - 3.1e-5 of max), the requests.
+LM_ARCH = "zamba2-2.7b"
+LM_PREFILL = dict(batch=8, seq=1024, decode=32)
+LM_LONG = dict(batch=2, seq=3000)
+LM_CHECK = dict(batch=2, seq=256, rel=3e-4)
+LM_REQUESTS = dict(requests=4, tokens=32, temperature=0.8)
 KERNEL_MODULES = {"sparse_gram": sg_mod, "blockgram": bg_mod,
-                  "sketch_panel": sp_mod, "topk_score": tk_mod}
+                  "sketch_panel": sp_mod, "topk_score": tk_mod,
+                  "flash_attention": fa_mod, "ssd_scan": ss_mod}
 # ``launches_in``: the solve of the main path whose count is the kernel's
 # ``launches`` (the first solve that should reach it).  The counts of every
 # solve stand beside it under ``launches_by_solve``.
@@ -114,6 +147,14 @@ KERNEL_INFO = {
                        source="src/repro_torch/csrc/topk_score.cu",
                        replaces="src/repro/kernels/topk_score.py:125",
                        launches_in="serve_topk[f32]"),
+    "flash_attention": dict(route="cuda",
+                            source="src/repro_torch/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:125",
+                            launches_in="lm_serve[prefill]"),
+    "ssd_scan": dict(route="cuda",
+                     source="src/repro_torch/csrc/ssd_scan.cu",
+                     replaces="src/repro/kernels/ssd_scan.py:112",
+                     launches_in="lm_serve[prefill]"),
 }
 
 
@@ -171,11 +212,12 @@ def time_ms(fn, *, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak: float = F32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the f32 rate."""
+    operations over the peak rate of the inputs' type (float32 unless
+    ``peak`` says otherwise)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -221,15 +263,48 @@ def read_counts() -> dict:
 # ---------------------------------------------------------------------------
 
 def compare(name, got, want, rel_limit, results, case):
-    """Hold ``got`` to ``want`` at ``rel_limit * max|want|`` (0 = exact)."""
+    """Hold ``got`` to ``want`` (same shape and dtype) at
+    ``rel_limit * max|want|`` (0 = exact)."""
     torch.cuda.synchronize()
-    check(got.shape == want.shape and got.dtype == torch.float32,
-          f"{name}[{case}]: shape/dtype {tuple(got.shape)} {got.dtype}")
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}[{case}]: shape/dtype {tuple(got.shape)} {got.dtype}, "
+          f"want {tuple(want.shape)} {want.dtype}")
     check(torch.isfinite(got).all(), f"{name}[{case}]: non-finite output")
     err = max_err(got, want)
     limit = rel_limit * float(want.abs().max()) if want.numel() else 0.0
     results.append(dict(kernel=name, case=case, max_abs_err=err, limit=limit))
     check(err <= limit, f"{name}[{case}]: max abs err {err} > limit {limit}")
+    return err
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at |x| (8 significant bits), 0 at 0."""
+    _, e = torch.frexp(x.float().abs())
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+    return torch.where(x == 0, 0.0, ulp)
+
+
+def compare_bf16(name, got, want, f32_rel, results, case):
+    """Hold a bfloat16 ``got`` to ``want`` element by element at one bf16
+    ulp of |want| plus ``f32_rel * max|want|``: both sides sum in float32
+    (in another order, which the second term covers) and round to bf16
+    once, which moves a value by at most one ulp."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype
+          == torch.bfloat16,
+          f"{name}[{case}]: shape/dtype {tuple(got.shape)} {got.dtype}, "
+          f"want {tuple(want.shape)} bfloat16")
+    check(torch.isfinite(got).all(), f"{name}[{case}]: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    atol = f32_rel * float(want.abs().max())
+    tol = bf16_ulp(want) + atol
+    err = float(diff.max())
+    worst = float((diff / tol).max())
+    results.append(dict(kernel=name, case=case, max_abs_err=err,
+                        limit="1 bf16 ulp of |plain| + atol", atol=atol,
+                        worst_err_over_limit=worst))
+    check(worst <= 1.0, f"{name}[{case}]: an element errs {worst} times its "
+          f"limit (1 bf16 ulp of |plain| + {atol}); max abs err {err}")
     return err
 
 
@@ -350,6 +425,8 @@ def phase_kernels(state) -> None:
           "sketch_panel: an all-padding block must give a zero panel")
 
     topk_kernel_rows(state, cases, main)
+    flash_kernel_rows(cases, main)
+    ssd_kernel_rows(cases, main)
 
     state["kernel_main"] = main
     emit("kernels", cases=cases, main_shapes=main,
@@ -357,7 +434,193 @@ def phase_kernels(state) -> None:
              "sparse_gram_weighted_bit_stable"],
          tolerance="0 for 0/1 sparse_gram and for topk_score (torch.equal "
                    "on values and indices); else 1e-5 * max|plain| "
-                   "(f32 summation order)")
+                   "(f32 summation order); flash_attention 2e-5 and "
+                   "ssd_scan 1e-4 of max|plain| in float32 (online against "
+                   "direct softmax; chunked scan against the sequential "
+                   "recurrence); a bf16 output element by element at one "
+                   "bf16 ulp of |plain| plus that float32 term (each side "
+                   "rounds its float32 result to bf16 once); the ssd_scan "
+                   "state (float32) at 1e-4")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, LM kernels: flash_attention and ssd_scan
+# ---------------------------------------------------------------------------
+
+def peak_for(dtype) -> float:
+    return BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+
+
+def flash_bound(q, k, *, causal=True, window=0):
+    """Bytes: q, k, v and the output once; operations: a multiply and an
+    add per head dim for q.k and for p.v, per (query, key) pair that this
+    mask shows, per query head."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    ki = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= (qi - ki) < window
+    pairs = float(mask.sum())
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    return bound(nbytes, 4.0 * b * hq * d * pairs, peak_for(q.dtype))
+
+
+def lm_randn(shape, gen, dtype):
+    return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def flash_case(cases, case, b, hq, hkv, sq, sk, d, dtype, gen, **kw):
+    q = lm_randn((b, hq, sq, d), gen, dtype)
+    k = lm_randn((b, hkv, sk, d), gen, dtype)
+    v = lm_randn((b, hkv, sk, d), gen, dtype)
+    got = fa_mod.flash_attention(q, k, v, **kw)
+    want = fa_mod.flash_attention_ref(q, k, v, **kw)
+    hold = compare_bf16 if dtype == torch.bfloat16 else compare
+    err = hold("flash_attention", got, want, 2e-5, cases, case)
+    del want
+    return q, k, v, got, err
+
+
+def flash_kernel_rows(cases, main) -> None:
+    """The main shape of the LM prefill, (8, 32, 1024, 80) causal, in bf16
+    (the config's type) and float32, timed; variants checked: GQA, window,
+    softcap, non-causal, right-aligned, ragged, rows that see no key."""
+    gen = torch.Generator(DEVICE).manual_seed(21)
+    pf = LM_PREFILL
+    cfg = get_config(LM_ARCH)
+    shape = (pf["batch"], cfg.padded_heads, cfg.padded_kv_heads, pf["seq"],
+             pf["seq"], cfg.head_dim)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        q, k, v, _, err = flash_case(cases, f"main {shape} {tag} causal",
+                                     *shape, dtype, gen)
+        b_ms, b_by = flash_bound(q, k)
+        rows[tag] = dict(
+            shape=f"q, k, v {tuple(q.shape)} {tag}, causal", max_abs_err=err,
+            ms=time_ms(lambda: fa_mod.flash_attention(q, k, v)),
+            plain_ms=time_ms(lambda: fa_mod.flash_attention_ref(q, k, v),
+                             iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
+            # The yardstick only: the port never calls SDPA.
+            library_ms=time_ms(lambda: torch.nn.functional
+                               .scaled_dot_product_attention(
+                                   q, k, v, is_causal=True)))
+        del q, k, v
+    variants = [
+        ("GQA Hq 8 Hkv 2", (2, 8, 2, 1024, 1024, 80), {}),
+        ("window 256", (2, 8, 8, 1024, 1024, 80), dict(window=256)),
+        ("softcap 50", (2, 8, 8, 1024, 1024, 80), dict(softcap=50.0)),
+        ("non-causal", (2, 8, 8, 1024, 1024, 80), dict(causal=False)),
+        ("right-aligned sq 256 < sk 1024", (2, 8, 2, 256, 1024, 80), {}),
+        ("ragged sq = sk = 1000", (2, 8, 2, 1000, 1000, 80), {}),
+        ("ragged sq 1 sk 777", (3, 8, 2, 1, 777, 80), {}),
+        ("long prompt sq = sk = 3000 (lm_serve's long prefill)",
+         (LM_LONG["batch"], 32, 32, LM_LONG["seq"], LM_LONG["seq"], 80), {}),
+        ("head dim 128, window + softcap, non-causal",
+         (1, 4, 2, 300, 300, 128),
+         dict(causal=False, window=64, softcap=30.0)),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        for name, shp, kw in variants:
+            flash_case(cases, f"{name} {tag}", *shp, dtype, gen, **kw)
+    q, k, v, got, _ = flash_case(cases, "sq 100 > sk 60 (rows before every "
+                                 "key)", 1, 4, 4, 100, 60, 80,
+                                 torch.float32, gen)
+    check(float(got[:, :, :40].abs().max()) == 0.0,
+          "flash_attention: rows that see no key must be zeros")
+    main["flash_attention"] = dict(rows["bfloat16"], float32=rows["float32"])
+
+
+def ssd_inputs(b, seq, h, g, p, n, dtype, gen):
+    x = lm_randn((b, seq, h, p), gen, dtype)
+    dt = (torch.nn.functional.softplus(
+        torch.randn((b, seq, h), generator=gen, device=DEVICE)) * 0.1
+          ).to(dtype)
+    a = -torch.exp(torch.randn((h,), generator=gen, device=DEVICE))
+    bm = (torch.randn((b, seq, g, n), generator=gen, device=DEVICE)
+          / n ** 0.5).to(dtype)
+    cm = (torch.randn((b, seq, g, n), generator=gen, device=DEVICE)
+          / n ** 0.5).to(dtype)
+    return x, dt, a, bm, cm
+
+
+def ssd_flops(b, seq, h, p, n, chunk=ss_mod.CHUNK):
+    """The chunked algorithm's multiply-adds, lower triangles only: C B^T
+    and G x over each chunk's (i >= j) pairs, C h and the state update."""
+    total = 0.0
+    for c0 in range(0, seq, chunk):
+        q = min(chunk, seq - c0)
+        tri = q * (q + 1) / 2
+        total += 2.0 * (tri * n + tri * p + 2.0 * q * p * n)
+    return total * b * h
+
+
+def ssd_bound(x, bm):
+    b, seq, h, p = x.shape
+    n = bm.shape[3]
+    es = x.element_size()
+    nbytes = (2 * x.numel() + b * seq * h + 2 * bm.numel()) * es \
+        + h * 4 + b * h * p * n * 4
+    return bound(nbytes, ssd_flops(b, seq, h, p, n), peak_for(x.dtype))
+
+
+def ssd_case(cases, case, shape, dtype, gen, inputs=None):
+    args = inputs or ssd_inputs(*shape, dtype, gen)
+    y, hf = ss_mod.ssd_scan(*args)
+    yr, hr = ss_mod.ssd_scan_ref(*args)
+    hold = compare_bf16 if dtype == torch.bfloat16 else compare
+    err = hold("ssd_scan", y, yr, 1e-4, cases, case + " y")
+    err_h = compare("ssd_scan", hf, hr, 1e-4, cases, case + " state")
+    return args, max(err, err_h), hf
+
+
+def ssd_kernel_rows(cases, main) -> None:
+    """The main shape of the LM prefill, x (8, 1024, 80, 64), G 1, N 64,
+    chunk 128, in bf16 and float32, timed; variants: G = 2, ragged L = 1000
+    and a decaying state that forgets its first half."""
+    gen = torch.Generator(DEVICE).manual_seed(22)
+    cfg = get_config(LM_ARCH)
+    pf = LM_PREFILL
+    shape = (pf["batch"], pf["seq"], cfg.ssm_heads, cfg.ssm_groups,
+             cfg.ssm_head_dim, cfg.ssm_state)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        args, err, _ = ssd_case(cases, f"main {shape} {tag}", shape, dtype,
+                                gen)
+        b_ms, b_by = ssd_bound(args[0], args[3])
+        rows[tag] = dict(
+            shape=f"x {tuple(args[0].shape)} {tag}, G {shape[3]}, N "
+                  f"{shape[5]}, chunk {ss_mod.CHUNK}", max_abs_err=err,
+            ms=time_ms(lambda: ss_mod.ssd_scan(*args)),
+            plain_ms=time_ms(lambda: ss_mod.ssd_scan_ref(*args), iters=2,
+                             warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del args
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        ssd_case(cases, f"G 2 {tag}", (4, 1024, 80, 2, 64, 64), dtype, gen)
+        ssd_case(cases, f"ragged L 1000 {tag}", (2, 1000, 80, 1, 64, 64),
+                 dtype, gen)
+        ssd_case(cases, f"smoke widths P 16 N 16, L 300 {tag}",
+                 (2, 300, 8, 1, 16, 16), dtype, gen)
+    x, _, _, bm, cm = ssd_inputs(1, 256, 8, 1, 64, 64, torch.float32, gen)
+    dt = torch.full((1, 256, 8), 2.0, device=DEVICE)
+    a = torch.full((8,), -10.0, device=DEVICE)
+    _, _, h1 = ssd_case(cases, "decaying state", None, torch.float32, gen,
+                        inputs=(x, dt, a, bm, cm))
+    x2 = x.clone()
+    x2[:, :128] = torch.randn((1, 128, 8, 64), generator=gen, device=DEVICE)
+    h2 = ss_mod.ssd_scan(x2, dt, a, bm, cm)[1]
+    check(torch.allclose(h1, h2, rtol=1e-4, atol=1e-4),
+          "ssd_scan: a state with a = -10, dt = 2 must forget its first half")
+    main["ssd_scan"] = dict(rows["bfloat16"], float32=rows["float32"])
 
 
 # ---------------------------------------------------------------------------
@@ -1286,6 +1549,261 @@ def phase_merge_driver_ab(state) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: LM serving of zamba2-2.7b at full width
+# ---------------------------------------------------------------------------
+
+def synced_ms(fn):
+    """(result, host ms) of ``fn()`` between two device synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profile_prefill(cfg, params, batch) -> dict:
+    """Device time by kernel over one warm prefill (``torch.profiler``):
+    the kernels' own records only (the operators that launch them carry
+    the same time again and are left out), the ten largest, and their sum,
+    beside the wall of that same profiled prefill (host clock between two
+    synchronizations) and the busy share, their ratio; ``kernel_ms_total``
+    is None where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = synced_ms(
+            lambda: transformer.prefill_forward(cfg, params, batch))
+    rows, other = [], {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        if ev.key.startswith("Command Buffer"):   # a CUPTI record, no kernel
+            other[ev.key] = dict(device_ms=dev, count=ev.count)
+        elif dev > 0:
+            rows.append((dev, ev.key, ev.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows) if rows else None
+    return dict(kernel_ms_total=total, profiled_wall_ms=wall_ms,
+                busy_share_of_profiled_wall=(total / wall_ms if rows
+                                             else None),
+                kernels=len(rows), other_records=other,
+                top=[dict(name=k[:80], device_ms=ms, calls=n)
+                     for ms, k, n in rows[:10]])
+
+
+def lm_requests(cfg, n: int, seed: int = 0):
+    """Requests of 2-11 tokens, as ``launch/serve.py`` makes them."""
+    rng = np.random.default_rng(seed)
+    return [list(rng.integers(1, cfg.vocab_size, size=rng.integers(2, 12)))
+            for _ in range(n)]
+
+
+def phase_lm_serve(state) -> None:
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    pf, ck, rq = LM_PREFILL, LM_CHECK, LM_REQUESTS
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    params, init_ms = synced_ms(lambda: schema.init_params(cfg, gen, DEVICE))
+    n_params = schema.param_count_actual(params)
+    check(n_params >= cfg.param_count(),
+          f"lm_serve: {n_params} parameters < the config's {cfg.param_count()}")
+    tokens = torch.randint(0, cfg.vocab_size, (pf["batch"], pf["seq"]),
+                           generator=gen, device=DEVICE)
+    batch = {"tokens": tokens}
+    max_seq = pf["seq"] + pf["decode"]
+
+    # (a) the main path: prefill through both kernels, then greedy decode
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (logits, cache), prefill_ms = synced_ms(
+        lambda: transformer.prefill_forward(cfg, params, batch,
+                                            max_seq=max_seq))
+    counts = read_counts()
+    keep_counts(state, "lm_serve[prefill]", counts)
+    groups = cfg.num_layers // cfg.hybrid_attn_every
+    check(counts["flash_attention"] == groups and
+          counts["ssd_scan"] == cfg.num_layers,
+          f"lm_serve: a prefill launched flash_attention "
+          f"{counts['flash_attention']} times (want {groups}) and ssd_scan "
+          f"{counts['ssd_scan']} times (want {cfg.num_layers})")
+    check(logits.shape == (pf["batch"], cfg.padded_vocab)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          "lm_serve: prefill logits not finite (B, Vp) float32")
+    check(cache["len"] == pf["seq"] and cache["k"].dtype == torch.bfloat16,
+          "lm_serve: prefill cache")
+    reset_counts()
+    out_tokens = []
+
+    def decode_all():
+        nonlocal logits, cache
+        for _ in range(pf["decode"]):
+            tok = engine.sample(cfg, logits, 0.0, gen)
+            out_tokens.append(tok)
+            logits, cache = transformer.decode_step(
+                cfg, params, cache, {"tokens": tok[:, None]})
+
+    _, decode_ms = synced_ms(decode_all)
+    decode_counts = read_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    toks = torch.stack(out_tokens, dim=1)
+    check(bool(torch.isfinite(logits).all()), "lm_serve: decode logits")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          "lm_serve: decoded tokens outside the vocab")
+    check(cache["len"] == max_seq, "lm_serve: cache length after decode")
+    _, warm_prefill_ms = synced_ms(
+        lambda: transformer.prefill_forward(cfg, params, batch,
+                                            max_seq=max_seq))
+    del cache, logits
+    prof = profile_prefill(cfg, params, batch)
+
+    # a long prefill: s * s = 3000**2 is past the 2048**2 at which the
+    # reference leaves its kernel; the port's kernels take every length
+    long_tokens = torch.randint(0, cfg.vocab_size,
+                                (LM_LONG["batch"], LM_LONG["seq"]),
+                                generator=gen, device=DEVICE)
+    reset_counts()
+    (long_logits, long_cache), long_ms = synced_ms(
+        lambda: transformer.prefill_forward(cfg, params,
+                                            {"tokens": long_tokens}))
+    lcounts = read_counts()
+    keep_counts(state, "lm_serve[long prefill]", lcounts)
+    check(lcounts["flash_attention"] == groups
+          and lcounts["ssd_scan"] == cfg.num_layers,
+          f"lm_serve: the long prefill launched flash_attention "
+          f"{lcounts['flash_attention']} times (want {groups}) and ssd_scan "
+          f"{lcounts['ssd_scan']} times (want {cfg.num_layers})")
+    check(long_logits.shape == (LM_LONG["batch"], cfg.padded_vocab)
+          and bool(torch.isfinite(long_logits).all())
+          and long_cache["len"] == LM_LONG["seq"],
+          "lm_serve: long prefill logits not finite or cache length wrong")
+    del long_logits, long_cache
+    main_fields = dict(
+        prompts=pf["batch"], prompt_tokens=pf["seq"],
+        decode_steps=pf["decode"], dtype=cfg.dtype,
+        init_params_ms=init_ms, params=n_params,
+        launches_per_prefill=dict(flash_attention=counts["flash_attention"],
+                                  ssd_scan=counts["ssd_scan"]),
+        launches_in_decode=decode_counts,
+        prefill_ms_first=prefill_ms, prefill_ms_warm=warm_prefill_ms,
+        prefill_tokens_per_s=pf["batch"] * pf["seq"] / warm_prefill_ms * 1e3,
+        decode_ms_per_step=decode_ms / pf["decode"],
+        decode_tokens_per_s=pf["batch"] * pf["decode"] / decode_ms * 1e3,
+        peak_memory_bytes=peak_bytes, prefill_profile=prof,
+        long_prefill=dict(prompts=LM_LONG["batch"],
+                          prompt_tokens=LM_LONG["seq"], ms=long_ms,
+                          tokens_per_s=LM_LONG["batch"] * LM_LONG["seq"]
+                          / long_ms * 1e3,
+                          launches=dict(
+                              flash_attention=lcounts["flash_attention"],
+                              ssd_scan=lcounts["ssd_scan"])))
+
+    # (b) the kernels inside the model, float32: whole-prompt prefill
+    # (both kernels) against the engine's token-by-token prefill (none)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks32 = torch.randint(0, cfg.vocab_size, (ck["batch"], ck["seq"]),
+                           generator=gen, device=DEVICE)
+    reset_counts()
+    (lg_k, c_k), check_prefill_ms = synced_ms(
+        lambda: transformer.prefill_forward(cfg32, params,
+                                            {"tokens": toks32}))
+    kcounts = read_counts()
+    check(kcounts["flash_attention"] == groups
+          and kcounts["ssd_scan"] == cfg.num_layers,
+          f"lm_serve[check]: the float32 prefill launched {kcounts}")
+    reset_counts()
+    (c_d, lg_d), steps_ms = synced_ms(
+        lambda: engine.prefill_cache(cfg32, params, toks32,
+                                     engine.ServeConfig(max_seq=ck["seq"])))
+    dcounts = read_counts()
+    check(dcounts["flash_attention"] == 0 and dcounts["ssd_scan"] == 0,
+          f"lm_serve[check]: decode steps launched {dcounts}")
+    def against_steps(lg, c):
+        out = {}
+        for key, got, want in [("logits", lg, lg_d)] + [
+                (k, c[k], c_d[k]) for k in ("conv", "ssm", "k", "v")]:
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"lm_serve[check]: {key} shape/dtype")
+            err = max_err(got, want)
+            top = float(want.abs().max())
+            out[key] = dict(max_abs_err=err, limit=ck["rel"] * top,
+                            max_abs=top, err_over_max=err / top)
+        return out
+
+    errs = against_steps(lg_k, c_k)
+    for key, e in errs.items():
+        check(e["max_abs_err"] <= e["limit"],
+              f"lm_serve[check]: {key} max abs err {e['max_abs_err']} > "
+              f"{e['limit']} (prefill_forward vs prefill_cache, float32)")
+    del c_k, lg_k
+
+    # The control: the same float32 prefill with both kernels fed inputs
+    # rounded through bf16, as a kernel that computed in bf16 would be.
+    # It must exceed the limit, or the limit could not tell such a kernel.
+    def rounded(fn):
+        def wrap(*args, **kw):
+            return fn(*(t.bfloat16().float() for t in args), **kw)
+        return wrap
+
+    saved = kernel_ops.flash_attention, kernel_ops.ssd_scan
+    kernel_ops.flash_attention, kernel_ops.ssd_scan = map(rounded, saved)
+    try:
+        lg_r, c_r = transformer.prefill_forward(cfg32, params,
+                                                {"tokens": toks32})
+    finally:
+        kernel_ops.flash_attention, kernel_ops.ssd_scan = saved
+    control = against_steps(lg_r, c_r)
+    check(any(e["max_abs_err"] > e["limit"] for e in control.values()),
+          f"lm_serve[check]: the bf16-rounded control stays within the "
+          f"limit {ck['rel']} of max, which therefore cannot tell it: "
+          f"{control}")
+    del c_d, lg_d, c_r, lg_r
+
+    # (c) the engine: short requests, greedy and sampled
+    reqs = lm_requests(cfg, rq["requests"])
+    prompts_np, lens = engine.batch_requests(reqs)
+    prompts = torch.from_numpy(prompts_np).to(DEVICE)
+    scfg = engine.ServeConfig(max_seq=prompts.shape[1] + rq["tokens"])
+    greedy, greedy_ms = synced_ms(
+        lambda: engine.generate(cfg, params, prompts, scfg, rq["tokens"]))
+    greedy2 = engine.generate(cfg, params, prompts, scfg, rq["tokens"])
+    check(torch.equal(greedy, greedy2), "lm_serve: greedy generation is not "
+          "deterministic")
+    hot = engine.ServeConfig(max_seq=scfg.max_seq,
+                             temperature=rq["temperature"])
+    sampled = [engine.generate(cfg, params, prompts, hot, rq["tokens"],
+                               generator=torch.Generator(DEVICE)
+                               .manual_seed(7)) for _ in range(2)]
+    check(torch.equal(sampled[0], sampled[1]),
+          "lm_serve: sampling from one seed is not repeatable")
+    for out in (greedy, sampled[0]):
+        check(out.shape == (rq["requests"], rq["tokens"])
+              and out.dtype == torch.int32 and int(out.min()) >= 0
+              and int(out.max()) < cfg.vocab_size,
+              "lm_serve: generated tokens")
+    del params
+    torch.cuda.empty_cache()
+    emit("lm_serve", arch=LM_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, main=main_fields,
+         check=dict(batch=ck["batch"], prompt_tokens=ck["seq"],
+                    dtype="float32", rel_limit=ck["rel"],
+                    prefill_forward_ms=check_prefill_ms,
+                    prefill_cache_ms=steps_ms, errors=errs,
+                    bf16_rounded_control=control),
+         generate=dict(requests=rq["requests"], prompt_lens=lens.tolist(),
+                       tokens=rq["tokens"], greedy_ms=greedy_ms,
+                       greedy_tokens_per_s=rq["requests"] * rq["tokens"]
+                       / greedy_ms * 1e3,
+                       sampled_differs_from_greedy=not torch.equal(
+                           greedy, sampled[0])),
+         clocks="host clock between device synchronizations; "
+                "prefill_ms_first includes first-call cuBLAS set-up")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1296,9 +1814,12 @@ def main() -> int:
     smi = nvidia_smi_line()
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
-         allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "TF32 must be off for matrix products")
+    check(torch.backends.cudnn.allow_tf32 is False,
+          "TF32 must be off for cuDNN")
 
     kernel_build.load()
     emit("build", nvcc_seconds=kernel_build.build_seconds,
@@ -1318,7 +1839,8 @@ def main() -> int:
     for phase in (phase_kernels, phase_solve_sparse_exact,
                   phase_solve_dense_exact, phase_solve_randomized,
                   phase_solve_scaled, phase_stream_exact, phase_stream_serve,
-                  phase_serve_scaled, phase_merge_driver_ab):
+                  phase_serve_scaled, phase_merge_driver_ab,
+                  phase_lm_serve):
         phase(state)
         torch.cuda.synchronize()
 

@@ -1,0 +1,89 @@
+"""Shared model layers: norms, activations, RoPE, embeddings and the
+logit head.  The counterpart of ``repro.models.layers`` without its
+``ShardCtx``: the port runs on one device and has no mesh."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+             plus_one: bool = False) -> torch.Tensor:
+    """RMS norm in float32, returned in ``x``'s dtype."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    scale = (1.0 + w.float()) if plus_one else w.float()
+    return (y * scale).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap > 0 else x
+
+
+def activate(gate: torch.Tensor, up: Optional[torch.Tensor],
+             kind: str) -> torch.Tensor:
+    """swiglu/geglu are gated (need ``up``); gelu is the plain 2-matrix MLP."""
+    if kind == "swiglu":
+        return F.silu(gate) * up
+    if kind == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    if kind == "gelu":
+        return F.gelu(gate, approximate="tanh")
+    raise ValueError(kind)
+
+
+def gated(kind: str) -> bool:
+    return kind in ("swiglu", "geglu")
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); pos: (B, S) integer -> rotary-embedded x."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                 # (Dh/2,)
+    ang = pos[..., None].float() * freqs                     # (B, S, Dh/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., : dh // 2], x32[..., dh // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding + logits
+# ---------------------------------------------------------------------------
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, dtype, *,
+                 scale: bool = False) -> torch.Tensor:
+    """Rows of the embedding table in ``dtype``.  The reference casts the
+    whole table and then gathers; gathering first and casting the rows
+    gives the same values without a cast copy of the table."""
+    x = embed[tokens.long()].to(dtype)
+    if scale:
+        x = (x.float() * float(embed.shape[1]) ** 0.5).to(dtype)
+    return x
+
+
+def lm_logits(x: torch.Tensor, head: torch.Tensor, *,
+              cap: float = 0.0) -> torch.Tensor:
+    """x: (..., D) @ head (D, V) -> float32 logits."""
+    logits = torch.matmul(x.float(), head.float())
+    return softcap(logits, cap)

@@ -1,0 +1,181 @@
+"""Parameter schema and initialisation: the counterpart of
+``repro.models.schema`` for the families the port runs (``hybrid``).
+
+Parameters are a nested dict of tensors in the reference's layout: the
+``layers`` subtree is stacked with a leading (num_layers,) dim, so that
+carrying the reference's weights over is a map over leaves
+(``models/convert.py``).  The init rules are the reference's (``normal``
+scaled by 1/sqrt(fan_in), ``embed``, ``conv``, ``a_log``, ``dt_bias``,
+``ones``, ``zeros``); the random leaves are drawn from one explicit
+``torch.Generator`` in schema order, so they do not equal the reference's
+draws (randomness is an input: the parity tests carry the reference's
+weights over instead).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import gated
+
+PORTED_FAMILIES = ("hybrid",)
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not run yet."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
+            f"runs {PORTED_FAMILIES}); see ROADMAP.md item 16")
+
+
+@dataclasses.dataclass(frozen=True)
+class PD:
+    """Param descriptor: shape and init rule."""
+
+    shape: Tuple[int, ...]
+    init: str = "normal"   # normal | zeros | ones | a_log | dt_bias | embed | conv
+    fan_in: Optional[int] = None
+
+
+def _attn(cfg: ModelConfig) -> Dict[str, PD]:
+    d, hp, hkv, dh = (cfg.d_model, cfg.padded_heads, cfg.padded_kv_heads,
+                      cfg.head_dim)
+    return {
+        "wq": PD((d, hp, dh), fan_in=d),
+        "wk": PD((d, hkv, dh), fan_in=d),
+        "wv": PD((d, hkv, dh), fan_in=d),
+        "wo": PD((hp, dh, d), fan_in=hp * dh),
+    }
+
+
+def _mlp(cfg: ModelConfig) -> Dict[str, PD]:
+    d, f = cfg.d_model, cfg.d_ff
+    out = {"w_up": PD((d, f), fan_in=d), "w_down": PD((f, d), fan_in=f)}
+    if gated(cfg.activation):
+        out["w_gate"] = PD((d, f), fan_in=d)
+    return out
+
+
+def _norm(cfg: ModelConfig) -> PD:
+    return PD((cfg.d_model,), init="zeros" if cfg.sandwich_norm else "ones")
+
+
+def _ssm_layer(cfg: ModelConfig) -> Dict[str, PD]:
+    d, di = cfg.d_model, cfg.ssm_inner
+    g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    w = cfg.ssm_conv_width
+    return {
+        "ln": PD((d,), init="ones"),
+        "wz": PD((d, di), fan_in=d),
+        "wx": PD((d, di), fan_in=d),
+        "wbc": PD((d, 2 * g * n), fan_in=d),
+        "wdt": PD((d, h), fan_in=d),
+        "conv_x_w": PD((w, di), init="conv"),
+        "conv_x_b": PD((di,), init="zeros"),
+        "conv_bc_w": PD((w, 2 * g * n), init="conv"),
+        "conv_bc_b": PD((2 * g * n,), init="zeros"),
+        "dt_bias": PD((h,), init="dt_bias"),
+        "a_log": PD((h,), init="a_log"),
+        "d_skip": PD((h,), init="ones"),
+        "norm_w": PD((di,), init="ones"),
+        "out_proj": PD((di, d), fan_in=di),
+    }
+
+
+def param_schema(cfg: ModelConfig) -> Dict[str, Any]:
+    """Nested schema.  The ``layers`` subtree is per-layer and gets stacked
+    with a leading (num_layers,) dim by ``init_params``."""
+    require_ported(cfg)
+    d, vp = cfg.d_model, cfg.padded_vocab
+    schema: Dict[str, Any] = {
+        "embed": PD((vp, d), init="embed"),
+        "final_norm": _norm(cfg),
+    }
+    if not cfg.tie_embeddings:
+        schema["lm_head"] = PD((d, vp), fan_in=d)
+    schema["layers"] = _ssm_layer(cfg)
+    schema["shared_attn"] = {"ln1": _norm(cfg), "ln2": _norm(cfg),
+                             **_attn(cfg), **_mlp(cfg)}
+    return schema
+
+
+def map_schema(cfg: ModelConfig,
+               fn: Callable[[PD, Tuple[int, ...], Tuple[str, ...]], Any]):
+    """``fn(pd, shape, path)`` over the schema, ``shape`` with the leading
+    (num_layers,) dim for the stacked subtree -> the same nesting."""
+
+    def rec(node, stacked, path):
+        if isinstance(node, PD):
+            shape = node.shape if stacked is None else (stacked,) + node.shape
+            return fn(node, shape, path)
+        return {k: rec(v, cfg.num_layers if k == "layers" else stacked,
+                       path + (k,))
+                for k, v in node.items()}
+
+    return rec(param_schema(cfg), None, ())
+
+
+def _linspace(start: float, stop: float, num: int) -> torch.Tensor:
+    """``jnp.linspace`` in float32, term for term: start (1 - t) + stop t
+    with t = i / (num - 1), the last point set to ``stop``."""
+    lo = torch.tensor(start, dtype=torch.float32)
+    hi = torch.tensor(stop, dtype=torch.float32)
+    if num == 1:
+        return lo[None]
+    t = torch.arange(num - 1, dtype=torch.float32) / float(num - 1)
+    return torch.cat([lo * (1 - t) + hi * t, hi[None]])
+
+
+def _init_leaf(pd: PD, shape, gen: torch.Generator, dtype) -> torch.Tensor:
+    """One leaf on the generator's device (the stacked dims come first in
+    ``shape``; deterministic rules repeat over them)."""
+    dev = gen.device
+    if pd.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if pd.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=dev)
+    if pd.init == "a_log":
+        row = torch.log(_linspace(1.0, 16.0, shape[-1]))
+        return row.to(dtype).expand(shape).to(dev).contiguous()
+    if pd.init == "dt_bias":
+        # inverse-softplus of dt in [1e-3, 1e-1], log-spaced
+        dt = torch.exp(_linspace(math.log(1e-3), math.log(1e-1), shape[-1]))
+        row = torch.log(torch.expm1(dt))
+        return row.to(dtype).expand(shape).to(dev).contiguous()
+    if pd.init == "embed":
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+    if pd.init == "conv":
+        u = torch.rand(shape, generator=gen, device=dev) * 2.0 - 1.0
+        return (u / math.sqrt(pd.shape[0])).to(dtype)
+    fan = pd.fan_in or pd.shape[0]
+    return (torch.randn(shape, generator=gen, device=dev)
+            / math.sqrt(fan)).to(dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                dtype=torch.float32) -> Dict[str, Any]:
+    """Materialised parameters (float32 master weights by default) on
+    ``device`` (default: the GPU).  Random leaves are drawn on the
+    generator's device, in schema order, then moved."""
+    device = resolve_device(device)
+    return map_schema(cfg, lambda pd, shape, path: _init_leaf(
+        pd, shape, generator, dtype).to(device))
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The shape of every leaf, nested as the parameters are."""
+    return map_schema(cfg, lambda pd, shape, path: shape)
+
+
+def param_count_actual(params) -> int:
+    def count(node):
+        if isinstance(node, dict):
+            return sum(count(v) for v in node.values())
+        return node.numel()
+    return count(params)

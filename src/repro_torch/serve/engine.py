@@ -1,0 +1,98 @@
+"""Serving engine: batched generation over ``decode_step``.  The
+counterpart of ``repro.serve.engine``.
+
+As in the reference, ``prefill_cache`` feeds the prompt through decode
+steps one token at a time (no kernel); ``transformer.prefill_forward`` is
+the prefill that runs the whole prompt at once through the kernels.
+Generation is greedy at temperature 0, else Gumbel-max sampling (what
+``jax.random.categorical`` does) with noise from an explicit
+``torch.Generator``: randomness is an input.  ``batch_requests``
+left-pads uneven requests and ``generate`` does not mask the padding,
+which is the reference's behaviour.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import (
+    compute_dtype, decode_step, init_cache,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_seq: int = 512
+    temperature: float = 0.0   # 0 => greedy
+    seed: int = 0
+
+
+def prefill_cache(cfg: ModelConfig, params, prompts: torch.Tensor,
+                  scfg: ServeConfig) -> Tuple[Dict, torch.Tensor]:
+    """Feed the prompt tokens (B, P) through decode steps.  Returns (cache,
+    last logits (B, Vp))."""
+    b, plen = prompts.shape
+    if plen < 1:
+        raise ValueError("prefill_cache needs at least one prompt token")
+    cache = init_cache(cfg, b, scfg.max_seq, dtype=compute_dtype(cfg),
+                       device=prompts.device)
+    logits = None
+    for t in range(plen):
+        logits, cache = decode_step(cfg, params, cache,
+                                    {"tokens": prompts[:, t:t + 1]})
+    return cache, logits
+
+
+def sample(cfg: ModelConfig, logits: torch.Tensor, temperature: float,
+           generator: torch.Generator) -> torch.Tensor:
+    """Next tokens (B,) int32 from logits (B, Vp): argmax over the real
+    vocab at temperature 0, else argmax of logits / T plus Gumbel noise
+    drawn from ``generator``."""
+    logits = logits[..., : cfg.vocab_size]
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    u = torch.rand(logits.shape, generator=generator,
+                   device=generator.device).to(logits.device)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
+    return torch.argmax(logits / temperature + gumbel, dim=-1).to(torch.int32)
+
+
+def generate(cfg: ModelConfig, params, prompts: torch.Tensor,
+             scfg: ServeConfig, num_tokens: int,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Greedy / temperature generation.  prompts (B, P) -> (B, num_tokens)
+    int32.  Pass ``generator`` to thread an explicit random stream; callers
+    serving many requests must keep one per request stream, otherwise
+    every call with the same ServeConfig replays the same noise (the
+    seed-derived generator exists for one-shot and test use)."""
+    cache, logits = prefill_cache(cfg, params, prompts, scfg)
+    if generator is None:
+        generator = torch.Generator(prompts.device).manual_seed(scfg.seed)
+    toks = []
+    for _ in range(num_tokens):
+        tok = sample(cfg, logits, scfg.temperature, generator)
+        toks.append(tok)
+        logits, cache = decode_step(cfg, params, cache,
+                                    {"tokens": tok[:, None]})
+    if not toks:
+        return torch.empty((prompts.shape[0], 0), dtype=torch.int32,
+                           device=prompts.device)
+    return torch.stack(toks, dim=1)
+
+
+def batch_requests(prompt_lists: List[List[int]], pad_id: int = 0
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Left-pad uneven requests into one batch (B, Pmax) + lengths."""
+    if not prompt_lists:
+        raise ValueError("batch_requests needs at least one prompt")
+    lens = np.asarray([len(p) for p in prompt_lists])
+    pmax = int(lens.max())
+    out = np.full((len(prompt_lists), pmax), pad_id, np.int32)
+    for i, p in enumerate(prompt_lists):
+        out[i, pmax - len(p):] = p
+    return out, lens

@@ -1,6 +1,7 @@
-"""The port's four kernel modules against the JAX package, on the CPU.
+"""The port's six kernel modules against the JAX package, on the CPU.
 
-For each of sparse_gram, blockgram, sketch_panel and topk_score the same inputs (made
+For each of sparse_gram, blockgram, sketch_panel, topk_score,
+flash_attention and ssd_scan the same inputs (made
 with ``np.random.default_rng(seed)``) go through the port's plain PyTorch
 version and through the JAX function, twice: the pure-jnp oracle
 (``repro.kernels.ref``) and the Pallas kernel body in interpret mode.  The
@@ -14,6 +15,10 @@ products, f32 summation order).  topk_score is compared BITWISE (values and
 indices) on integer-valued inputs, where every sum is exact in float32 in
 any order; on Gaussian inputs its values are held at rtol 1e-6 and its
 indices wherever the reference's neighbouring scores lie further apart.
+flash_attention is held at 2e-5 and ssd_scan at 1e-4 in float32 (online
+against direct softmax; the Pallas body's chunked sums against the
+sequential recurrence), and both at 8e-3 for a bf16 output (each side
+rounds its float32 result to bf16 once: one bf16 ulp is 2**-8 relative).
 """
 import subprocess
 import sys
@@ -24,18 +29,22 @@ import pytest
 import torch
 
 from repro.kernels import blockgram as jbg
+from repro.kernels import flash_attention as jfa
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import sketch_panel as jsp
 from repro.kernels import sparse_gram as jsg
+from repro.kernels import ssd_scan as jssd
 from repro.serve import kvquant as jkvquant
 
 import repro_torch
 from repro_torch.core import sparse as tsparse
 from repro_torch.kernels import blockgram as tbg
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import sketch_panel as tsp
 from repro_torch.kernels import sparse_gram as tsg
+from repro_torch.kernels import ssd_scan as tss
 from repro_torch.kernels import topk_score as ttk
 
 from conftest import REPO
@@ -341,6 +350,172 @@ def test_topk_score_fewer_valid_columns_than_k_top_orders_masked_by_index():
 
 
 # ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+def _qkv(b, hq, hkv, sq, sk, d, seed=7):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, hq, sq, d), (b, hkv, sk, d),
+                               (b, hkv, sk, d)))
+
+
+def _as(x, dtype):
+    """The same values as a torch tensor and a jax array of ``dtype``."""
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    return t, jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype))
+
+
+def _attn_rel(dtype):
+    # float32: the order of the sums (online vs direct softmax, the kernel's
+    # tiles); bfloat16: both sides round the f32 result to bf16 once, so
+    # they may differ by one bf16 ulp (2**-8 relative) of the largest output
+    return 2e-5 if dtype == "float32" else 8e-3
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
+    (2, 4, 2, 128, 128, 64),
+    (1, 8, 1, 64, 64, 128),    # MQA
+    (1, 4, 4, 256, 256, 32),   # MHA
+    (2, 4, 2, 64, 192, 64),    # right-aligned (sq < sk)
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_sweep(b, hq, hkv, sq, sk, d, dtype):
+    """The reference's sweep: the plain version vs the jnp oracle AND the
+    Pallas body in interpret mode, inputs rounded to ``dtype`` first."""
+    (tq, jq), (tk, jk), (tv, jv) = (_as(x, dtype) for x in
+                                    _qkv(b, hq, hkv, sq, sk, d))
+    got = tfa.flash_attention_ref(tq, tk, tv)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    rel = _attn_rel(dtype)
+    assert_close_rel(got.float(), np.asarray(jref.flash_attention(jq, jk, jv),
+                                             np.float32), rel)
+    assert_close_rel(got.float(), np.asarray(jfa.flash_attention(
+        jq, jk, jv, block_q=64, block_k=64, interpret=True), np.float32), rel)
+
+
+@pytest.mark.parametrize("window", [0, 96])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_variants(window, softcap, causal):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 2, 256, 256, 64))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = tops.flash_attention(q, k, v, **kw)
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    assert_close_rel(got, jref.flash_attention(jq, jk, jv, **kw), 2e-5)
+    assert_close_rel(got, jfa.flash_attention(jq, jk, jv, block_q=64,
+                                              block_k=64, interpret=True,
+                                              **kw), 2e-5)
+
+
+@pytest.mark.parametrize("s,bq,bk", [(100, 64, 64), (150, 64, 128),
+                                     (100, 128, 64)])
+def test_flash_attention_unaligned(monkeypatch, s, bq, bk):
+    """Lengths that are no multiple of the reference's blocks: its wrapper
+    pads Q and KV to one common length and runs the Pallas body (interpret);
+    the port takes every length as it is."""
+    monkeypatch.setenv("REPRO_KERNELS", "interpret")
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 2, s, s, 64))
+    got = tops.flash_attention(q, k, v)
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    assert_close_rel(got, jops.flash_attention(jq, jk, jv, block_q=bq,
+                                               block_k=bk), 2e-5)
+    assert_close_rel(got, jref.flash_attention(jq, jk, jv), 2e-5)
+
+
+def test_flash_attention_rows_that_see_no_key_are_zero():
+    """sq > sk, causal: the first sq - sk queries sit before every key.  The
+    port gives those rows zeros (the jnp oracle gives NaN); every other row
+    equals the oracle."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 1, 40, 25, 16))
+    got = tops.flash_attention(q, k, v)
+    want = np.asarray(jref.flash_attention(*(jnp.asarray(x.numpy())
+                                             for x in (q, k, v))))
+    assert float(got[:, :, :15].abs().max()) == 0.0
+    assert np.isnan(want[:, :, :15]).all()
+    assert_close_rel(got[:, :, 15:], want[:, :, 15:], 2e-5)
+    win = tops.flash_attention(q[:, :, :1].contiguous(), k, v, causal=False,
+                               window=3)
+    assert float(win.abs().max()) > 0.0      # sq=1 sees keys 22..24
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(b, l, h, g, p, n, seed=9):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.standard_normal((b, l, h)))) * 0.1).astype(
+        np.float32)
+    a = (-np.exp(rng.standard_normal(h))).astype(np.float32)
+    bm = (rng.standard_normal((b, l, g, n)) / np.sqrt(n)).astype(np.float32)
+    cm = (rng.standard_normal((b, l, g, n)) / np.sqrt(n)).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("b,l,h,g,p,n,chunk", [
+    (2, 128, 4, 2, 32, 16, 64),
+    (1, 256, 2, 2, 64, 32, 128),
+    (1, 64, 4, 1, 16, 8, 32),    # B/C shared by all heads
+    (1, 128, 8, 8, 64, 64, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_sweep(b, l, h, g, p, n, chunk, dtype):
+    """The reference's sweep: the plain version (sequential) vs the jnp
+    oracle AND the Pallas body in interpret mode.  y: 1e-4 of max|y| in
+    float32 (the Pallas body's chunked sums), 8e-3 in bf16 (one bf16 ulp of
+    the rounded output); the float32 state at 1e-4 either way."""
+    x, dt, a, bm, cm = _ssd_inputs(b, l, h, g, p, n)
+    tx, jx = _as(x, dtype)
+    tdt, jdt = _as(dt, dtype)
+    tb, jb = _as(bm, dtype)
+    tc, jc = _as(cm, dtype)
+    y, hf = tss.ssd_scan_ref(tx, tdt, torch.from_numpy(a), tb, tc)
+    assert y.dtype == tx.dtype and hf.dtype == torch.float32
+    assert hf.shape == (b, h, p, n)
+    rel = 1e-4 if dtype == "float32" else 8e-3
+    yr, hr = jref.ssd_scan(jx, jdt, jnp.asarray(a), jb, jc, return_state=True)
+    yk, hk = jssd.ssd_scan(jx, jdt, jnp.asarray(a), jb, jc, chunk=chunk,
+                           interpret=True)
+    for want_y, want_h in ((yr, hr), (yk, hk)):
+        assert_close_rel(y.float(), np.asarray(want_y, np.float32), rel)
+        assert_close_rel(hf, want_h, 1e-4)
+
+
+def test_ssd_scan_ragged_length(monkeypatch):
+    """L = 100 is no multiple of the chunk: the reference's wrapper takes
+    its sequential oracle, the port (and its kernel) every length."""
+    monkeypatch.setenv("REPRO_KERNELS", "interpret")
+    args = _ssd_inputs(2, 100, 4, 2, 16, 8)
+    y, hf = tops.ssd_scan(*(torch.from_numpy(x) for x in args))
+    yr, hr = jops.ssd_scan(*(jnp.asarray(x) for x in args))
+    assert_close_rel(y, yr, 1e-5)
+    assert_close_rel(hf, hr, 1e-5)
+
+
+def test_ssd_state_decays():
+    """With strongly negative A the state forgets the past: changing the
+    first half of x leaves the final state unchanged (as the reference's
+    test shows for its kernel), and both agree with it."""
+    b, l, h, g, p, n = 1, 128, 2, 1, 16, 8
+    x, _, _, bm, cm = _ssd_inputs(b, l, h, g, p, n, seed=3)
+    dt = np.full((b, l, h), 2.0, np.float32)
+    a = np.full((h,), -10.0, np.float32)
+    x2 = x.copy()
+    x2[:, : l // 2] = np.random.default_rng(4).standard_normal(
+        (b, l // 2, h, p))
+    t = [torch.from_numpy(v) for v in (dt, a, bm, cm)]
+    _, hf = tops.ssd_scan(torch.from_numpy(x), *t)
+    _, hf2 = tops.ssd_scan(torch.from_numpy(x2), *t)
+    np.testing.assert_allclose(hf.numpy(), hf2.numpy(), rtol=1e-4, atol=1e-4)
+    _, hk = jssd.ssd_scan(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(a),
+                          jnp.asarray(bm), jnp.asarray(cm), chunk=64,
+                          interpret=True)
+    assert_close_rel(hf, hk, 1e-4)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch and imports
 # ---------------------------------------------------------------------------
 
@@ -367,6 +542,22 @@ def test_wrappers_validate_their_inputs():
     with pytest.raises(ValueError, match="scale"):
         tops.topk_score(torch.zeros((2, 3)), torch.zeros((5, 3)), 2,
                         scale=torch.ones(4))
+    q = torch.zeros((1, 4, 8, 16))
+    with pytest.raises(ValueError):
+        tops.flash_attention(q, torch.zeros((1, 3, 8, 16)),
+                             torch.zeros((1, 3, 8, 16)))
+    with pytest.raises(TypeError):
+        tops.flash_attention(q, q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                             q.transpose(1, 2))
+    x, dt = torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 4))
+    bc = torch.zeros((1, 8, 3, 8))
+    with pytest.raises(ValueError, match="multiple of G"):
+        tops.ssd_scan(x, dt, torch.zeros(4), bc, bc)
+    with pytest.raises(TypeError):
+        tops.ssd_scan(x, dt, torch.zeros(4, dtype=torch.float64),
+                      bc[:, :, :2], bc[:, :, :2])
 
 
 def test_cuda_request_without_cuda_raises_instead_of_plain_version():
@@ -396,18 +587,32 @@ def test_cuda_request_without_cuda_raises_instead_of_plain_version():
     with pytest.raises(RuntimeError, match="unsupported device"):
         tops.topk_score(torch.zeros((2, 3), device="meta"),
                         torch.zeros((5, 3), device="meta"), 2)
+    q = torch.zeros((1, 2, 4, 16), device="meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tops.flash_attention(q, q, q)
+    bc = torch.zeros((1, 8, 1, 16), device="meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tops.ssd_scan(torch.zeros((1, 8, 2, 16), device="meta"),
+                      torch.zeros((1, 8, 2), device="meta"),
+                      torch.zeros((2,), device="meta"), bc, bc)
 
 
 def test_launch_counters_do_not_move_on_the_cpu():
     """A wrapper counts where it launches its kernel and nowhere else."""
-    before = (tsg.launches, tbg.launches, tsp.launches, ttk.launches)
+    mods = (tsg, tbg, tsp, ttk, tfa, tss)
+    before = tuple(m.launches for m in mods)
     rows, vals = _random_ell(8, 16, 2)
     tops.sparse_gram(torch.from_numpy(rows), torch.from_numpy(vals), 8)
     tops.blockgram(torch.ones((1, 4, 8)))
     tops.sketch_panel(torch.ones((2, 8)), torch.from_numpy(rows),
                       torch.from_numpy(vals))
     tops.topk_score(torch.ones((2, 3)), torch.ones((7, 3)), 4)
-    assert (tsg.launches, tbg.launches, tsp.launches, ttk.launches) == before
+    q = torch.ones((1, 2, 5, 16))
+    tops.flash_attention(q, q, q)
+    tops.ssd_scan(torch.ones((1, 9, 2, 4)), torch.ones((1, 9, 2)),
+                  -torch.ones(2), torch.ones((1, 9, 1, 4)),
+                  torch.ones((1, 9, 1, 4)))
+    assert tuple(m.launches for m in mods) == before
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
@@ -432,6 +637,14 @@ def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.stream, repro_torch.serve\n"
         "import repro_torch.serve.kvquant, repro_torch.core.hierarchy\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.configs.base, repro_torch.models.layers\n"
+        "import repro_torch.models.schema, repro_torch.models.convert\n"
+        "import repro_torch.models.attention, repro_torch.models.ssm\n"
+        "import repro_torch.models.transformer, repro_torch.serve.engine\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch.configs.base import ARCH_IDS, get_config\n"
+        "[get_config(a) for a in ARCH_IDS]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
