@@ -17,7 +17,11 @@ What it does, one JSON line per phase:
    three-way ties, at the paper universe and at 256 x 1,048,576, compared
    with ``torch.equal``).  Times kernel, plain version and, where one PyTorch
    call computes the same function, that call, and works out the least time
-   the card could take (``bound_ms``).
+   the card could take (``bound_ms``) and the rates the kernel's time stands
+   for (``achieved_tflops``, ``achieved_gb_s``); ``topk_score``'s two passes
+   are also timed apart (``pass_ms``, ``torch.profiler``), and
+   ``flash_attention`` is timed beside SDPA at the long prompt (2, 32, 3000,
+   80) and at head dim 128 too.
 4. ``solve_sparse_exact`` / 5. ``solve_dense_exact`` / 6. ``solve_randomized``
    / 7. ``solve_scaled``: ``repro_torch.core.api.svd`` on the paper's
    539 x 170,897 matrix (COO and dense input, exact and rank-16) and on two
@@ -452,9 +456,9 @@ def peak_for(dtype) -> float:
 
 
 def flash_bound(q, k, *, causal=True, window=0):
-    """Bytes: q, k, v and the output once; operations: a multiply and an
-    add per head dim for q.k and for p.v, per (query, key) pair that this
-    mask shows, per query head."""
+    """(bound_ms, bound_by, operations, bytes).  Bytes: q, k, v and the
+    output once; operations: a multiply and an add per head dim for q.k and
+    for p.v, per (query, key) pair that this mask shows, per query head."""
     b, hq, sq, d = q.shape
     sk = k.shape[2]
     qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
@@ -466,7 +470,38 @@ def flash_bound(q, k, *, causal=True, window=0):
         mask &= (qi - ki) < window
     pairs = float(mask.sum())
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    return bound(nbytes, 4.0 * b * hq * d * pairs, peak_for(q.dtype))
+    flops = 4.0 * b * hq * d * pairs
+    return (*bound(nbytes, flops, peak_for(q.dtype)), flops, nbytes)
+
+
+def achieved(flops, nbytes, ms) -> dict:
+    """The rates a kernel time stands for: operations and bytes of the
+    function (the same counts as its bound) over the time."""
+    return dict(achieved_tflops=flops / ms / 1e9,
+                achieved_gb_s=nbytes / ms / 1e6)
+
+
+def device_ms_by_kernel(fn, iters: int = 10) -> dict:
+    """Device time per call of each kernel ``fn`` launches, by name
+    (``torch.profiler`` over ``iters`` warm calls); {} where the profiler
+    saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+        if dev > 0:
+            out[ev.key[:80]] = dev / 1e3 / iters
+    return out
 
 
 def lm_randn(shape, gen, dtype):
@@ -485,10 +520,33 @@ def flash_case(cases, case, b, hq, hkv, sq, sk, d, dtype, gen, **kw):
     return q, k, v, got, err
 
 
+def sdpa_ms(q, k, v, causal) -> float:
+    """The yardstick only (the port never calls SDPA): one SDPA call on the
+    same inputs, K and V expanded to the query heads beforehand."""
+    group = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kk, vv, is_causal=causal))
+
+
+def flash_timed(cases, case, shape, dtype, gen, causal=True) -> dict:
+    """flash_case, then the kernel's time beside its bound and SDPA's."""
+    q, k, v, _, err = flash_case(cases, case, *shape, dtype, gen,
+                                 causal=causal)
+    b_ms, b_by, flops, nbytes = flash_bound(q, k, causal=causal)
+    ms = time_ms(lambda: fa_mod.flash_attention(q, k, v, causal=causal))
+    return dict(case=case, max_abs_err=err, ms=ms, bound_ms=b_ms,
+                bound_by=b_by, **achieved(flops, nbytes, ms),
+                library_ms=sdpa_ms(q, k, v, causal))
+
+
 def flash_kernel_rows(cases, main) -> None:
     """The main shape of the LM prefill, (8, 32, 1024, 80) causal, in bf16
-    (the config's type) and float32, timed; variants checked: GQA, window,
-    softcap, non-causal, right-aligned, ragged, rows that see no key."""
+    (the config's type) and float32, timed; the long prompt (2, 32, 3000,
+    80) and a head-dim-128 GQA shape timed beside SDPA too; variants
+    checked: GQA, window, softcap, non-causal, right-aligned, ragged, rows
+    that see no key."""
     gen = torch.Generator(DEVICE).manual_seed(21)
     pf = LM_PREFILL
     cfg = get_config(LM_ARCH)
@@ -499,17 +557,15 @@ def flash_kernel_rows(cases, main) -> None:
         tag = str(dtype).replace("torch.", "")
         q, k, v, _, err = flash_case(cases, f"main {shape} {tag} causal",
                                      *shape, dtype, gen)
-        b_ms, b_by = flash_bound(q, k)
+        b_ms, b_by, flops, nbytes = flash_bound(q, k)
+        ms = time_ms(lambda: fa_mod.flash_attention(q, k, v))
         rows[tag] = dict(
             shape=f"q, k, v {tuple(q.shape)} {tag}, causal", max_abs_err=err,
-            ms=time_ms(lambda: fa_mod.flash_attention(q, k, v)),
+            ms=ms,
             plain_ms=time_ms(lambda: fa_mod.flash_attention_ref(q, k, v),
                              iters=3, warmup=1),
-            bound_ms=b_ms, bound_by=b_by,
-            # The yardstick only: the port never calls SDPA.
-            library_ms=time_ms(lambda: torch.nn.functional
-                               .scaled_dot_product_attention(
-                                   q, k, v, is_causal=True)))
+            bound_ms=b_ms, bound_by=b_by, **achieved(flops, nbytes, ms),
+            library_ms=sdpa_ms(q, k, v, True))
         del q, k, v
     variants = [
         ("GQA Hq 8 Hkv 2", (2, 8, 2, 1024, 1024, 80), {}),
@@ -519,22 +575,29 @@ def flash_kernel_rows(cases, main) -> None:
         ("right-aligned sq 256 < sk 1024", (2, 8, 2, 256, 1024, 80), {}),
         ("ragged sq = sk = 1000", (2, 8, 2, 1000, 1000, 80), {}),
         ("ragged sq 1 sk 777", (3, 8, 2, 1, 777, 80), {}),
-        ("long prompt sq = sk = 3000 (lm_serve's long prefill)",
-         (LM_LONG["batch"], 32, 32, LM_LONG["seq"], LM_LONG["seq"], 80), {}),
         ("head dim 128, window + softcap, non-causal",
          (1, 4, 2, 300, 300, 128),
          dict(causal=False, window=64, softcap=30.0)),
     ]
+    timed = []
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).replace("torch.", "")
         for name, shp, kw in variants:
             flash_case(cases, f"{name} {tag}", *shp, dtype, gen, **kw)
+        timed.append(flash_timed(
+            cases, f"long prompt sq = sk = 3000 (lm_serve's long prefill) "
+            f"{tag}", (LM_LONG["batch"], 32, 32, LM_LONG["seq"],
+                       LM_LONG["seq"], 80), dtype, gen))
+        timed.append(flash_timed(cases, f"head dim 128, GQA 32/8, causal "
+                                 f"{tag}", (2, 32, 8, 1024, 1024, 128),
+                                 dtype, gen))
     q, k, v, got, _ = flash_case(cases, "sq 100 > sk 60 (rows before every "
                                  "key)", 1, 4, 4, 100, 60, 80,
                                  torch.float32, gen)
     check(float(got[:, :, :40].abs().max()) == 0.0,
           "flash_attention: rows that see no key must be zeros")
-    main["flash_attention"] = dict(rows["bfloat16"], float32=rows["float32"])
+    main["flash_attention"] = dict(rows["bfloat16"], float32=rows["float32"],
+                                   timed_variants=timed)
 
 
 def ssd_inputs(b, seq, h, g, p, n, dtype, gen):
@@ -1011,21 +1074,23 @@ def phase_solve_scaled(state) -> None:
 # ---------------------------------------------------------------------------
 
 def topk_bound(qs, v, k_top, scale):
-    """Bytes: v, the scale, the queries and the two outputs once; operations:
-    a multiply and an add per (query, item, factor)."""
+    """(bound_ms, bound_by, operations, bytes).  Bytes: v, the scale, the
+    queries and the two outputs once; operations: a multiply and an add per
+    (query, item, factor)."""
     b, k = qs.shape
     n = v.shape[0]
     nbytes = (v.numel() * v.element_size() + (n * 4 if scale is not None
                                                else 0)
               + qs.numel() * 4 + b * k_top * 8)
-    return bound(nbytes, 2.0 * b * n * k)
+    return (*bound(nbytes, 2.0 * b * n * k), 2.0 * b * n * k, nbytes)
 
 
 def topk_case(cases, case, qs, v, k_top, *, scale=None, valid_n=None,
-              index_offset=0, block_n=512, plain_iters=5):
+              index_offset=0, block_n=512, plain_iters=5, passes=False):
     """Kernel vs plain version with torch.equal on values and indices, and
     the times: kernel, plain version, one library call (timed only: its tie
-    order differs) and the bound."""
+    order differs) and the bound; with ``passes``, the device time of each
+    of the kernel's two passes (``torch.profiler``)."""
     kw = dict(scale=scale, valid_n=valid_n, index_offset=index_offset)
     got = tk_mod.topk_score(qs, v, k_top, block_n=block_n, **kw)
     want = tk_mod.topk_score_ref(qs, v, k_top, **kw)
@@ -1041,18 +1106,20 @@ def topk_case(cases, case, qs, v, k_top, *, scale=None, valid_n=None,
         return torch.topk(s * scale[None, :] if scale is not None else s,
                           k_top)
 
-    b_ms, b_by = topk_bound(qs, v, k_top, scale)
+    b_ms, b_by, flops, nbytes = topk_bound(qs, v, k_top, scale)
+    call = lambda: tk_mod.topk_score(qs, v, k_top, block_n=block_n,  # noqa
+                                     **kw)
+    ms = time_ms(call)
     return dict(
         case=case, shape=f"qs {tuple(qs.shape)}, v {tuple(v.shape)} "
                          f"{str(v.dtype).replace('torch.', '')}, "
                          f"k_top {k_top}",
-        max_abs_err=err,
-        ms=time_ms(lambda: tk_mod.topk_score(qs, v, k_top, block_n=block_n,
-                                             **kw)),
+        max_abs_err=err, ms=ms,
         plain_ms=time_ms(lambda: tk_mod.topk_score_ref(qs, v, k_top, **kw),
                          iters=plain_iters, warmup=1),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(library, iters=5, warmup=1))
+        bound_ms=b_ms, bound_by=b_by, **achieved(flops, nbytes, ms),
+        library_ms=time_ms(library, iters=5, warmup=1),
+        **(dict(pass_ms=device_ms_by_kernel(call)) if passes else {}))
 
 
 def topk_variants(cases, b, k, n, k_top, *, n_valid, seed, plain_iters):
@@ -1063,11 +1130,12 @@ def topk_variants(cases, b, k, n, k_top, *, n_valid, seed, plain_iters):
     v = torch.randn((n, k), generator=gen, device=DEVICE)
     tag = f"B={b} k={k} N={n}"
     rows = [topk_case(cases, f"{tag} f32, valid_n={n_valid}", qs, v, k_top,
-                      valid_n=n_valid, plain_iters=plain_iters)]
+                      valid_n=n_valid, plain_iters=plain_iters, passes=True)]
     v_q, v_scale = kvquant.quantize(v, axis=-1)
     rows.append(topk_case(cases, f"{tag} int8 + kvquant scale", qs, v_q,
                           k_top, scale=v_scale[:, 0].contiguous(),
-                          valid_n=n_valid, plain_iters=plain_iters))
+                          valid_n=n_valid, plain_iters=plain_iters,
+                          passes=True))
     rows.append(topk_case(cases, f"{tag} valid_n={n - 3001} offset=5000", qs,
                           v, k_top, valid_n=n - 3001, index_offset=5000,
                           plain_iters=plain_iters))
@@ -1444,7 +1512,7 @@ def phase_serve_scaled(state) -> None:
         qs = ranker.fold_queries(snap, q)
         v = snap.v_q if quant else snap.v
         scale = snap.v_scale[:, 0].contiguous() if quant else None
-        b_ms, b_by = topk_bound(qs, v, sc["k_top"], scale)
+        b_ms, b_by, _, _ = topk_bound(qs, v, sc["k_top"], scale)
         out[name] = dict(
             wave_ms=time_ms(lambda: api.serve_topk(h, q)),
             ms=time_ms(lambda: tk_mod.topk_score(qs, v, sc["k_top"],
@@ -1564,7 +1632,8 @@ def synced_ms(fn):
 def profile_prefill(cfg, params, batch) -> dict:
     """Device time by kernel over one warm prefill (``torch.profiler``):
     the kernels' own records only (the operators that launch them carry
-    the same time again and are left out), the ten largest, and their sum,
+    the same time again and are left out), the ten largest, the port's
+    two kernels wherever they rank (``port_kernels``), and their sum,
     beside the wall of that same profiled prefill (host clock between two
     synchronizations) and the busy share, their ratio; ``kernel_ms_total``
     is None where the profiler saw no device time."""
@@ -1591,7 +1660,10 @@ def profile_prefill(cfg, params, batch) -> dict:
                                              else None),
                 kernels=len(rows), other_records=other,
                 top=[dict(name=k[:80], device_ms=ms, calls=n)
-                     for ms, k, n in rows[:10]])
+                     for ms, k, n in rows[:10]],
+                port_kernels=[dict(name=k[:80], device_ms=ms, calls=n)
+                              for ms, k, n in rows
+                              if "attn_kernel" in k or "ssd_kernel" in k])
 
 
 def lm_requests(cfg, n: int, seed: int = 0):

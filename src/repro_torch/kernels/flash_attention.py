@@ -12,11 +12,15 @@ as the TPU kernel's rows do when every tile of their block is skipped.
 
 The kernel masks ragged edges itself, so the reference wrapper's padding of
 Q and KV to a common block multiple and its ``sq < 8`` fallback do not
-carry over: on the card every shape goes to the kernel.  The plain version
-is ``flash_attention_ref`` (the reference's ``ref.flash_attention``, with
-zeros instead of NaN for rows that see no key); ``flash_attention`` takes it
-ONLY for tensors that lie on the CPU; for CUDA tensors it launches the
-kernel or raises.
+carry over: on the card every shape goes to the kernel (head dims that are
+no multiple of 8 are zero-padded here, which changes no score).  It runs on
+the tensor cores: bf16 products with float32 sums, P split into two bf16
+terms for bf16 inputs and q, k, v, P into three for float32 inputs, so
+that both stay within the plain version's limits (see the source).  The
+plain version is ``flash_attention_ref`` (the reference's
+``ref.flash_attention``, with zeros instead of NaN for rows that see no
+key); ``flash_attention`` takes it ONLY for tensors that lie on the CPU;
+for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -116,13 +120,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"which the kernel does not take")
     if scale is None:
         scale = d ** -0.5
+    # The kernel copies rows in whole 16-byte pieces: head dims padded with
+    # zeros to a multiple of 8, and rows that start 16-byte aligned.
+    dp = -(-d // 8) * 8
+    q, k, v = (_aligned(x, dp) for x in (q, k, v))
     fn = build.entry("ranky_flash_attention", _ARGS)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk, d,
+                  int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk, dp,
                   int(causal), int(window), float(softcap), float(scale),
                   torch.cuda.current_stream().cuda_stream)
     build.check(code, "flash_attention")
     launches += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()
+
+
+def _aligned(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """``x`` with its last dim zero-padded to ``dp`` and its data 16-byte
+    aligned (a copy only where either is not so already)."""
+    if x.shape[-1] != dp:
+        return torch.nn.functional.pad(x, (0, dp - x.shape[-1]))
+    return x if x.data_ptr() % 16 == 0 else x.clone()

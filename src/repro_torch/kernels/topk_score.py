@@ -6,9 +6,12 @@ Replaces the TPU kernel ``src/repro/kernels/topk_score.py``
 (``_topk_score_kernel`` / ``_select_topk`` / ``topk_score``) and its
 wrapper ``ops.topk_score``.  On an H100 the function is bound by the
 float32 operations (2·B·N·k) at serving batch sizes and by the bytes of
-``v`` at small ones; the kernel scores a (16 queries x 256 columns) tile at
-a time and keeps a running top-k list per query in shared memory, then a
-second pass merges the per-chunk lists.  See the note in the source.
+``v`` at small ones; the kernel scores (32 queries x 64 columns) tiles in
+4 x 4 register tiles, offers a score only if it beats its query's current
+k_top-th entry (value, then index) or a bound another block published,
+merges the survivors into a running top-k list per query and column chunk
+by a sorted merge, then a second pass merges the per-chunk lists.  See the
+note in the source.
 
 Bit-identity with the plain version (values AND indices): both sum the k
 products of a score in ascending k, each rounded on its own (no FMA), then
@@ -22,7 +25,8 @@ CPU; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,8 +43,10 @@ _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p)
-_QUERY_TILE = 16   # queries per thread block of the scoring pass (QB)
+         ctypes.c_int, ctypes.c_void_p)
+# Queries per thread block of the scoring pass (QB), largest first: the
+# kernel is built for these two.
+QUERY_TILES = (32, 8)
 
 
 def _check(qs: torch.Tensor, v: torch.Tensor, k_top: int,
@@ -66,6 +72,39 @@ def _check(qs: torch.Tensor, v: torch.Tensor, k_top: int,
                                        else set())
     if len(devices) != 1:
         raise ValueError("topk_score: inputs lie on different devices")
+
+
+@functools.lru_cache(maxsize=None)
+def _fits(k: int, k_top: int, v_bytes: int) -> Dict[int, bool]:
+    """Whether pass 1 with each query tile fits a block's shared memory."""
+    smem_of = build.entry("ranky_topk_score_smem", (ctypes.c_int,) * 4)
+    return {qb: 0 < smem_of(qb, k, k_top, v_bytes) <= _SMEM_LIMIT
+            for qb in QUERY_TILES}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_plan(b: int, n: int, block_n: int, sms: int,
+                fits: Dict[int, bool]) -> Tuple[int, int, int]:
+    """(query tile, columns a chunk, chunks) of the scoring pass: the
+    smallest query tile that holds all B queries, or else the largest one
+    whose shared memory fits (``fits[qb]``); column chunks of whole
+    ``block_n`` tiles, about two blocks per SM over all query tiles (so v
+    is read once from device memory and ceil(B / qb) times from L2)."""
+    usable = [qb for qb in QUERY_TILES if fits.get(qb)]
+    if not usable:
+        raise ValueError(
+            "topk_score: this k and k_top need more shared memory than a "
+            f"thread block has ({_SMEM_LIMIT} bytes)")
+    qb = min((t for t in usable if t >= b), default=usable[0])
+    q_tiles = -(-b // qb)
+    tiles = -(-n // block_n)
+    target = max(1, -(-2 * sms // q_tiles))
+    chunk_cols = -(-tiles // min(tiles, target)) * block_n
+    return qb, chunk_cols, -(-n // chunk_cols)
 
 
 def topk_score_ref(qs: torch.Tensor, v: torch.Tensor, k_top: int, *,
@@ -116,39 +155,28 @@ def topk_score(qs: torch.Tensor, v: torch.Tensor, k_top: int, *,
         raise ValueError(f"topk_score: block_n={block_n} must be >= 1")
     b, k = qs.shape
     n = v.shape[0]
-    smem = build.entry("ranky_topk_score_smem",
-                       (ctypes.c_int, ctypes.c_int))(k, k_top)
-    if not 0 < smem <= _SMEM_LIMIT:
-        raise ValueError(
-            f"topk_score: k={k}, k_top={k_top} need more shared memory than "
-            f"a thread block has ({_SMEM_LIMIT} bytes)")
     dev = qs.device
-    # Column chunks: whole block_n tiles, enough chunks for about two
-    # thread blocks per SM over all query tiles.
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-n // block_n)
-    q_tiles = -(-b // _QUERY_TILE)
-    target = max(1, -(-2 * sms // q_tiles))
-    chunk_cols = -(-tiles // min(tiles, target)) * block_n
-    chunks = -(-n // chunk_cols)
+    qb, chunk_cols, chunks = launch_plan(
+        b, n, block_n, _sm_count(dev), _fits(k, k_top, v.element_size()))
     qs_c = qs.contiguous()
     v_c = v.contiguous()
     sc = scale.contiguous() if scale is not None else None
     fn = build.entry("ranky_topk_score", _ARGS)
     with torch.cuda.device(dev):
-        cand_v = torch.empty((b, chunks, k_top), dtype=torch.float32,
-                             device=dev)
-        cand_i = torch.empty((b, chunks, k_top), dtype=torch.int32,
-                             device=dev)
+        # (value, index) pairs: pass 1's lists, pass 2's input
+        lists = torch.empty((b, chunks, k_top, 2), dtype=torch.int32,
+                            device=dev)
+        bounds = torch.empty((b,), dtype=torch.int64, device=dev)
         out_v = torch.empty((b, k_top), dtype=torch.float32, device=dev)
         out_i = torch.empty((b, k_top), dtype=torch.int32, device=dev)
         code = fn(qs_c.data_ptr(), v_c.data_ptr(),
                   int(v.dtype == torch.int8),
                   sc.data_ptr() if sc is not None else None,
-                  cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+                  lists.data_ptr(), bounds.data_ptr(),
+                  out_v.data_ptr(),
                   out_i.data_ptr(), b, k, n,
                   n if valid_n is None else int(valid_n), int(index_offset),
-                  k_top, chunk_cols, chunks,
+                  k_top, chunk_cols, chunks, qb,
                   torch.cuda.current_stream().cuda_stream)
     build.check(code, "topk_score")
     launches += 1
