@@ -19,9 +19,12 @@ What it does, one JSON line per phase:
    call computes the same function, that call, and works out the least time
    the card could take (``bound_ms``) and the rates the kernel's time stands
    for (``achieved_tflops``, ``achieved_gb_s``); ``topk_score``'s two passes
-   are also timed apart (``pass_ms``, ``torch.profiler``), and
+   are also timed apart (``pass_ms``, ``torch.profiler``),
    ``flash_attention`` is timed beside SDPA at the long prompt (2, 32, 3000,
-   80) and at head dim 128 too.
+   80) and at head dim 128 too, and ``ssd_scan`` at the long prompt x (2,
+   3000, 80, 64) beside the prefill shape, with variants L = 1 and L = 11
+   (a chunk shorter than one 16-row MMA tile), G = 2, G = H = 8, ragged
+   L = 1000, P = N = 16 and a decaying state, in bf16 and float32.
 4. ``solve_sparse_exact`` / 5. ``solve_dense_exact`` / 6. ``solve_randomized``
    / 7. ``solve_scaled``: ``repro_torch.core.api.svd`` on the paper's
    539 x 170,897 matrix (COO and dense input, exact and rank-16) and on two
@@ -613,24 +616,14 @@ def ssd_inputs(b, seq, h, g, p, n, dtype, gen):
     return x, dt, a, bm, cm
 
 
-def ssd_flops(b, seq, h, p, n, chunk=ss_mod.CHUNK):
-    """The chunked algorithm's multiply-adds, lower triangles only: C B^T
-    and G x over each chunk's (i >= j) pairs, C h and the state update."""
-    total = 0.0
-    for c0 in range(0, seq, chunk):
-        q = min(chunk, seq - c0)
-        tri = q * (q + 1) / 2
-        total += 2.0 * (tri * n + tri * p + 2.0 * q * p * n)
-    return total * b * h
-
-
 def ssd_bound(x, bm):
+    """(bound_ms, bound_by, operations, bytes) of ``ss_mod.work``: the
+    bytes read and written once and the recurrence's operations, whatever
+    the kernel's chunk."""
     b, seq, h, p = x.shape
-    n = bm.shape[3]
-    es = x.element_size()
-    nbytes = (2 * x.numel() + b * seq * h + 2 * bm.numel()) * es \
-        + h * 4 + b * h * p * n * 4
-    return bound(nbytes, ssd_flops(b, seq, h, p, n), peak_for(x.dtype))
+    nbytes, flops = ss_mod.work(b, seq, h, bm.shape[2], p, bm.shape[3],
+                                x.element_size())
+    return (*bound(nbytes, flops, peak_for(x.dtype)), flops, nbytes)
 
 
 def ssd_case(cases, case, shape, dtype, gen, inputs=None):
@@ -643,10 +636,21 @@ def ssd_case(cases, case, shape, dtype, gen, inputs=None):
     return args, max(err, err_h), hf
 
 
+def ssd_timed(cases, case, shape, dtype, gen) -> dict:
+    """ssd_case, then the kernel's time beside its bound and the rates."""
+    args, err, _ = ssd_case(cases, case, shape, dtype, gen)
+    b_ms, b_by, flops, nbytes = ssd_bound(args[0], args[3])
+    ms = time_ms(lambda: ss_mod.ssd_scan(*args))
+    return dict(case=case, max_abs_err=err, ms=ms, bound_ms=b_ms,
+                bound_by=b_by, **achieved(flops, nbytes, ms))
+
+
 def ssd_kernel_rows(cases, main) -> None:
-    """The main shape of the LM prefill, x (8, 1024, 80, 64), G 1, N 64,
-    chunk 128, in bf16 and float32, timed; variants: G = 2, ragged L = 1000
-    and a decaying state that forgets its first half."""
+    """The main shape of the LM prefill, x (8, 1024, 80, 64), G 1, N 64, in
+    bf16 and float32, timed; the long prompt (2, 3000, 80, 64) timed
+    beside it; variants: G = 2, G = H = 8, ragged L = 1000, L = 1 and
+    L = 11 (a chunk shorter than one 16-row MMA tile), P = N = 16, and a
+    decaying state that forgets its first half."""
     gen = torch.Generator(DEVICE).manual_seed(22)
     cfg = get_config(LM_ARCH)
     pf = LM_PREFILL
@@ -657,33 +661,49 @@ def ssd_kernel_rows(cases, main) -> None:
         tag = str(dtype).replace("torch.", "")
         args, err, _ = ssd_case(cases, f"main {shape} {tag}", shape, dtype,
                                 gen)
-        b_ms, b_by = ssd_bound(args[0], args[3])
+        b_ms, b_by, flops, nbytes = ssd_bound(args[0], args[3])
+        ms = time_ms(lambda: ss_mod.ssd_scan(*args))
         rows[tag] = dict(
             shape=f"x {tuple(args[0].shape)} {tag}, G {shape[3]}, N "
-                  f"{shape[5]}, chunk {ss_mod.CHUNK}", max_abs_err=err,
-            ms=time_ms(lambda: ss_mod.ssd_scan(*args)),
+                  f"{shape[5]}, chunk {ss_mod.chunk_for(dtype)}",
+            max_abs_err=err,
+            ms=ms,
             plain_ms=time_ms(lambda: ss_mod.ssd_scan_ref(*args), iters=2,
                              warmup=1),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **achieved(flops, nbytes, ms))
         del args
+    timed = []
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).replace("torch.", "")
+        timed.append(ssd_timed(
+            cases, f"long prompt L 3000 (lm_serve's long prefill) {tag}",
+            (LM_LONG["batch"], LM_LONG["seq"], cfg.ssm_heads,
+             cfg.ssm_groups, cfg.ssm_head_dim, cfg.ssm_state), dtype, gen))
         ssd_case(cases, f"G 2 {tag}", (4, 1024, 80, 2, 64, 64), dtype, gen)
+        ssd_case(cases, f"G = H = 8 {tag}", (4, 1024, 8, 8, 64, 64), dtype,
+                 gen)
         ssd_case(cases, f"ragged L 1000 {tag}", (2, 1000, 80, 1, 64, 64),
                  dtype, gen)
+        ssd_case(cases, f"L 1 {tag}", (4, 1, 80, 1, 64, 64), dtype, gen)
+        ssd_case(cases, f"L 11 {tag}", (4, 11, 80, 2, 64, 64), dtype, gen)
         ssd_case(cases, f"smoke widths P 16 N 16, L 300 {tag}",
                  (2, 300, 8, 1, 16, 16), dtype, gen)
-    x, _, _, bm, cm = ssd_inputs(1, 256, 8, 1, 64, 64, torch.float32, gen)
-    dt = torch.full((1, 256, 8), 2.0, device=DEVICE)
-    a = torch.full((8,), -10.0, device=DEVICE)
-    _, _, h1 = ssd_case(cases, "decaying state", None, torch.float32, gen,
-                        inputs=(x, dt, a, bm, cm))
-    x2 = x.clone()
-    x2[:, :128] = torch.randn((1, 128, 8, 64), generator=gen, device=DEVICE)
-    h2 = ss_mod.ssd_scan(x2, dt, a, bm, cm)[1]
-    check(torch.allclose(h1, h2, rtol=1e-4, atol=1e-4),
-          "ssd_scan: a state with a = -10, dt = 2 must forget its first half")
-    main["ssd_scan"] = dict(rows["bfloat16"], float32=rows["float32"])
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        x, _, _, bm, cm = ssd_inputs(1, 256, 8, 1, 64, 64, dtype, gen)
+        dt = torch.full((1, 256, 8), 2.0, device=DEVICE, dtype=dtype)
+        a = torch.full((8,), -10.0, device=DEVICE)
+        _, _, h1 = ssd_case(cases, f"decaying state {tag}", None, dtype, gen,
+                            inputs=(x, dt, a, bm, cm))
+        x2 = x.clone()
+        x2[:, :128] = lm_randn((1, 128, 8, 64), gen, dtype)
+        h2 = ss_mod.ssd_scan(x2, dt, a, bm, cm)[1]
+        check(torch.allclose(h1, h2, rtol=1e-4, atol=1e-4),
+              f"ssd_scan: a state with a = -10, dt = 2 must forget its "
+              f"first half ({tag})")
+    main["ssd_scan"] = dict(rows["bfloat16"], float32=rows["float32"],
+                            timed_variants=timed)
 
 
 # ---------------------------------------------------------------------------

@@ -17,48 +17,474 @@
 // comes out in x's type and the final state (B, H, P, N) in float32.
 //
 // What bounds it on an H100: at the LM path's shape, x (8, 1024, 80, 64)
-// bf16, N 64, chunk 128, the bytes are x and y once, B, C, dt and the
-// final state (182 MB: 0.054 ms) and the chunked algorithm's 32 GFLOP
-// would take 0.033 ms on the tensor cores, so the bytes bound it.  This
-// first kernel does its products on the CUDA cores in float32, one thread
-// block per (b, h): it is bound by those FMAs and by one block per SM.
+// bf16, N 64, the bytes are x and y once, B, C, dt and the final state
+// (182 MB: 0.054 ms); the recurrence's 4 P N operations a step and head
+// (10.7 GFLOP) take 0.011 ms on the tensor cores, so the bytes bound it.
 //
-// Design.  The TPU kernel's sequential innermost grid axis (chunks) becomes
-// a loop inside the thread block, which carries the (P x N) float32 state
-// in shared memory from chunk to chunk; the B * H blocks (640 on the LM
-// path) fill the 132 SMs without splitting the chunk axis.  Per chunk the
-// block loads x (row-major) and B, C (transposed, step index fastest) into
-// shared memory as float32, one warp forms la by a shuffle scan, then:
-// G = (C B^T) o decay o dt (lower triangle only, 8 x 8 register tiles,
-// stored transposed), y = G x + exp(la) (C h) (8 x 4 tiles), and the state
-// update (4 x 4 tiles).  For i < j, la_i - la_j > 0 and exp could overflow:
-// those entries are selected as 0 before any product.  A ragged last chunk
-// is zero-filled past its end (dt = 0 keeps la flat there, x = 0 adds
-// nothing), so every L is taken, not only multiples of the chunk.
+// bf16 design (`ssd_kernel_mma`, launched at chunks of Q = 64 steps and
+// NW = 4 warps a block).  One block per (b, h) walks the chunks in order
+// and carries the (P x N) float32 state in registers: warp w owns the state
+// rows p in [16 w', 16 w' + 16) for w' = w, w + NW, ...  Per chunk:
+//
+// * x (Q x P), B and C (Q x N) arrive as bf16 through a two-stage
+//   `cp.async` ring (chunk c + 1 loads while chunk c computes) into tiles of
+//   64-element rows with an XOR swizzle of their 16-byte pieces, so that
+//   `ldmatrix` / `ldmatrix.trans` read them without bank conflicts; dt comes
+//   a chunk ahead through a register.  Nothing is widened or transposed
+//   element by element.
+// * Every warp forms la (log2 units) and w_j = exp(la_last - la_j) dt_j by
+//   its own shuffle scan, into its own shared array: no one-warp phase.
+// * The four products run on `mma.sync.m16n8k16` (bf16 in, float32 sums).
+//   Each warp owns whole 16-row tiles of the chunk (one at 64 x 4; paired
+//   (t, RT - 1 - t) when it owns two, so that the triangular work is even):
+//   y = exp(la_i) C (h_hi + h_lo)^T, then for each 16-column tile j <= i:
+//   S = C B^T on the accumulator fragments, G = S o exp(la_i - la_j) o dt_j
+//   with the entries i < j selected to 0 inside the exponent (exp2(-inf) =
+//   0, so nothing can overflow), G = G_hi + G_lo in bf16 as the A operand
+//   in registers (the flash kernel's reuse of P), y += G_hi x + G_lo x.
+//   Tiles above the diagonal are skipped whole.
+// * h <- exp(la_last) h + (x o w)^T B with x o w split into hi + lo bf16
+//   terms while its `ldmatrix.trans` fragments are built; then the state's
+//   hi + lo copies go to shared memory for the next chunk's C h.
+//
+// Accuracy.  C B^T is exact (bf16 products, float32 sums).  G, h and x o w
+// are float32 intermediates: rounding each once to bf16 moves a bf16 y by
+// about 12 times its limit (tests/test_torch_kernel_numerics.py), so each
+// enters as two bf16 terms (relative error about 2^-17), within one bf16
+// ulp of the sequential recurrence.  The exponentials are `ex2.approx`.
+// A ragged last chunk is zero-filled past its end (dt = 0 keeps la flat,
+// x = B = C = 0 add nothing), so every L is taken.
+//
+// float32 design (`ssd_kernel_f32`, the first port's kernel, kept for the
+// float32 in-model check): float32 FMAs on the CUDA cores, one 256-thread
+// block per (b, h), x, B^T, C^T, G and the state in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int D = 64;                       // tile row width: P, N <= 64
+constexpr float LOG2E = 1.4426950408889634f;
 
-inline int smem_floats(int q, int p, int n) {
+__device__ __forceinline__ float fast_exp2(float x) {   // 2^x, 0 at -inf
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, float32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as bf16x2 hi + lo terms (x in the low half); lo = bf16(x - hi).
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Element (row, col) of a [rows][64] bf16 tile whose 16-byte pieces are
+// XOR-swizzled by row: the eight rows an `ldmatrix` reads at one column hit
+// eight different bank groups.
+__device__ __forceinline__ int sw(int row, int col) {
+  return row * D + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+}
+
+// Rows [0, Q) of a strided bf16 array (row r at src + r * stride), columns
+// [0, cols), into a swizzled tile: rows >= valid and columns in [cols,
+// 16 * ceil(cols / 16)) are zero-filled.  16-byte pieces when cols is a
+// multiple of 8, else 8-byte pieces (the wrapper aligns the bases).
+template <int Q, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          long long stride, int valid,
+                                          int cols, int tid) {
+  const int padded = (cols + 15) & ~15;
+  if ((cols & 7) == 0) {
+    const int per = padded >> 3;
+    for (int idx = tid; idx < Q * per; idx += THREADS) {
+      const int r = idx / per;
+      const int c = (idx - r * per) << 3;
+      const bool ok = r < valid && c < cols;
+      cp_async16(dst + sw(r, c), ok ? src + r * stride + c : src, ok ? 16 : 0);
+    }
+  } else {
+    const int per = padded >> 2;
+    for (int idx = tid; idx < Q * per; idx += THREADS) {
+      const int r = idx / per;
+      const int c = (idx - r * per) << 2;
+      const bool ok = r < valid && c < cols;
+      cp_async8(dst + sw(r, c), ok ? src + r * stride + c : src, ok ? 8 : 0);
+    }
+  }
+}
+
+// Q: steps per chunk; NW: warps.  Each warp owns RT / NW row tiles of 16.
+template <int Q, int NW>
+__global__ void __launch_bounds__(32 * NW)
+ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
+               const float* __restrict__ a, const bf16* __restrict__ bm,
+               const bf16* __restrict__ cm, bf16* __restrict__ y,
+               float* __restrict__ hout, int L, int H, int G, int P, int N) {
+  constexpr int THREADS = 32 * NW;
+  constexpr int RT = Q / 16;               // row tiles of a chunk
+  constexpr int TPW = RT / NW;             // row tiles per warp
+  constexpr int PW = (4 + NW - 1) / NW;    // state row tiles per warp, at most
+  constexpr int TILE = Q * D;
+  constexpr int PER = Q / 32;              // scan values per lane
+  static_assert(RT % NW == 0 && THREADS >= Q, "launch shape");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* stage = reinterpret_cast<bf16*>(smem_raw);     // [2][x, B, C][Q][64]
+  bf16* hhi = stage + 2 * 3 * TILE;                    // [64][64]: (p, n)
+  bf16* hlo = hhi + D * D;
+  float* dts = reinterpret_cast<float*>(hlo + D * D);  // [2][Q]
+  float* own = dts + 2 * Q;                            // per warp: la2, w
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int g = h / (H / G);
+  const float a2 = a[h] * LOG2E;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int PT = (P + 15) >> 4, NT = (N + 15) >> 4;
+  float* la2 = own + warp * 2 * Q;
+  float* wv = la2 + Q;
+
+  const long long xstride = (long long)H * P;
+  const long long bstride = (long long)G * N;
+  const bf16* xb = x + (long long)b * L * xstride + (long long)h * P;
+  const bf16* bb = bm + (long long)b * L * bstride + (long long)g * N;
+  const bf16* cb = cm + (long long)b * L * bstride + (long long)g * N;
+  const bf16* dtb = dt + (long long)b * L * H + h;
+  bf16* yb = y + (long long)b * L * xstride + (long long)h * P;
+
+  auto load_chunk = [&](bf16* dst, int c0) {
+    const int valid = min(Q, L - c0);
+    load_rows<Q, THREADS>(dst, xb + c0 * xstride, xstride, valid, P, tid);
+    load_rows<Q, THREADS>(dst + TILE, bb + c0 * bstride, bstride, valid, N,
+                          tid);
+    load_rows<Q, THREADS>(dst + 2 * TILE, cb + c0 * bstride, bstride, valid,
+                          N, tid);
+    cp_commit();
+  };
+  auto load_dt = [&](int c0) {
+    return tid < Q && c0 + tid < L
+               ? __bfloat162float(dtb[(long long)(c0 + tid) * H]) : 0.f;
+  };
+
+  for (int e = tid; e < 2 * D * D; e += THREADS) hhi[e] = __float2bfloat16(0.f);
+  float hacc[PW][8][4];
+#pragma unroll
+  for (int k = 0; k < PW; ++k)
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hacc[k][nb][e] = 0.f;
+
+  load_chunk(stage, 0);
+  if (tid < Q) dts[tid] = load_dt(0);
+  const int nchunks = (L + Q - 1) / Q;
+
+  for (int ci = 0; ci < nchunks; ++ci) {
+    const int c0 = ci * Q;
+    const int qc = min(Q, L - c0);
+    const int st = ci & 1;
+    cp_wait_all();
+    __syncthreads();     // stage st, dts[st] and the state copies are in
+    float dt_next = 0.f;
+    if (ci + 1 < nchunks) {   // every warp is past chunk ci - 1's reads
+      load_chunk(stage + (st ^ 1) * 3 * TILE, c0 + Q);
+      dt_next = load_dt(c0 + Q);
+    }
+    const bf16* xs = stage + st * 3 * TILE;
+    const bf16* bs = xs + TILE;
+    const bf16* cs = bs + TILE;
+    const float* dtc = dts + st * Q;
+
+    // la2 = cumsum(dt a) log2 e and w = 2^(la2_last - la2) dt, this warp's copy
+    float run = 0.f, part[PER];
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      run += dtc[lane * PER + r] * a2;
+      part[r] = run;
+    }
+    float tot = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, tot, off);
+      if (lane >= off) tot += v;
+    }
+    const float last = __shfl_sync(0xffffffffu, tot, 31);
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      const int i = lane * PER + r;
+      const float l2 = tot - run + part[r];
+      la2[i] = l2;
+      wv[i] = fast_exp2(last - l2) * dtc[i];
+    }
+    __syncwarp();
+
+    // y for this warp's row tiles
+#pragma unroll 1
+    for (int k = 0; k < TPW; ++k) {
+      const int r = k * NW + ((k & 1) ? NW - 1 - warp : warp);
+      const int i0 = 16 * r;
+      if (i0 >= qc) continue;
+      uint32_t cf[4][4];              // C rows i0.., k-steps over N
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk < NT)
+          ldsm_x4(cf[kk], cs + sw(i0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                  16 * kk + ((lane >> 4) << 3)));
+      float acc[8][4];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+      // inter: C (h_hi + h_lo)^T, then the rows scaled by 2^la2_i
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk >= NT) break;
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {
+          if (pp >= PT) break;
+          const int off = sw(16 * pp + (lane & 7) + ((lane >> 4) << 3),
+                             16 * kk + (((lane >> 3) & 1) << 3));
+          uint32_t rh[4], rl[4];
+          ldsm_x4(rh, hhi + off);
+          ldsm_x4(rl, hlo + off);
+          mma(acc[2 * pp], cf[kk], rh[0], rh[1]);
+          mma(acc[2 * pp + 1], cf[kk], rh[2], rh[3]);
+          mma(acc[2 * pp], cf[kk], rl[0], rl[1]);
+          mma(acc[2 * pp + 1], cf[kk], rl[2], rl[3]);
+        }
+      }
+      const int ia = i0 + gq, ib = ia + 8;
+      const float la_a = la2[ia], la_b = la2[ib];
+      const float ea = fast_exp2(la_a), eb = fast_exp2(la_b);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        acc[nb][0] *= ea; acc[nb][1] *= ea;
+        acc[nb][2] *= eb; acc[nb][3] *= eb;
+      }
+      // intra: 16-column tiles j <= i, the diagonal one masked
+#pragma unroll 1
+      for (int jt = 0; jt <= r; ++jt) {
+        const int j0 = 16 * jt;
+        float s[2][4];
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kk >= NT) break;
+          uint32_t rb[4];
+          ldsm_x4(rb, bs + sw(j0 + (lane & 7) + ((lane >> 4) << 3),
+                              16 * kk + (((lane >> 3) & 1) << 3)));
+          mma(s[0], cf[kk], rb[0], rb[1]);
+          mma(s[1], cf[kk], rb[2], rb[3]);
+        }
+        uint32_t ghi[4], glo[4];
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const int j = j0 + 8 * nb + 2 * t;
+          const float l0 = la2[j], l1 = la2[j + 1];
+          const float d0 = dtc[j], d1 = dtc[j + 1];
+          // select before multiplying: 2^(la_i - la_j) may overflow for i < j
+          const float g0 = s[nb][0] * fast_exp2(ia >= j ? la_a - l0 : -INFINITY) * d0;
+          const float g1 = s[nb][1] * fast_exp2(ia >= j + 1 ? la_a - l1 : -INFINITY) * d1;
+          const float g2 = s[nb][2] * fast_exp2(ib >= j ? la_b - l0 : -INFINITY) * d0;
+          const float g3 = s[nb][3] * fast_exp2(ib >= j + 1 ? la_b - l1 : -INFINITY) * d1;
+          // A fragment: a0 (row g, k 2t), a1 (row g+8, k 2t), a2 (g, 2t+8), a3
+          split2(g0, g1, ghi[2 * nb], glo[2 * nb]);
+          split2(g2, g3, ghi[2 * nb + 1], glo[2 * nb + 1]);
+        }
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {
+          if (pp >= PT) break;
+          uint32_t rx[4];
+          ldsm_x4_t(rx, xs + sw(j0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                16 * pp + ((lane >> 4) << 3)));
+          mma(acc[2 * pp], ghi, rx[0], rx[1]);
+          mma(acc[2 * pp + 1], ghi, rx[2], rx[3]);
+          mma(acc[2 * pp], glo, rx[0], rx[1]);
+          mma(acc[2 * pp + 1], glo, rx[2], rx[3]);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = ia + 8 * half;
+        if (i >= qc) continue;
+        bf16* yrow = yb + (long long)(c0 + i) * xstride;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int p = 8 * nb + 2 * t;      // P is even
+          if (p < P)
+            *reinterpret_cast<__nv_bfloat162*>(yrow + p) =
+                __floats2bfloat162_rn(acc[nb][2 * half], acc[nb][2 * half + 1]);
+        }
+      }
+    }
+    __syncthreads();     // every warp has read the state copies
+
+    // h <- 2^la2_last h + (x o w)^T B on this warp's state rows
+    const float dec = fast_exp2(last);
+#pragma unroll
+    for (int k = 0; k < PW; ++k) {
+      const int pt = warp + k * NW;
+      if (pt >= PT) break;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hacc[k][nb][e] *= dec;
+#pragma unroll 1
+      for (int ks = 0; ks < RT; ++ks) {
+        if (16 * ks >= qc) break;
+        uint32_t rx[4], xhi[4], xlo[4];
+        // A = (x o w)^T: rows p, columns j; x is stored (j, p), so .trans
+        ldsm_x4_t(rx, xs + sw(16 * ks + (lane & 7) + ((lane >> 4) << 3),
+                              16 * pt + (((lane >> 3) & 1) << 3)));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 16 * ks + 2 * t + 8 * (e >> 1);
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&rx[e]));
+          split2(xv.x * wv[j], xv.y * wv[j + 1], xhi[e], xlo[e]);
+        }
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn) {
+          if (nn >= NT) break;
+          uint32_t rb[4];
+          ldsm_x4_t(rb, bs + sw(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                16 * nn + ((lane >> 4) << 3)));
+          mma(hacc[k][2 * nn], xhi, rb[0], rb[1]);
+          mma(hacc[k][2 * nn + 1], xhi, rb[2], rb[3]);
+          mma(hacc[k][2 * nn], xlo, rb[0], rb[1]);
+          mma(hacc[k][2 * nn + 1], xlo, rb[2], rb[3]);
+        }
+      }
+      // the state's hi + lo copies for the next chunk's C h
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        if (nb >= 2 * NT) break;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int off = sw(16 * pt + gq + 8 * half, 8 * nb + 2 * t);
+          uint32_t hi, lo;
+          split2(hacc[k][nb][2 * half], hacc[k][nb][2 * half + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(hhi + off) = hi;
+          *reinterpret_cast<uint32_t*>(hlo + off) = lo;
+        }
+      }
+    }
+    if (ci + 1 < nchunks && tid < Q) dts[(st ^ 1) * Q + tid] = dt_next;
+  }
+
+  float* hb = hout + ((long long)b * H + h) * P * N;
+#pragma unroll
+  for (int k = 0; k < PW; ++k) {
+    const int pt = warp + k * NW;
+    if (pt >= PT) break;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int n = 8 * nb + 2 * t;          // N is even
+      if (n >= N) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = 16 * pt + gq + 8 * half;
+        if (p < P)
+          *reinterpret_cast<float2*>(hb + (long long)p * N + n) =
+              make_float2(hacc[k][nb][2 * half], hacc[k][nb][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// The bf16 kernel's one launch shape.
+constexpr int MMA_CHUNK = 64;
+constexpr int MMA_WARPS = 4;
+
+template <int Q, int NW>
+int launch_mma(const void* x, const void* dt, const float* a, const void* bm,
+               const void* cm, void* y, float* hout, int batch, int L, int H,
+               int G, int P, int N, cudaStream_t stream) {
+  const int smem = (2 * 3 * Q * D + 2 * D * D) * (int)sizeof(bf16) +
+                   (2 * Q + NW * 2 * Q) * (int)sizeof(float);
+  auto kern = ssd_kernel_mma<Q, NW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(H, batch);
+  kern<<<grid, 32 * NW, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dt), a,
+      static_cast<const bf16*>(bm), static_cast<const bf16*>(cm),
+      static_cast<bf16*>(y), hout, L, H, G, P, N);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA-core FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int F32_THREADS = 256;
+
+inline int f32_smem_floats(int q, int p, int n) {
   return q * p + 2 * n * q + q * q + n * p + 4 * q;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-           const float* __restrict__ a, const T* __restrict__ bm,
-           const T* __restrict__ cm, T* __restrict__ y,
-           float* __restrict__ hout, int L, int H, int G, int P, int N,
-           int Q) {
+__global__ void __launch_bounds__(F32_THREADS)
+ssd_kernel_f32(const float* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ a, const float* __restrict__ bm,
+               const float* __restrict__ cm, float* __restrict__ y,
+               float* __restrict__ hout, int L, int H, int G, int P, int N,
+               int Q) {
+  constexpr int THREADS = F32_THREADS;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [Q][P]
   float* bT = xs + Q * P;                         // [N][Q]
@@ -87,18 +513,17 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     for (int e = tid; e < Q * P; e += THREADS) {
       const int i = e / P;
       const int p = e - i * P;
-      xs[e] = i < qc ? to_f(x[(((long long)b * L + c0 + i) * H + h) * P + p])
-                     : 0.f;
+      xs[e] = i < qc ? x[(((long long)b * L + c0 + i) * H + h) * P + p] : 0.f;
     }
     for (int e = tid; e < Q * N; e += THREADS) {
       const int n = e / Q;
       const int i = e - n * Q;
       const long long at = (((long long)b * L + c0 + i) * G + g) * N + n;
-      bT[e] = i < qc ? to_f(bm[at]) : 0.f;
-      cT[e] = i < qc ? to_f(cm[at]) : 0.f;
+      bT[e] = i < qc ? bm[at] : 0.f;
+      cT[e] = i < qc ? cm[at] : 0.f;
     }
     for (int i = tid; i < Q; i += THREADS)
-      dts[i] = i < qc ? to_f(dt[((long long)b * L + c0 + i) * H + h]) : 0.f;
+      dts[i] = i < qc ? dt[((long long)b * L + c0 + i) * H + h] : 0.f;
     __syncthreads();
 
     if (tid < 32) {            // la = cumsum(dt * a): one warp, shuffle scan
@@ -207,9 +632,9 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       for (int r = 0; r < 8; ++r) {
         const int i = i0 + r;
         if (i >= qc) continue;
-        T* yrow = y + (((long long)b * L + c0 + i) * H + h) * P + p0;
+        float* yrow = y + (((long long)b * L + c0 + i) * H + h) * P + p0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) put(yrow + e, yi[r][e] + ela[i] * yc[r][e]);
+        for (int e = 0; e < 4; ++e) yrow[e] = yi[r][e] + ela[i] * yc[r][e];
       }
     }
     __syncthreads();
@@ -255,25 +680,26 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* dt, const float* a, const void* bm,
-           const void* cm, void* y, float* hout, int batch, int L, int H,
-           int G, int P, int N, int Q, cudaStream_t stream) {
-  const int smem = smem_floats(Q, P, N) * (int)sizeof(float);
-  auto kern = ssd_kernel<T>;
+int launch_f32(const void* x, const void* dt, const float* a, const void* bm,
+               const void* cm, void* y, float* hout, int batch, int L, int H,
+               int G, int P, int N, int Q, cudaStream_t stream) {
+  const int smem = f32_smem_floats(Q, P, N) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ssd_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, batch);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt), a,
-      static_cast<const T*>(bm), static_cast<const T*>(cm),
-      static_cast<T*>(y), hout, L, H, G, P, N, Q);
+  ssd_kernel_f32<<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt), a,
+      static_cast<const float*>(bm), static_cast<const float*>(cm),
+      static_cast<float*>(y), hout, L, H, G, P, N, Q);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Q: steps per chunk of the float32 kernel (any Q <= 128); the bf16 kernel
+// takes chunks of 64 steps and 4 warps a block (PERF.md: the launch shape
+// measured fastest on an H100) and refuses another Q.
 extern "C" int ranky_ssd_scan(const void* x, const void* dt, const void* a,
                               const void* bm, const void* cm, void* y,
                               void* hout, int is_bf16, int batch, int L,
@@ -282,8 +708,10 @@ extern "C" int ranky_ssd_scan(const void* x, const void* dt, const void* a,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   float* hf = static_cast<float*>(hout);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, dt, af, bm, cm, y, hf, batch, L, H, G, P,
-                                 N, Q, s);
-  return launch<float>(x, dt, af, bm, cm, y, hf, batch, L, H, G, P, N, Q, s);
+  if (!is_bf16)
+    return launch_f32(x, dt, af, bm, cm, y, hf, batch, L, H, G, P, N, Q, s);
+  if (Q == MMA_CHUNK)
+    return launch_mma<MMA_CHUNK, MMA_WARPS>(x, dt, af, bm, cm, y, hf, batch,
+                                            L, H, G, P, N, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,9 @@ x's dtype (float32 or bfloat16), a (H,) float32, B and C (B, L, G, N) in
 x's dtype; returns y (B, L, H, P) in x's dtype and the final state
 (B, H, P, N) in float32.
 
+For bf16 inputs the kernel runs its four products on the tensor cores, with
+the float32 intermediates (G, the state, x o w) split into bf16 hi + lo
+terms; float32 inputs take a kernel of float32 FMAs on the CUDA cores.
 The kernel walks the sequence in chunks of ``CHUNK`` steps and masks a
 ragged last chunk itself, so the reference wrapper's fallback to the
 sequential oracle when ``L % chunk != 0`` does not carry over: on the card
@@ -29,14 +32,35 @@ from repro_torch.kernels import build
 # Number of kernel launches made by ``ssd_scan`` in this process.
 launches = 0
 
-# Steps per chunk: the reference's default.  Within these the kernel's
-# shared memory (x, B^T, C^T, G, the state: at most 178 KB) fits a thread
-# block.
-CHUNK = 128
+# Steps per chunk of the bf16 kernel (launched with 4 warps a block: of the
+# launch shapes 64 x 2, 64 x 4 and 128 x 4, 64 x 4 measured fastest on an
+# H100, PERF.md; the C entry refuses a chunk other than its MMA_CHUNK) and
+# of the float32 kernel.
+CHUNK = 64
+F32_CHUNK = 128
 MAX_HEAD_DIM = 64     # P
 MAX_STATE = 64        # N
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+
+
+def chunk_for(dtype: torch.dtype) -> int:
+    """Steps per chunk of the kernel that takes inputs of ``dtype``."""
+    return CHUNK if dtype == torch.bfloat16 else F32_CHUNK
+
+
+def work(b: int, seq: int, h: int, g: int, p: int, n: int,
+         itemsize: int) -> Tuple[float, float]:
+    """The least work of one call, (bytes, operations), whatever the
+    kernel's tiling: x, dt, B and C read once and y written once at
+    ``itemsize`` bytes, ``a`` read and the final state written in float32;
+    the recurrence's 4 P N operations a step and head (h <- decay h +
+    dt x outer B and y = h C, P N multiply-adds each).  Its B L H
+    exponentials, under 1e-4 of the operations at P = N = 64, are left
+    out."""
+    nbytes = (2 * b * seq * h * p + b * seq * h + 2 * b * seq * g * n) \
+        * itemsize + 4 * h + 4 * b * h * p * n
+    return float(nbytes), 4.0 * b * seq * h * p * n
 
 
 def _check(x, dt, a, b_mat, c_mat) -> None:
@@ -111,6 +135,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(
             f"ssd_scan: head dim P={p} and state N={n} must be multiples of "
             f"4 in [4, {MAX_HEAD_DIM}] and [4, {MAX_STATE}] for the kernel")
+    # cp.async copies 16-byte pieces of x, B and C: a view whose start is
+    # not 16-byte aligned is copied into a fresh (aligned) tensor first
+    x, b_mat, c_mat = (t if t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (x, b_mat, c_mat))
     fn = build.entry("ranky_ssd_scan", _ARGS)
     with torch.cuda.device(x.device):
         y = torch.empty_like(x)
@@ -119,7 +147,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         code = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                   b_mat.data_ptr(), c_mat.data_ptr(), y.data_ptr(),
                   h_fin.data_ptr(), int(x.dtype == torch.bfloat16), bsz,
-                  seq, h, g, p, n, CHUNK,
+                  seq, h, g, p, n, chunk_for(x.dtype),
                   torch.cuda.current_stream().cuda_stream)
     build.check(code, "ssd_scan")
     launches += 1

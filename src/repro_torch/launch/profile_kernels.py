@@ -1,7 +1,8 @@
-"""Profile the two serving-path kernels on one GPU: ``flash_attention`` and
-``topk_score``, with what ptxas says of every kernel's registers.
+"""Profile three kernels on one GPU: ``flash_attention``, ``topk_score`` and
+``ssd_scan``, with what ptxas says of every kernel's registers.
 
   python3 src/repro_torch/launch/profile_kernels.py [--src DIR] [--out FILE]
+      [--only flash,topk,ssd]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is measured (the
 default is this checkout's), so one call can profile two trees of the port
@@ -12,7 +13,15 @@ shared memory, stack and spills that ``nvcc -Xptxas -v`` reports; for
 the achieved TFLOP/s over the pairs the mask shows and SDPA's time on the
 same inputs; for ``topk_score`` the device time of each of its kernels by
 name (``torch.profiler``, a call's share of 10 warm calls) beside the whole
-call's time and ``torch.mm`` + ``torch.topk``'s.  Needs a CUDA device.
+call's time and ``torch.mm`` + ``torch.topk``'s; for ``ssd_scan`` the
+device time (CUDA events, cold L2, median of 10) at zamba2's prefill shape
+x (8, 1024, 80, 64), G 1, N 64 in bf16 and float32 and at its long prompt
+(2, 3000, 80, 64) in bf16, its bound and the achieved TFLOP/s over the
+recurrence's operations (``ssd_scan.work`` of this checkout, whichever
+tree is measured, so that two trees are held to one yardstick), and the
+worst error of a smaller call against ``ssd_scan_ref`` over its limit
+(<= 1 holds).  ``--only`` times a subset of the kernels.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -158,18 +167,84 @@ def topk_rows(tk):
     return rows
 
 
+def _ssd_inputs(b, seq, h, g, p, n, dtype, gen):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(b, seq, h, p).to(dtype)
+    dt = (torch.nn.functional.softplus(randn(b, seq, h)) * 0.1).to(dtype)
+    a = -torch.exp(randn(h))
+    bm = (randn(b, seq, g, n) / n ** 0.5).to(dtype)
+    cm = (randn(b, seq, g, n) / n ** 0.5).to(dtype)
+    return x, dt, a, bm, cm
+
+
+def _ssd_worst(ss, gen, dtype):
+    """Worst |kernel - plain| over chip_smoke's limit at (2, 1000, 80, 64),
+    G 1, N 64 (ragged last chunk): y at 1 bf16 ulp of |plain| + 1e-4 max
+    (bf16) or 1e-4 max (float32), the state at 1e-4 max."""
+    args = _ssd_inputs(2, 1000, 80, 1, 64, 64, dtype, gen)
+    (y, hf), (yr, hr) = ss.ssd_scan(*args), ss.ssd_scan_ref(*args)
+    torch.cuda.synchronize()
+    tol = 1e-4 * float(yr.float().abs().max())
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(yr.float().abs())
+        tol = torch.where(yr == 0, 0.0, torch.ldexp(
+            torch.ones_like(yr, dtype=torch.float32), e - 8)) + tol
+    wy = float(((y.float() - yr.float()).abs() / tol).max())
+    wh = float((hf - hr).abs().max()) / (1e-4 * float(hr.abs().max()))
+    return max(wy, wh)
+
+
+def ssd_rows(ss, work):
+    gen = torch.Generator("cuda").manual_seed(22)
+    rows = []
+    for dtype, shapes in ((torch.bfloat16, [(8, 1024, 80, 1, 64, 64),
+                                            (2, 3000, 80, 1, 64, 64)]),
+                          (torch.float32, [(8, 1024, 80, 1, 64, 64)])):
+        worst = _ssd_worst(ss, gen, dtype)
+        for shape in shapes:
+            args = _ssd_inputs(*shape, dtype, gen)
+            ms = _time_ms(lambda: ss.ssd_scan(*args))
+            nbytes, flops = work(*shape, args[0].element_size())
+            rows.append(dict(
+                shape=list(shape), dtype=str(dtype)[6:], ms=ms,
+                tflops=flops / ms / 1e9,
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             flops / PEAK[dtype]) * 1e3,
+                worst_err_over_limit=worst))
+            del args
+    return rows
+
+
+def _import_tree(src):
+    """Let ``import repro_torch`` load the copy under ``src``, in place of
+    any copy imported so far."""
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+    sys.path.insert(0, src)
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--src", default=os.path.join(
+    own_src = os.path.abspath(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=own_src)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--only", default="flash,topk,ssd",
+                    help="the kernels to time (ptxas covers all)")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("profile_kernels: needs a CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.abspath(args.src))
+    # ssd_scan's yardstick comes from this checkout, the kernels from --src
+    _import_tree(own_src)
+    from repro_torch.kernels.ssd_scan import work as ssd_work
+    _import_tree(os.path.abspath(args.src))
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import topk_score as tk
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -177,7 +252,9 @@ def main(argv=None) -> int:
     build.load()
     res = dict(card=smi, src=os.path.abspath(args.src),
                ptxas=ptxas_report(str(build.CSRC)),
-               flash_attention=flash_rows(fa), topk_score=topk_rows(tk))
+               flash_attention=flash_rows(fa) if "flash" in only else None,
+               topk_score=topk_rows(tk) if "topk" in only else None,
+               ssd_scan=ssd_rows(ss, ssd_work) if "ssd" in only else None)
     text = json.dumps(res)
     if args.out:
         with open(args.out, "w") as f:

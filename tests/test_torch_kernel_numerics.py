@@ -1,5 +1,5 @@
-"""The arithmetic of the port's two Hopper kernels, modelled in plain torch on
-the CPU and held against their plain versions and the JAX oracles.
+"""The arithmetic of the port's three Hopper kernels, modelled in plain torch
+on the CPU and held against their plain versions and the JAX oracles.
 
 The CUDA kernels run only on a GPU (``chip_smoke.py`` holds them against
 their plain versions there).  What can be checked here is the design they
@@ -19,6 +19,14 @@ implement, at small seeded shapes:
   sorted list by rank, thresholds published across chunks, chunks taken in
   a shuffled order, and the merge pass.  Held bit for bit (values and
   indices) against ``topk_score_ref`` and the JAX oracle.
+* ``ssd_scan`` (``csrc/ssd_scan.cu``): the chunked scan on the tensor
+  cores for bf16 inputs: C B^T from bf16 products, G selected before its
+  exponential, G, the carried state h and x o w each as bf16 hi + lo
+  terms, float32 sums, a ragged last chunk zero-filled; float32 inputs
+  take float32 arithmetic throughout.  Held at ``chip_smoke.py``'s limits:
+  one bf16 ulp of |plain| + 1e-4 * max|plain| for a bf16 y, 1e-4 * max
+  for a float32 y and for the state.  The control -- G, h and x o w each
+  rounded once to bf16 -- must exceed the bf16 limit by more than 4x.
 * ``launch_plan`` and the flash wrapper's head-dim padding, which are plain
   Python on the launch path.
 """
@@ -33,6 +41,7 @@ from repro.kernels import ref as jref
 from repro.serve import kvquant as jkvquant
 
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ssd_scan as tss
 from repro_torch.kernels import topk_score as ttk
 
 NEG = -1e30
@@ -108,9 +117,9 @@ def _bf16_ulp(x):
     return torch.where(x == 0, 0.0, ulp)
 
 
-def _worst_over_bf16_limit(got, want):
-    """Largest |got - want| / (1 bf16 ulp of |want| + 2e-5 max|want|)."""
-    tol = _bf16_ulp(want) + 2e-5 * float(want.float().abs().max())
+def _worst_over_bf16_limit(got, want, rel=2e-5):
+    """Largest |got - want| / (1 bf16 ulp of |want| + rel max|want|)."""
+    tol = _bf16_ulp(want) + rel * float(want.float().abs().max())
     return float(((got.float() - want.float()).abs() / tol).max())
 
 
@@ -208,6 +217,199 @@ def test_flash_wrapper_pads_head_dims_to_a_multiple_of_8(d):
     assert torch.equal(y[..., :d], x) and float(y[..., d:].abs().sum()) == 0
     if dp == d:
         assert y.data_ptr() == x.data_ptr()      # no copy when not needed
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+
+def ssd_model(x, dt, a, b, c, *, chunk, split_terms):
+    """The kernel's arithmetic, chunk by chunk: la2 = cumsum(dt a) log2 e;
+    y = 2^la2_i C h^T + G x with G = S o 2^(la2_i - la2_j) o dt_j for
+    i >= j (0 selected inside the exponent for i < j), S = C B^T; h <-
+    2^la2_last h + (x o w)^T B, w_j = 2^(la2_last - la2_j) dt_j.  G, the
+    carried h and x o w enter as ``split_terms`` bf16 terms (products of
+    bf16 values, float32 sums); ``split_terms=None`` keeps them float32
+    (the float32 kernel).  A ragged last chunk is zero-filled."""
+    bsz, seq, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+
+    def terms(v):
+        return [v] if split_terms is None else _terms(v, split_terms)
+
+    x32 = x.float().permute(0, 2, 1, 3)                          # (B, H, L, P)
+    dt32 = dt.float().permute(0, 2, 1)                           # (B, H, L)
+    b32 = b.float().repeat_interleave(rep, 2).permute(0, 2, 1, 3)
+    c32 = c.float().repeat_interleave(rep, 2).permute(0, 2, 1, 3)
+    a2 = a.float()[None, :, None] * LOG2E
+    state = torch.zeros((bsz, h, p, n))
+    ys = []
+    for c0 in range(0, seq, chunk):
+        pad = max(0, c0 + chunk - seq)
+
+        def cut(v):
+            v = v[:, :, c0:c0 + chunk]
+            return torch.nn.functional.pad(
+                v, (0, 0) * (v.dim() - 3) + (0, pad))
+        xc, dc, bc, cc = cut(x32), cut(dt32), cut(b32), cut(c32)
+        la2 = torch.cumsum(dc * a2, dim=-1)                      # (B, H, Q)
+        last = la2[..., -1:]
+        s = cc @ bc.transpose(-1, -2)                            # (B, H, Q, Q)
+        ii = torch.arange(chunk)[:, None]
+        jj = torch.arange(chunk)[None, :]
+        arg = torch.where(ii >= jj, la2[..., :, None] - la2[..., None, :],
+                          torch.tensor(float("-inf")))
+        gmat = s * torch.exp2(arg) * dc[..., None, :]
+        y = torch.exp2(la2)[..., None] * sum(
+            cc @ t.transpose(-1, -2) for t in terms(state))
+        y = y + sum(t @ xc for t in terms(gmat))
+        xw = xc * (torch.exp2(last - la2) * dc)[..., None]       # (B, H, Q, P)
+        state = torch.exp2(last)[..., None] * state + sum(
+            t.transpose(-1, -2) @ bc for t in terms(xw))
+        ys.append(y[:, :, :chunk - pad])
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(x.dtype)
+    return y.contiguous(), state
+
+
+def _ssd_np(b, l, h, g, p, n, seed=9):
+    """chip_smoke.py's input distributions, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.standard_normal((b, l, h)))) * 0.1).astype(
+        np.float32)
+    a = (-np.exp(rng.standard_normal(h))).astype(np.float32)
+    bm = (rng.standard_normal((b, l, g, n)) / np.sqrt(n)).astype(np.float32)
+    cm = (rng.standard_normal((b, l, g, n)) / np.sqrt(n)).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+def _ssd_torch(arrays, dtype):
+    x, dt, a, bm, cm = (torch.from_numpy(v) for v in arrays)
+    return x.to(dtype), dt.to(dtype), a, bm.to(dtype), cm.to(dtype)
+
+
+def _ssd_worst(got, want, dtype):
+    """(y, state) errors over chip_smoke's limits: y at one bf16 ulp of
+    |want| + 1e-4 max|want| (bf16) or 1e-4 max|want| (float32), the state
+    at 1e-4 max|want|."""
+    (y, hf), (yr, hr) = got, want
+    if dtype == torch.bfloat16:
+        wy = _worst_over_bf16_limit(y, yr, rel=1e-4)
+    else:
+        wy = float((y - yr).abs().max()) / (1e-4 * float(yr.abs().max()))
+    wh = float((hf - hr).abs().max()) / (1e-4 * float(hr.abs().max()))
+    return wy, wh
+
+
+SSD_CASES = [
+    ("2x128 H4 G2 P32 N16", (2, 128, 4, 2, 32, 16)),
+    ("1x256 H2 G2 P64 N32", (1, 256, 2, 2, 64, 32)),
+    ("1x64 H4 G1 P16 N8", (1, 64, 4, 1, 16, 8)),
+    ("G = H = 8", (1, 128, 8, 8, 64, 64)),
+    ("L 1", (2, 1, 4, 1, 64, 64)),
+    ("L 11", (2, 11, 4, 2, 64, 64)),
+    ("L 100", (1, 100, 4, 1, 64, 64)),
+    ("L 300", (1, 300, 4, 1, 64, 64)),
+]
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("name,shape", SSD_CASES,
+                         ids=[c[0] for c in SSD_CASES])
+def test_ssd_model_bf16_hi_lo_within_one_bf16_ulp(name, shape, chunk):
+    args = _ssd_torch(_ssd_np(*shape), torch.bfloat16)
+    got = ssd_model(*args, chunk=chunk, split_terms=2)
+    want = tss.ssd_scan_ref(*args)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == want[0].shape
+    assert got[1].shape == want[1].shape
+    wy, wh = _ssd_worst(got, want, torch.bfloat16)
+    assert wy <= 1.0 and wh <= 1.0
+
+
+@pytest.mark.parametrize("name,shape", SSD_CASES,
+                         ids=[c[0] for c in SSD_CASES])
+def test_ssd_model_f32_within_1e4(name, shape):
+    args = _ssd_torch(_ssd_np(*shape), torch.float32)
+    got = ssd_model(*args, chunk=tss.chunk_for(torch.float32),
+                    split_terms=None)
+    wy, wh = _ssd_worst(got, tss.ssd_scan_ref(*args), torch.float32)
+    assert wy <= 1.0 and wh <= 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 100, 4, 2, 32, 16),
+                                   (1, 128, 8, 8, 64, 64)])
+def test_ssd_model_matches_the_jax_oracle(shape, dtype):
+    """The model against the reference's ``ref.ssd_scan`` (the sequential
+    recurrence) on the same numpy inputs, at the same limits."""
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    arrays = _ssd_np(*shape, seed=4)
+    args = _ssd_torch(arrays, tdtype)
+    got = ssd_model(*args, chunk=64,
+                    split_terms=2 if dtype == "bfloat16" else None)
+    jargs = [jnp.asarray(v) for v in arrays]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    yr, hr = jref.ssd_scan(jargs[0].astype(jdt), jargs[1].astype(jdt),
+                           jargs[2], jargs[3].astype(jdt),
+                           jargs[4].astype(jdt), return_state=True)
+    want = (torch.from_numpy(np.asarray(yr, np.float32)).to(tdtype),
+            torch.from_numpy(np.asarray(hr, np.float32)))
+    wy, wh = _ssd_worst(got, want, tdtype)
+    assert wy <= 1.0 and wh <= 1.0
+
+
+def test_ssd_model_decaying_state_forgets_its_first_half():
+    """a = -10, dt = 2: the model's state forgets the first half of x, as
+    the plain version's does, and both agree."""
+    x, _, _, bm, cm = _ssd_np(1, 256, 2, 1, 64, 64, seed=3)
+    dt = np.full((1, 256, 2), 2.0, np.float32)
+    a = np.full((2,), -10.0, np.float32)
+    x2 = x.copy()
+    x2[:, :128] = np.random.default_rng(4).standard_normal((1, 128, 2, 64))
+    for dtype, split in ((torch.bfloat16, 2), (torch.float32, None)):
+        outs = []
+        for xx in (x, x2):
+            args = _ssd_torch((xx, dt, a, bm, cm), dtype)
+            got = ssd_model(*args, chunk=64, split_terms=split)
+            wy, wh = _ssd_worst(got, tss.ssd_scan_ref(*args), dtype)
+            assert wy <= 1.0 and wh <= 1.0
+            outs.append(got[1])
+        np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_ssd_model_rounded_once_exceeds_the_bf16_limit(chunk):
+    """The control: G, h and x o w rounded once to bf16 (one term, as a
+    stock tensor-core SSD does) err more than 4x the bf16 limit that the
+    hi + lo split meets."""
+    args = _ssd_torch(_ssd_np(1, 1024, 6, 1, 64, 64, seed=0),
+                      torch.bfloat16)
+    want = tss.ssd_scan_ref(*args)
+    split = _ssd_worst(ssd_model(*args, chunk=chunk, split_terms=2), want,
+                       torch.bfloat16)
+    once = _ssd_worst(ssd_model(*args, chunk=chunk, split_terms=1), want,
+                      torch.bfloat16)
+    assert max(split) <= 1.0 < 4.0 < once[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_work_counts_the_recurrence_whatever_the_chunk(monkeypatch,
+                                                           dtype):
+    """The yardstick of the kernel's bound: each input read once and each
+    output written once, and 4 P N operations a step and head, the same
+    whichever chunk the kernel takes."""
+    args = _ssd_torch(_ssd_np(2, 300, 8, 2, 16, 32, seed=0), dtype)
+    x, dt, a, bm, cm = args
+    y, hf = tss.ssd_scan_ref(*args)
+    want_bytes = sum(t.numel() * t.element_size()
+                     for t in (x, dt, a, bm, cm, y, hf))
+    got = tss.work(2, 300, 8, 2, 16, 32, x.element_size())
+    assert got == (want_bytes, 4.0 * 2 * 300 * 8 * 16 * 32)
+    monkeypatch.setattr(tss, "CHUNK", 128)
+    monkeypatch.setattr(tss, "F32_CHUNK", 32)
+    assert tss.work(2, 300, 8, 2, 16, 32, x.element_size()) == got
 
 
 # ---------------------------------------------------------------------------
