@@ -21,10 +21,17 @@ What it does, one JSON line per phase:
    for (``achieved_tflops``, ``achieved_gb_s``); ``topk_score``'s two passes
    are also timed apart (``pass_ms``, ``torch.profiler``),
    ``flash_attention`` is timed beside SDPA at the long prompt (2, 32, 3000,
-   80) and at head dim 128 too, and ``ssd_scan`` at the long prompt x (2,
-   3000, 80, 64) beside the prefill shape, with variants L = 1 and L = 11
-   (a chunk shorter than one 16-row MMA tile), G = 2, G = H = 8, ragged
-   L = 1000, P = N = 16 and a decaying state, in bf16 and float32.
+   80), at head dim 128 and at gemma2-9b's widths (8, 16/8, 1024, 256, with
+   window, softcap, ragged, right-aligned and keyless-row variants at head
+   dim 256) too, and ``ssd_scan`` at the long prompt x (2, 3000, 80, 64) and
+   at mamba2-1.3b's widths x (8, 1024, 64, 64), N 128 beside the prefill
+   shape, with variants L = 1 and L = 11 (a chunk shorter than one 16-row
+   MMA tile), G = 2, G = H = 8, ragged L = 1000, P = N = 16, P = N = 128
+   and a decaying state, in bf16 and float32.  ``blockgram`` is held against a
+   float64 sum at the dense solve's shape on the paper matrix (exactly), on
+   gaussian float32 (twice: the same bits), bf16, the weighted paper matrix
+   and the values its bf16 split serves worst, and on short, ragged and
+   mixed rows, and timed beside ``torch.bmm``.
 4. ``solve_sparse_exact`` / 5. ``solve_dense_exact`` / 6. ``solve_randomized``
    / 7. ``solve_scaled``: ``repro_torch.core.api.svd`` on the paper's
    539 x 170,897 matrix (COO and dense input, exact and rank-16) and on two
@@ -127,6 +134,10 @@ SCALED_SERVE = dict(n=1_048_576, rows=1024, batches=2, density=1e-3,
 # leaves its kernel), the float32 check of the kernels inside the model
 # (10x its readings, 1.7e-5 - 3.1e-5 of max), the requests.
 LM_ARCH = "zamba2-2.7b"
+# The configs whose kernel widths phase 3 also holds: mamba2-1.3b's SSM
+# state 128 and gemma2-9b's head dim 256 (the models are not served yet).
+SSM_ARCH = "mamba2-1.3b"
+WIDE_ATTN_ARCH = "gemma2-9b"
 LM_PREFILL = dict(batch=8, seq=1024, decode=32)
 LM_LONG = dict(batch=2, seq=3000)
 LM_CHECK = dict(batch=2, seq=256, rel=3e-4)
@@ -236,12 +247,120 @@ def sparse_gram_bound(rows, vals, m):
     return bound(nbytes, 2.0 * pairs)
 
 
+# bf16 products per product of float32 values that blockgram's kernel
+# makes: hi.hi + hi.mid + mid.hi + mid.mid + hi.lo + lo.hi, the least set
+# that holds 1e-5 of max|G| on every input
+# (tests/test_torch_kernel_numerics.py).
+BLOCKGRAM_F32_PRODUCTS = 6
+# Float32 values that blockgram's split into bf16 terms serves worst (the
+# same as the CPU tests' WORST): products of them lose 3.0e-5 (two terms),
+# 1.5e-5 (no mid.mid) and 1.5e-5 (no lo) of x^2 when those products are
+# left out.
+BLOCKGRAM_WORST = {"two terms": 1.0038985013961792,
+                   "no mid.mid": 1.0039061307907104,
+                   "no lo": 1.0020065307617188}
+
+
+def gram_f64(a):
+    """The yardstick of blockgram's checks: the gram summed in float64 and
+    rounded once.  The plain version sums in float32, as the reference
+    does, and on an H100 that errs 9.4e-6 to 1.55e-5 of max|G| at W =
+    21363 (PERF.md), as much as the kernel is held to."""
+    a64 = a.to(torch.float64)
+    return (a64 @ a64.mT).to(torch.float32)
+
+
+def products(a) -> int:
+    """bf16 products per product of ``a``'s values that the kernel makes
+    on this input: 1 when every value is exact in bf16 (bf16 input, 0/1
+    data; the kernel skips mid and lo), 4 when every value is exact in two
+    bf16 terms (it skips lo), else ``BLOCKGRAM_F32_PRODUCTS``."""
+    if a.dtype != torch.float32:
+        return 1
+    rest = a - a.to(torch.bfloat16).float()
+    if not bool(rest.any()):
+        return 1
+    if not bool((rest - rest.to(torch.bfloat16).float()).any()):
+        return 4
+    return BLOCKGRAM_F32_PRODUCTS
+
+
 def blockgram_bound(a):
-    """G = A A^T is symmetric: a multiply and an add for each of the
-    M (M + 1) / 2 entries on or above the diagonal, per column of A."""
-    d, m, w = a.shape
-    nbytes = a.numel() * a.element_size() + d * m * m * 4
-    return bound(nbytes, float(d) * m * (m + 1) * w)
+    """``bg_mod.work``: A read once, G written once, and a multiply and an
+    add for each entry on or above the diagonal per column of A, at the
+    fastest rate the card offers to a float32-accurate product: the bf16
+    tensor-core rate over the t bf16 products this input needs
+    (``products``), or the float32 rate if that is higher."""
+    nbytes, flops = bg_mod.work(*a.shape, a.element_size())
+    return bound(nbytes, flops, max(F32_FLOPS, BF16_FLOPS / products(a)))
+
+
+def blockgram_worst(shape, x, seed):
+    """Rows of +-x scaled by powers of two, so that every product of the
+    split errs the same way (as the CPU tests' ``_bg_worst``)."""
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    sign = torch.randint(0, 2, shape, generator=gen, device=DEVICE) * 2 - 1
+    scale = torch.exp2(torch.randint(-3, 4, shape, generator=gen,
+                                     device=DEVICE).float())
+    return (x * sign * scale).float()
+
+
+def bmm_ms(a) -> float:
+    """The yardstick only (the port never calls bmm for this product): one
+    ``torch.bmm`` of the float32 blocks by their transposes."""
+    a32 = a.float()
+    return time_ms(lambda: torch.bmm(a32, a32.mT), iters=5, warmup=1)
+
+
+def blockgram_variants(cases, shape, *, wcoo) -> list:
+    """At the solver's shape: gaussian float32 (twice: the same bits), the
+    weighted paper matrix made dense, bf16 input and rows of the values the
+    split serves worst, each within 1e-5 of max|G| (``gram_f64``) and
+    exactly symmetric; the gaussian and bf16 cases timed beside their bound
+    and ``torch.bmm``."""
+    d, m, w = shape
+    out = []
+    gauss = torch.randn(shape, generator=torch.Generator(DEVICE)
+                        .manual_seed(31), device=DEVICE)
+    for tag, a in (("gaussian f32", gauss),
+                   ("gaussian rounded to bf16, bf16 input",
+                    gauss.to(torch.bfloat16))):
+        got = bg_mod.blockgram(a)
+        want = gram_f64(a)
+        err = compare("blockgram", got, want, 1e-5, cases,
+                      f"{tag} {tuple(shape)}")
+        plain_err = max_err(bg_mod.blockgram_ref(a), want)
+        check(torch.equal(got, got.mT),
+              f"blockgram[{tag}]: the gram is not exactly symmetric")
+        if a.dtype == torch.float32:
+            check(torch.equal(got, bg_mod.blockgram(a)),
+                  f"blockgram[{tag}]: two calls differ")
+        b_ms, b_by = blockgram_bound(a)
+        ms = time_ms(lambda: bg_mod.blockgram(a), iters=5, warmup=1)
+        out.append(dict(case=f"{tag} {tuple(shape)}", max_abs_err=err,
+                        plain_max_abs_err=plain_err,
+                        limit=1e-5 * float(want.abs().max()), ms=ms,
+                        bound_ms=b_ms, bound_by=b_by,
+                        products=products(a),
+                        achieved_tflops=bg_mod.work(
+                            *shape, a.element_size())[1] / ms / 1e9,
+                        library_ms=bmm_ms(a)))
+        del got, want
+    del gauss
+    dense = torch.from_numpy(sparse.pad_to_block_multiple(
+        wcoo.todense(), NUM_BLOCKS)).to(DEVICE)
+    wb = dense.reshape(m, NUM_BLOCKS, -1).permute(1, 0, 2).contiguous()
+    del dense
+    got = bg_mod.blockgram(wb)
+    compare("blockgram", got, gram_f64(wb), 1e-5, cases,
+            f"paper weighted, dense {tuple(wb.shape)}")
+    check(torch.equal(got, got.mT), "blockgram[weighted]: not symmetric")
+    del wb, got
+    worst = blockgram_worst(shape, BLOCKGRAM_WORST["two terms"], 33)
+    compare("blockgram", bg_mod.blockgram(worst), gram_f64(worst), 1e-5,
+            cases, f"values the split serves worst (two terms) "
+            f"{tuple(shape)}")
+    return out
 
 
 def sketch_panel_bound(omega, rows, vals):
@@ -370,39 +489,59 @@ def phase_kernels(state) -> None:
           "sparse_gram: an all-padding block must give a zero gram")
 
     # --- blockgram --------------------------------------------------------
+    # The paper matrix made dense, the solver's dense input: 0/1 values, so
+    # one bf16 product each and an exact gram.
     dense = torch.from_numpy(sparse.pad_to_block_multiple(
         coo.todense(), NUM_BLOCKS)).to(DEVICE)
     blocks = dense.reshape(m, NUM_BLOCKS, -1).permute(1, 0, 2).contiguous()
     del dense
-    want = bg_mod.blockgram_ref(blocks)
+    want = gram_f64(blocks)
     got = bg_mod.blockgram(blocks)
-    err = compare("blockgram", got, want, 1e-5, cases,
-                  f"paper dense {tuple(blocks.shape)}")
+    err = compare("blockgram", got, want, 0.0, cases,
+                  f"paper dense {tuple(blocks.shape)} 0/1 (exact)")
     check(torch.equal(got, got.mT), "blockgram: the gram is not exactly "
           "symmetric")
     b_ms, b_by = blockgram_bound(blocks)
     main["blockgram"] = dict(
-        shape=f"{tuple(blocks.shape)} f32 -> {tuple(got.shape)}",
+        shape=f"{tuple(blocks.shape)} f32 -> {tuple(got.shape)}, "
+              f"{bg_mod.launch_plan(*blocks.shape, blocks.dtype)[0]} slices "
+              f"of W",
         max_abs_err=err,
         ms=time_ms(lambda: bg_mod.blockgram(blocks), iters=5, warmup=1),
         plain_ms=time_ms(lambda: bg_mod.blockgram_ref(blocks), iters=5,
                          warmup=1),
-        bound_ms=b_ms, bound_by=b_by,
-        # The yardstick only: the port never calls bmm for this product.
-        library_ms=time_ms(lambda: torch.bmm(blocks, blocks.mT), iters=5,
-                           warmup=1))
+        bound_ms=b_ms, bound_by=b_by, products=products(blocks),
+        library_ms=bmm_ms(blocks),
+        timed_variants=blockgram_variants(cases, blocks.shape, wcoo=wcoo))
     del blocks, want, got
+    small = []
     a_w = torch.from_numpy(rng.standard_normal((3, 67, 203))
                            .astype(np.float32)).to(DEVICE)
-    compare("blockgram", bg_mod.blockgram(a_w), bg_mod.blockgram_ref(a_w),
-            1e-5, cases, "ragged D=3 M=67 W=203, gaussian f32")
-    a_bf = a_w.to(torch.bfloat16)
-    compare("blockgram", bg_mod.blockgram(a_bf), bg_mod.blockgram_ref(a_bf),
-            1e-5, cases, "ragged D=3 M=67 W=203, bf16 input")
-    a_one = torch.from_numpy(rng.standard_normal((1, 130, 31))
+    small += [("ragged D=3 M=67 W=203, gaussian f32", a_w),
+              ("ragged D=3 M=67 W=203, bf16 input", a_w.to(torch.bfloat16))]
+    for shape in ((1, 8, 5), (2, 40, 64)):
+        g = torch.from_numpy(rng.standard_normal(shape)
                              .astype(np.float32)).to(DEVICE)
-    compare("blockgram", bg_mod.blockgram(a_one), bg_mod.blockgram_ref(a_one),
-            1e-5, cases, "M=130 W=31 (W below one chunk)")
+        small.append((f"short rows {shape}, gaussian f32", g))
+        mixed = g.clone()
+        mixed[:, :, ::2] = mixed[:, :, ::2].to(torch.bfloat16).float()
+        small.append((f"short rows {shape}, mixed (every other column "
+                      f"exact in bf16)", mixed))
+    for name, x in BLOCKGRAM_WORST.items():
+        small.append((f"(2, 40, 203), values the split serves worst "
+                      f"({name})", blockgram_worst((2, 40, 203), x, 34)))
+    small.append(("M=130 W=31 (W below one stage)",
+                  torch.from_numpy(rng.standard_normal((1, 130, 31))
+                                   .astype(np.float32)).to(DEVICE)))
+    for tag, a in small:
+        compare("blockgram", bg_mod.blockgram(a), gram_f64(a), 1e-5, cases,
+                tag)
+    a_sl = torch.randn((1, 539, 170_893), device=DEVICE,
+                       generator=torch.Generator(DEVICE).manual_seed(32))
+    compare("blockgram", bg_mod.blockgram(a_sl), gram_f64(a_sl),
+            1e-5, cases, f"one block (1, 539, 170893), "
+            f"{bg_mod.launch_plan(1, 539, 170_893, torch.float32)[0]} slices")
+    del a_sl
 
     # --- sketch_panel -----------------------------------------------------
     omega = torch.from_numpy(rng.standard_normal((24, m))
@@ -439,9 +578,11 @@ def phase_kernels(state) -> None:
     emit("kernels", cases=cases, main_shapes=main,
          sparse_gram_weighted_bit_stable=state[
              "sparse_gram_weighted_bit_stable"],
-         tolerance="0 for 0/1 sparse_gram and for topk_score (torch.equal "
-                   "on values and indices); else 1e-5 * max|plain| "
-                   "(f32 summation order); flash_attention 2e-5 and "
+         tolerance="0 for 0/1 sparse_gram and blockgram and for "
+                   "topk_score (torch.equal on values and indices); else "
+                   "1e-5 * max|plain| (f32 summation order; blockgram is "
+                   "held against the gram summed in float64); "
+                   "flash_attention 2e-5 and "
                    "ssd_scan 1e-4 of max|plain| in float32 (online against "
                    "direct softmax; chunked scan against the sequential "
                    "recurrence); a bf16 output element by element at one "
@@ -599,8 +740,41 @@ def flash_kernel_rows(cases, main) -> None:
                                  torch.float32, gen)
     check(float(got[:, :, :40].abs().max()) == 0.0,
           "flash_attention: rows that see no key must be zeros")
+    timed += flash_wide_rows(cases, gen)
     main["flash_attention"] = dict(rows["bfloat16"], float32=rows["float32"],
                                    timed_variants=timed)
+
+
+def flash_wide_rows(cases, gen) -> list:
+    """gemma2-9b's widths, q (8, 16, 1024, 256) over k, v (8, 8, 1024,
+    256), causal, in bf16 and float32, timed beside SDPA; variants at head
+    dim 256: window 256, softcap 50, ragged sq = sk = 1000, sq 256 < sk
+    1024, and rows that see no key."""
+    cfg = get_config(WIDE_ATTN_ARCH)
+    shape = (LM_PREFILL["batch"], cfg.padded_heads, cfg.padded_kv_heads,
+             LM_PREFILL["seq"], LM_PREFILL["seq"], cfg.head_dim)
+    d = cfg.head_dim
+    timed = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        timed.append(flash_timed(cases, f"{WIDE_ATTN_ARCH} {shape} causal "
+                                 f"{tag}", shape, dtype, gen))
+        for name, shp, kw in (
+                ("window 256", (2, 16, 8, 1024, 1024, d), dict(window=256)),
+                (f"softcap {cfg.logit_softcap:g}", (2, 16, 8, 1024, 1024, d),
+                 dict(softcap=cfg.logit_softcap)),
+                ("ragged sq = sk = 1000", (2, 16, 8, 1000, 1000, d), {}),
+                ("right-aligned sq 256 < sk 1024", (2, 16, 8, 256, 1024, d),
+                 {})):
+            flash_case(cases, f"head dim {d}, {name} {tag}", *shp, dtype, gen,
+                       **kw)
+        _, _, _, got, _ = flash_case(
+            cases, f"head dim {d}, sq 100 > sk 60 (rows before every key) "
+            f"{tag}", 1, 4, 2, 100, 60, d, dtype, gen)
+        check(float(got[:, :, :40].float().abs().max()) == 0.0,
+              f"flash_attention: rows that see no key must be zeros (head "
+              f"dim {d}, {tag})")
+    return timed
 
 
 def ssd_inputs(b, seq, h, g, p, n, dtype, gen):
@@ -665,7 +839,7 @@ def ssd_kernel_rows(cases, main) -> None:
         ms = time_ms(lambda: ss_mod.ssd_scan(*args))
         rows[tag] = dict(
             shape=f"x {tuple(args[0].shape)} {tag}, G {shape[3]}, N "
-                  f"{shape[5]}, chunk {ss_mod.chunk_for(dtype)}",
+                  f"{shape[5]}, chunk {ss_mod.chunk_for(dtype, shape[5])}",
             max_abs_err=err,
             ms=ms,
             plain_ms=time_ms(lambda: ss_mod.ssd_scan_ref(*args), iters=2,
@@ -691,19 +865,47 @@ def ssd_kernel_rows(cases, main) -> None:
                  (2, 300, 8, 1, 16, 16), dtype, gen)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
-        x, _, _, bm, cm = ssd_inputs(1, 256, 8, 1, 64, 64, dtype, gen)
-        dt = torch.full((1, 256, 8), 2.0, device=DEVICE, dtype=dtype)
-        a = torch.full((8,), -10.0, device=DEVICE)
-        _, _, h1 = ssd_case(cases, f"decaying state {tag}", None, dtype, gen,
-                            inputs=(x, dt, a, bm, cm))
-        x2 = x.clone()
-        x2[:, :128] = lm_randn((1, 128, 8, 64), gen, dtype)
-        h2 = ss_mod.ssd_scan(x2, dt, a, bm, cm)[1]
-        check(torch.allclose(h1, h2, rtol=1e-4, atol=1e-4),
-              f"ssd_scan: a state with a = -10, dt = 2 must forget its "
-              f"first half ({tag})")
+        for n in (64, 128):
+            x, _, _, bm, cm = ssd_inputs(1, 256, 8, 1, 64, n, dtype, gen)
+            dt = torch.full((1, 256, 8), 2.0, device=DEVICE, dtype=dtype)
+            a = torch.full((8,), -10.0, device=DEVICE)
+            _, _, h1 = ssd_case(cases, f"decaying state N {n} {tag}", None,
+                                dtype, gen, inputs=(x, dt, a, bm, cm))
+            x2 = x.clone()
+            x2[:, :128] = lm_randn((1, 128, 8, 64), gen, dtype)
+            h2 = ss_mod.ssd_scan(x2, dt, a, bm, cm)[1]
+            check(torch.allclose(h1, h2, rtol=1e-4, atol=1e-4),
+                  f"ssd_scan: a state with a = -10, dt = 2 must forget its "
+                  f"first half (N {n}, {tag})")
+    timed += ssd_wide_rows(cases, gen)
     main["ssd_scan"] = dict(rows["bfloat16"], float32=rows["float32"],
                             timed_variants=timed)
+
+
+def ssd_wide_rows(cases, gen) -> list:
+    """mamba2-1.3b's widths, x (8, 1024, 64, 64), G 1, N 128, in bf16 and
+    float32, timed beside the bound; variants at N 128: ragged L 1000, L 1,
+    L 11, G 2, and P 128 at a small batch."""
+    cfg = get_config(SSM_ARCH)
+    pf = LM_PREFILL
+    shape = (pf["batch"], pf["seq"], cfg.ssm_heads, cfg.ssm_groups,
+             cfg.ssm_head_dim, cfg.ssm_state)
+    timed = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        row = ssd_timed(cases, f"{SSM_ARCH} {shape} {tag}, chunk "
+                        f"{ss_mod.chunk_for(dtype, shape[5])}", shape, dtype,
+                        gen)
+        timed.append(row)
+        h, p, n = shape[2], shape[4], shape[5]
+        ssd_case(cases, f"N {n} ragged L 1000 {tag}", (2, 1000, h, 1, p, n),
+                 dtype, gen)
+        ssd_case(cases, f"N {n} L 1 {tag}", (4, 1, h, 1, p, n), dtype, gen)
+        ssd_case(cases, f"N {n} L 11 {tag}", (4, 11, h, 2, p, n), dtype, gen)
+        ssd_case(cases, f"N {n} G 2 {tag}", (4, 1024, h, 2, p, n), dtype, gen)
+        ssd_case(cases, f"P 128 N 128 {tag}", (2, 512, 8, 1, 128, 128),
+                 dtype, gen)
+    return timed
 
 
 # ---------------------------------------------------------------------------

@@ -21,18 +21,21 @@
 // sums); P.V is done twice (below), so it issues 1.5x the operations.
 //
 // Design (the FlashAttention-2 form).  One block per (query tile, b * h),
-// 4 warps for bf16 and 8 for float32; each warp owns 16 query rows.  Query
+// 4 warps for bf16 and 8 for float32; each warp owns 16 query rows (head
+// dims up to 128; at 256 two warps share 16 rows, `Cfg` below).  Query
 // tiles run in reverse order so the heavy causal tiles start first; the
 // blocks of one head (and of the heads sharing a KV head) are adjacent, so
-// they share K and V in L2.  Q is loaded once into tensor-core A fragments.  K and V arrive in
-// 64-key tiles through a two-stage ring in shared memory filled by
-// `cp.async` (the next tile loads while this one is used); rows are padded
-// so that `ldmatrix` (`.trans` for V) has no bank conflict; head dims are
-// zero-padded to DP, a multiple of 16.  S = Q K^T stays in the MMA's float32
-// accumulator fragments, where scale, softcap and the masks are applied
-// (masks only on tiles that straddle a boundary); row max and row sum take
-// two quad shuffles; the exponentials are `ex2.approx` (2 ulp).  The
-// float32 P fragment becomes the A operand of O += P V in registers.
+// they share K and V in L2.  Q is loaded once into tensor-core A fragments
+// (at head dim 256 it stays in shared memory).  K and V arrive in 64-key
+// tiles (32 for float32 at head dim 256) through a two-stage ring in shared
+// memory filled by `cp.async` (the next tile loads while this one is used);
+// rows are padded so that `ldmatrix` (`.trans` for V) has no bank conflict;
+// head dims are zero-padded to DP, a multiple of 16.  S = Q K^T stays in the
+// MMA's float32 accumulator fragments, where scale, softcap and the masks
+// are applied (masks only on tiles that straddle a boundary); row max and
+// row sum take two quad shuffles; the exponentials are `ex2.approx` (2
+// ulp).  The float32 P fragment becomes the A operand of O += P V in
+// registers.
 //
 // Accuracy.  Rounding P once to bf16 (what stock flash kernels do) moves a
 // bf16 output by up to ~20 bf16 ulps against the float32 softmax; so P is
@@ -60,20 +63,43 @@
 
 namespace {
 
-constexpr int BK = 64;              // keys per shared-memory tile
 constexpr float NEG = -1e30f;       // the TPU kernel's finite sentinel
 constexpr float LOG2E = 1.4426950408889634f;
 
 // NT: bf16 terms of q, k, v; NP: bf16 terms of P; E: elements per 16
-// bytes; W: warps per block, 16 query rows each.  bf16 takes 4 warps (about
-// 145 registers: three blocks an SM); float32 takes 8 (about 230 registers,
-// one or two blocks an SM either way), so a K/V tile serves 128 rows.
+// bytes.
 template <typename T> struct Terms;
 template <> struct Terms<__nv_bfloat16> {
-  static constexpr int NT = 1, NP = 2, E = 8, W = 4;
+  static constexpr int NT = 1, NP = 2, E = 8;
 };
 template <> struct Terms<float> {
-  static constexpr int NT = 3, NP = 3, E = 4, W = 8;
+  static constexpr int NT = 3, NP = 3, E = 4;
+};
+
+// The launch shape at head dims padded to DP.  W warps a block; DS warps
+// share 16 query rows, each owning DP / DS of the output's dims; BK keys a
+// shared-memory tile; QSM: q stays in shared memory (its fragments are
+// re-read for each key tile) instead of registers.  Up to DP = 128: bf16
+// takes 4 warps (about 145 registers: three blocks an SM), float32 takes 8
+// (about 230 registers), so a K/V tile serves 128 rows; one warp a row
+// group.  At DP = 256 the output alone would be 128 floats a thread, so two
+// warps share each row group (both compute the same scores and softmax, each
+// multiplies P by its half of V), q is read from shared memory, and float32
+// takes 32-key tiles so that two K/V stages and q fit 227 KiB.
+template <typename T, int DP> struct Cfg {
+  static constexpr bool BIG = DP > 128;
+  static constexpr int W = (sizeof(T) == 2 && !BIG) ? 4 : 8;
+  static constexpr int DS = BIG ? 2 : 1;
+  static constexpr int BK = (sizeof(T) == 4 && BIG) ? 32 : 64;
+  static constexpr bool QSM = BIG;
+  static constexpr int BQ = 16 * W / DS;               // query rows a block
+  static constexpr int KST = DP + 8;                   // K (and Q) row stride
+  static constexpr int VST = sizeof(T) == 2 ? DP + 8 : DP + 4;
+  static constexpr int STAGE = BK * (KST + VST);       // elements per stage
+  // two K/V stages; Q passes through the same memory first unless QSM
+  static constexpr int SMEM_ELEMS =
+      QSM ? BQ * KST + 2 * STAGE
+          : (2 * STAGE > BQ * KST ? 2 * STAGE : BQ * KST);
 };
 
 __device__ __forceinline__ float fast_exp2(float x) {   // 2^x, 0 for x << 0
@@ -136,12 +162,12 @@ __device__ __forceinline__ void split(float x, float y, uint32_t* out,
 
 // Copy rows [row0, row0 + R) of a (rows, d) array into an (R, ST) tile;
 // rows >= rows and dims >= d are zero-filled (dims up to DP).
-template <typename T, int DP, int ST, int R>
+template <typename T, int DP, int ST, int R, int THREADS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
                                           int rows, int d, int tid) {
   constexpr int E = Terms<T>::E;
   constexpr int CPR = DP / E;       // 16-byte chunks per row
-  for (int idx = tid; idx < R * CPR; idx += 32 * Terms<T>::W) {
+  for (int idx = tid; idx < R * CPR; idx += THREADS) {
     const int r = idx / CPR;
     const int c = (idx - r * CPR) * E;
     const bool ok = row0 + r < rows && c < d;
@@ -150,19 +176,20 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
   }
 }
 
-// A fragments of the warp's 16 query rows, dims [16 kk, 16 kk + 16), NT terms.
+// A fragments of row group rg's 16 query rows, dims [16 kk, 16 kk + 16), NT
+// terms.
 template <typename T, int ST>
 __device__ __forceinline__ void q_frag(uint32_t (*a)[4], const T* qs, int kk,
-                                       int warp, int lane) {
+                                       int rg, int lane) {
   if constexpr (sizeof(T) == 2) {
-    const int row = 16 * warp + (lane & 7) + (((lane >> 3) & 1) << 3);
+    const int row = 16 * rg + (lane & 7) + (((lane >> 3) & 1) << 3);
     ldsm_x4(a[0], qs + row * ST + 16 * kk + ((lane >> 4) << 3));
   } else {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {   // a0: (g, 2t) a1: (g+8, 2t) a2: (g, 2t+8) a3
       const float2 x = *reinterpret_cast<const float2*>(
-          qs + (16 * warp + g + 8 * (e & 1)) * ST + 16 * kk + 2 * t +
+          qs + (16 * rg + g + 8 * (e & 1)) * ST + 16 * kk + 2 * t +
           8 * (e >> 1));
       split<Terms<T>::NT>(x.x, x.y, &a[0][e], 4);
     }
@@ -223,21 +250,24 @@ __device__ __forceinline__ void put2(__nv_bfloat16* p, float x, float y) {
 
 // DP: head dims padded to a multiple of 16 (the wrapper's d <= DP).
 template <typename T, int DP>
-__global__ void __launch_bounds__(32 * Terms<T>::W)
+__global__ void __launch_bounds__(32 * Cfg<T, DP>::W)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
             int sq, int sk, int d, int causal, int window, float softcap,
             float scale) {
+  using C = Cfg<T, DP>;
   constexpr int NT = Terms<T>::NT;
   constexpr int NP = Terms<T>::NP;
-  constexpr int KST = DP + 8;                          // K (and Q) row stride
-  constexpr int VST = sizeof(T) == 2 ? DP + 8 : DP + 4;
-  constexpr int STAGE = BK * (KST + VST);              // elements per stage
+  constexpr int THREADS = 32 * C::W;
+  constexpr int BK = C::BK;
+  constexpr int KST = C::KST, VST = C::VST, STAGE = C::STAGE;
   constexpr int KT = DP / 16;                          // k-steps of q.k
-  constexpr int NB = DP / 8;                           // output n-blocks
-  constexpr int BQ = 16 * Terms<T>::W;                 // query rows
+  constexpr int NBW = DP / 8 / C::DS;                  // output n-blocks a warp
+  constexpr int BQ = C::BQ;
+  constexpr int RG = C::W / C::DS;                     // row groups
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* qsm = reinterpret_cast<T*>(smem_raw);
+  T* smem = qsm + (C::QSM ? BQ * KST : 0);             // the K/V stages
 
   const int qt = gridDim.x - 1 - blockIdx.x;           // heavy tiles first
   const int bh = blockIdx.y;                           // b * hq + h
@@ -245,6 +275,10 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = (bh % hq) / (hq / hkv);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  // this warp's 16 rows and its output dims (one warp a row group up to
+  // head dim 128: both folded, as if there were no sharing)
+  const int rg = C::DS == 1 ? warp : warp % RG;
+  const int d0 = C::DS == 1 ? 0 : (warp / RG) * (DP / C::DS);
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * BQ;
   const int off = sk - sq;
@@ -261,31 +295,36 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + kv_base;
   const T* vb = v + kv_base;
 
-  // Q through the stage memory, into registers.
-  uint32_t qf[KT][NT][4];
-  load_tile<T, DP, KST, BQ>(smem, q + (long long)bh * sq * d, q0, sq, d,
-                            tid);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
+  // Q into its own shared memory (QSM), or through the stage memory into
+  // registers.
+  uint32_t qf[C::QSM ? 1 : KT][NT][4];
+  load_tile<T, DP, KST, BQ, THREADS>(qsm, q + (long long)bh * sq * d, q0, sq,
+                                     d, tid);
+  if constexpr (!C::QSM) {
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) q_frag<T, KST>(qf[kk], smem, kk, warp, lane);
-  __syncthreads();
+    for (int kk = 0; kk < KT; ++kk) q_frag<T, KST>(qf[kk], qsm, kk, rg, lane);
+    __syncthreads();
+  }
 
   if (ntiles > 0) {
-    load_tile<T, DP, KST, BK>(smem, kb, k_begin, sk, d, tid);
-    load_tile<T, DP, VST, BK>(smem + BK * KST, vb, k_begin, sk, d, tid);
-    cp_commit();
+    load_tile<T, DP, KST, BK, THREADS>(smem, kb, k_begin, sk, d, tid);
+    load_tile<T, DP, VST, BK, THREADS>(smem + BK * KST, vb, k_begin, sk, d,
+                                       tid);
+    if constexpr (!C::QSM) cp_commit();
   }
+  if constexpr (C::QSM) cp_commit();   // Q arrives in this group too
 
   float m[2] = {NEG, NEG};          // running max (log2 units), rows g, g + 8
   float l[2] = {0.f, 0.f};          // this thread's part of the row sums
-  float acc[NB][4];
+  float acc[NBW][4];
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+  for (int nb = 0; nb < NBW; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
-  const int row_pos = q0 + 16 * warp + g + off;        // key position of row g
+  const int row_pos = q0 + 16 * rg + g + off;          // key position of row g
   // scores in log2 units: s * scale * log2 e, or softcap * log2 e * tanh
   const float cap_log2 = softcap * LOG2E;
   const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
@@ -295,8 +334,9 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = k_begin + it * BK;
     if (it + 1 < ntiles) {
       T* nxt = smem + ((it + 1) & 1) * STAGE;
-      load_tile<T, DP, KST, BK>(nxt, kb, k0 + BK, sk, d, tid);
-      load_tile<T, DP, VST, BK>(nxt + BK * KST, vb, k0 + BK, sk, d, tid);
+      load_tile<T, DP, KST, BK, THREADS>(nxt, kb, k0 + BK, sk, d, tid);
+      load_tile<T, DP, VST, BK, THREADS>(nxt + BK * KST, vb, k0 + BK, sk, d,
+                                         tid);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -306,16 +346,25 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* ks = smem + (it & 1) * STAGE;
     const T* vs = ks + BK * KST;
 
-    // S = Q K^T: 8 n-blocks of 8 keys, float32 fragments.
-    float s[8][4];
+    // S = Q K^T: BK / 8 n-blocks of 8 keys, float32 fragments.
+    float s[BK / 8][4];
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < BK / 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t qa[NT][4];
+      if constexpr (C::QSM) {
+        q_frag<T, KST>(qa, qsm, kk, rg, lane);
+      } else {
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+        for (int i = 0; i < NT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[i][e] = qf[kk][i][e];
+      }
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
         uint32_t kf[NT][2][2];
         k_frag<T, KST>(kf, ks, 16 * np, kk, lane);
 #pragma unroll
@@ -324,8 +373,9 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int j = 0; i + j < NT; ++j)
 #pragma unroll
             for (int nb = 0; nb < 2; ++nb)
-              mma(s[2 * np + nb], qf[kk][i], kf[j][nb][0], kf[j][nb][1]);
+              mma(s[2 * np + nb], qa[i], kf[j][nb][0], kf[j][nb][1]);
       }
+    }
 
     // Softcap, masks; the tile's row max.  Without a softcap the scores
     // stay unscaled here: the max commutes with scale * log2 e > 0, which
@@ -334,7 +384,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       (window > 0 && k0 <= q_last - window);
     float mx[2] = {NEG, NEG};
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < BK / 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[nb][e];
@@ -360,7 +410,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
+    for (int nb = 0; nb < BK / 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         // a hidden key weighs 0, whatever the running max is
@@ -370,23 +420,23 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l[e >> 1] += p;
       }
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
+    for (int nb = 0; nb < NBW; ++nb) {
       acc[nb][0] *= alpha[0]; acc[nb][1] *= alpha[0];
       acc[nb][2] *= alpha[1]; acc[nb][3] *= alpha[1];
     }
 
-    // O += P V, P in NP bf16 terms, 16 keys at a time.
+    // O += P V on this warp's dims, P in NP bf16 terms, 16 keys at a time.
 #pragma unroll
-    for (int kq = 0; kq < 4; ++kq) {
+    for (int kq = 0; kq < BK / 16; ++kq) {
       uint32_t pa[NP][4];
       split<NP>(s[2 * kq][0], s[2 * kq][1], &pa[0][0], 4);
       split<NP>(s[2 * kq][2], s[2 * kq][3], &pa[0][1], 4);
       split<NP>(s[2 * kq + 1][0], s[2 * kq + 1][1], &pa[0][2], 4);
       split<NP>(s[2 * kq + 1][2], s[2 * kq + 1][3], &pa[0][3], 4);
 #pragma unroll
-      for (int dp = 0; dp < NB / 2; ++dp) {
+      for (int dp = 0; dp < NBW / 2; ++dp) {
         uint32_t vf[NT][2][2];
-        v_frag<T, VST>(vf, vs, kq, 16 * dp, lane);
+        v_frag<T, VST>(vf, vs, kq, d0 + 16 * dp, lane);
 #pragma unroll
         for (int i = 0; i < NP; ++i)
 #pragma unroll
@@ -398,6 +448,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();                // this stage is refilled two tiles on
   }
+  if constexpr (C::QSM)
+    cp_wait<0>();                   // a block that sees no key still loaded Q
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -407,12 +459,12 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + 16 * warp + g + 8 * r;
+    const int qi = q0 + 16 * rg + g + 8 * r;
     if (qi >= sq) continue;
     T* orow = o + ((long long)bh * sq + qi) * d;
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      const int dd = 8 * nb + 2 * t;                 // d is even
+    for (int nb = 0; nb < NBW; ++nb) {
+      const int dd = d0 + 8 * nb + 2 * t;            // d is even
       if (dd < d)
         put2(orow + dd, acc[nb][2 * r] / l[r], acc[nb][2 * r + 1] / l[r]);
     }
@@ -423,17 +475,14 @@ template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int hq, int hkv, int sq, int sk, int d, int causal, int window,
            float softcap, float scale, cudaStream_t stream) {
-  constexpr int KST = DP + 8;
-  constexpr int VST = sizeof(T) == 2 ? DP + 8 : DP + 4;
-  constexpr int BQ = 16 * Terms<T>::W;
-  // two K/V stages; Q passes through the same memory first
-  const int smem = max(2 * BK * (KST + VST), BQ * KST) * (int)sizeof(T);
+  using C = Cfg<T, DP>;
+  const int smem = C::SMEM_ELEMS * (int)sizeof(T);
   auto kern = attn_kernel<T, DP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + BQ - 1) / BQ, batch * hq);
-  kern<<<grid, 32 * Terms<T>::W, smem, stream>>>(
+  dim3 grid((sq + C::BQ - 1) / C::BQ, batch * hq);
+  kern<<<grid, 32 * C::W, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, sk, d,
       causal, window, softcap, scale);
@@ -449,13 +498,15 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int batch,
   if (d <= N)                                                                \
     return launch<T, N>(q, k, v, o, batch, hq, hkv, sq, sk, d, causal,       \
                         window, softcap, scale, stream);
-  // Few instantiations keep the build short; 80 is zamba2's head dim.
+  // Few instantiations keep the build short; 80 is zamba2's head dim, 256
+  // gemma2-9b's.
   RANKY_FA_CASE(32)
   RANKY_FA_CASE(64)
   RANKY_FA_CASE(80)
   RANKY_FA_CASE(128)
+  RANKY_FA_CASE(256)
 #undef RANKY_FA_CASE
-  return (int)cudaErrorInvalidValue;    // d > 128: the wrapper refuses it
+  return (int)cudaErrorInvalidValue;    // d > 256: the wrapper refuses it
 }
 
 }  // namespace

@@ -22,16 +22,22 @@
 // (10.7 GFLOP) take 0.011 ms on the tensor cores, so the bytes bound it.
 //
 // bf16 design (`ssd_kernel_mma`, launched at chunks of Q = 64 steps and
-// NW = 4 warps a block).  One block per (b, h) walks the chunks in order
-// and carries the (P x N) float32 state in registers: warp w owns the state
-// rows p in [16 w', 16 w' + 16) for w' = w, w + NW, ...  Per chunk:
+// NW = 4 warps a block).  One block per (b, h, P tile) walks the chunks in
+// order and carries its (P tile x N) float32 state in registers: 16 x 64
+// values a warp.  For N <= 64 a P tile is 64 head dims and warp w owns the
+// state rows [16 w, 16 w + 16); for 64 < N <= 128 (mamba2-1.3b's N = 128)
+// a P tile is 32 head dims and warp w owns rows [16 (w % 2), + 16) and
+// columns [64 (w / 2), + 64), so the registers a thread holds stay as they
+// are at N = 64.  P up to 128 takes several P tiles: a state row and an
+// output column depend only on their own column of x, so the tiles only
+// repeat C B^T and the dt a scan.  Per chunk:
 //
-// * x (Q x P), B and C (Q x N) arrive as bf16 through a two-stage
+// * x (Q x P tile), B and C (Q x N) arrive as bf16 through a two-stage
 //   `cp.async` ring (chunk c + 1 loads while chunk c computes) into tiles of
-//   64-element rows with an XOR swizzle of their 16-byte pieces, so that
-//   `ldmatrix` / `ldmatrix.trans` read them without bank conflicts; dt comes
-//   a chunk ahead through a register.  Nothing is widened or transposed
-//   element by element.
+//   64-element (x) and 64- or 128-element (B, C) rows with an XOR swizzle of
+//   their 16-byte pieces, so that `ldmatrix` / `ldmatrix.trans` read them
+//   without bank conflicts; dt comes a chunk ahead through a register.
+//   Nothing is widened or transposed element by element.
 // * Every warp forms la (log2 units) and w_j = exp(la_last - la_j) dt_j by
 //   its own shuffle scan, into its own shared array: no one-warp phase.
 // * The four products run on `mma.sync.m16n8k16` (bf16 in, float32 sums).
@@ -57,7 +63,8 @@
 //
 // float32 design (`ssd_kernel_f32`, the first port's kernel, kept for the
 // float32 in-model check): float32 FMAs on the CUDA cores, one 256-thread
-// block per (b, h), x, B^T, C^T, G and the state in shared memory.
+// block per (b, h), x, B^T, C^T, G and the state in shared memory; the
+// chunk follows N so that these fit (128 steps for N <= 64, 64 above).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,7 +74,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 64;                       // tile row width: P, N <= 64
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float fast_exp2(float x) {   // 2^x, 0 at -inf
@@ -128,29 +134,32 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// Element (row, col) of a [rows][64] bf16 tile whose 16-byte pieces are
-// XOR-swizzled by row: the eight rows an `ldmatrix` reads at one column hit
-// eight different bank groups.
+// Element (row, col) of a [rows][W] bf16 tile (W = 64 or 128) whose 16-byte
+// pieces are XOR-swizzled by row: the eight rows an `ldmatrix` reads at one
+// column hit eight different bank groups.
+template <int W>
 __device__ __forceinline__ int sw(int row, int col) {
-  return row * D + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
+  return row * W + ((((col >> 3) ^ row) & (W / 8 - 1)) << 3) + (col & 7);
 }
 
 // Rows [0, Q) of a strided bf16 array (row r at src + r * stride), columns
-// [0, cols), into a swizzled tile: rows >= valid and columns in [cols,
-// 16 * ceil(cols / 16)) are zero-filled.  16-byte pieces when cols is a
-// multiple of 8, else 8-byte pieces (the wrapper aligns the bases).
-template <int Q, int THREADS>
+// [0, cols), into a swizzled [Q][W] tile: rows >= valid and columns in
+// [cols, 16 * ceil(cols / 16)) are zero-filled.  16-byte pieces when the
+// array's rows are `width` elements with width and cols multiples of 8 (then
+// every piece is aligned: the wrapper aligns the bases), else 8-byte pieces.
+template <int Q, int THREADS, int W>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           long long stride, int valid,
-                                          int cols, int tid) {
+                                          int cols, int width, int tid) {
   const int padded = (cols + 15) & ~15;
-  if ((cols & 7) == 0) {
+  if (((cols | width) & 7) == 0) {
     const int per = padded >> 3;
     for (int idx = tid; idx < Q * per; idx += THREADS) {
       const int r = idx / per;
       const int c = (idx - r * per) << 3;
       const bool ok = r < valid && c < cols;
-      cp_async16(dst + sw(r, c), ok ? src + r * stride + c : src, ok ? 16 : 0);
+      cp_async16(dst + sw<W>(r, c), ok ? src + r * stride + c : src,
+                 ok ? 16 : 0);
     }
   } else {
     const int per = padded >> 2;
@@ -158,58 +167,87 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
       const int r = idx / per;
       const int c = (idx - r * per) << 2;
       const bool ok = r < valid && c < cols;
-      cp_async8(dst + sw(r, c), ok ? src + r * stride + c : src, ok ? 8 : 0);
+      cp_async8(dst + sw<W>(r, c), ok ? src + r * stride + c : src,
+                ok ? 8 : 0);
     }
   }
 }
 
-// Q: steps per chunk; NW: warps.  Each warp owns RT / NW row tiles of 16.
-template <int Q, int NW>
+// Shared memory of `ssd_kernel_mma<Q, NW, DN, PTW>`: two stages of x (Q x
+// 64), B and C (Q x DN), the state's hi + lo copies (PTW x DN), dt (two
+// chunks) and each warp's la2 and w.
+template <int Q, int NW, int DN, int PTW>
+constexpr int mma_smem_bytes() {
+  return (2 * (Q * 64 + 2 * Q * DN) + 2 * PTW * DN) * (int)sizeof(bf16) +
+         (2 * Q + NW * 2 * Q) * (int)sizeof(float);
+}
+
+// Q: steps per chunk; NW: warps, each owning RT / NW row tiles of 16.  DN:
+// the row width of the B and C tiles (N <= DN); PTW: the head dims a block
+// takes (P is cut into ceil(P / PTW) tiles, one block each: a state row and
+// an output column depend only on their own column of x, so only C B^T and
+// the dt a scan are repeated per tile); ONE: P <= PTW, one tile, its offset
+// folded at compile time.  Warp w owns state rows [16 (w % SPT), + 16) of
+// the tile and state columns [64 (w / SPT), + 64).
+template <int Q, int NW, int DN, int PTW, bool ONE>
 __global__ void __launch_bounds__(32 * NW)
 ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
                const float* __restrict__ a, const bf16* __restrict__ bm,
                const bf16* __restrict__ cm, bf16* __restrict__ y,
                float* __restrict__ hout, int L, int H, int G, int P, int N) {
   constexpr int THREADS = 32 * NW;
+  constexpr int DX = 64;                   // x tile row width: PTW <= 64
   constexpr int RT = Q / 16;               // row tiles of a chunk
   constexpr int TPW = RT / NW;             // row tiles per warp
-  constexpr int PW = (4 + NW - 1) / NW;    // state row tiles per warp, at most
-  constexpr int TILE = Q * D;
+  constexpr int KN = DN / 16;              // 16-wide steps over N
+  constexpr int PB = PTW / 16;             // 16-wide steps over the P tile
+  constexpr int SPT = PTW / 16;            // state row tiles
+  constexpr int NQ = DN * SPT / NW;        // state columns per warp
+  constexpr int XT = Q * DX, BT = Q * DN, STAGE = XT + 2 * BT;
   constexpr int PER = Q / 32;              // scan values per lane
-  static_assert(RT % NW == 0 && THREADS >= Q, "launch shape");
+  static_assert(RT % NW == 0 && THREADS >= Q && NW % SPT == 0 && NQ == 64 &&
+                PTW <= DX, "launch shape");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* stage = reinterpret_cast<bf16*>(smem_raw);     // [2][x, B, C][Q][64]
-  bf16* hhi = stage + 2 * 3 * TILE;                    // [64][64]: (p, n)
-  bf16* hlo = hhi + D * D;
-  float* dts = reinterpret_cast<float*>(hlo + D * D);  // [2][Q]
+  bf16* stage = reinterpret_cast<bf16*>(smem_raw);     // [2][x, B, C]
+  bf16* hhi = stage + 2 * STAGE;                       // [PTW][DN]: (p, n)
+  bf16* hlo = hhi + PTW * DN;
+  float* dts = reinterpret_cast<float*>(hlo + PTW * DN);  // [2][Q]
   float* own = dts + 2 * Q;                            // per warp: la2, w
 
-  const int h = blockIdx.x;
+  const int ptiles = ONE ? 1 : (P + PTW - 1) / PTW;
+  const int h = ONE ? blockIdx.x : blockIdx.x / ptiles;
+  const int p0 = ONE ? 0 : (blockIdx.x - h * ptiles) * PTW;   // head dims
+  const int pc = ONE ? P : min(PTW, P - p0);
   const int b = blockIdx.y;
   const int g = h / (H / G);
   const float a2 = a[h] * LOG2E;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
-  const int PT = (P + 15) >> 4, NT = (N + 15) >> 4;
+  const int PT = (pc + 15) >> 4, NT = (N + 15) >> 4;
+  // state row tile and first state column (folded when one warp spans N)
+  const int spt = NW == SPT ? warp : warp % SPT;
+  const int nq0 = NW == SPT ? 0 : (warp / SPT) * NQ;
+  const int nt0 = nq0 >> 4;                            // in 16-wide steps
   float* la2 = own + warp * 2 * Q;
   float* wv = la2 + Q;
 
   const long long xstride = (long long)H * P;
   const long long bstride = (long long)G * N;
-  const bf16* xb = x + (long long)b * L * xstride + (long long)h * P;
+  const bf16* xb = x + (long long)b * L * xstride + (long long)h * P + p0;
   const bf16* bb = bm + (long long)b * L * bstride + (long long)g * N;
   const bf16* cb = cm + (long long)b * L * bstride + (long long)g * N;
   const bf16* dtb = dt + (long long)b * L * H + h;
-  bf16* yb = y + (long long)b * L * xstride + (long long)h * P;
+  bf16* yb = y + (long long)b * L * xstride + (long long)h * P + p0;
 
   auto load_chunk = [&](bf16* dst, int c0) {
     const int valid = min(Q, L - c0);
-    load_rows<Q, THREADS>(dst, xb + c0 * xstride, xstride, valid, P, tid);
-    load_rows<Q, THREADS>(dst + TILE, bb + c0 * bstride, bstride, valid, N,
-                          tid);
-    load_rows<Q, THREADS>(dst + 2 * TILE, cb + c0 * bstride, bstride, valid,
-                          N, tid);
+    load_rows<Q, THREADS, DX>(dst, xb + c0 * xstride, xstride, valid, pc, P,
+                              tid);
+    load_rows<Q, THREADS, DN>(dst + XT, bb + c0 * bstride, bstride, valid, N,
+                              N, tid);
+    load_rows<Q, THREADS, DN>(dst + XT + BT, cb + c0 * bstride, bstride,
+                              valid, N, N, tid);
     cp_commit();
   };
   auto load_dt = [&](int c0) {
@@ -217,14 +255,13 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
                ? __bfloat162float(dtb[(long long)(c0 + tid) * H]) : 0.f;
   };
 
-  for (int e = tid; e < 2 * D * D; e += THREADS) hhi[e] = __float2bfloat16(0.f);
-  float hacc[PW][8][4];
+  for (int e = tid; e < 2 * PTW * DN; e += THREADS)
+    hhi[e] = __float2bfloat16(0.f);
+  float hacc[8][4];
 #pragma unroll
-  for (int k = 0; k < PW; ++k)
+  for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) hacc[k][nb][e] = 0.f;
+    for (int e = 0; e < 4; ++e) hacc[nb][e] = 0.f;
 
   load_chunk(stage, 0);
   if (tid < Q) dts[tid] = load_dt(0);
@@ -238,12 +275,12 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
     __syncthreads();     // stage st, dts[st] and the state copies are in
     float dt_next = 0.f;
     if (ci + 1 < nchunks) {   // every warp is past chunk ci - 1's reads
-      load_chunk(stage + (st ^ 1) * 3 * TILE, c0 + Q);
+      load_chunk(stage + (st ^ 1) * STAGE, c0 + Q);
       dt_next = load_dt(c0 + Q);
     }
-    const bf16* xs = stage + st * 3 * TILE;
-    const bf16* bs = xs + TILE;
-    const bf16* cs = bs + TILE;
+    const bf16* xs = stage + st * STAGE;
+    const bf16* bs = xs + XT;
+    const bf16* cs = bs + BT;
     const float* dtc = dts + st * Q;
 
     // la2 = cumsum(dt a) log2 e and w = 2^(la2_last - la2) dt, this warp's copy
@@ -275,26 +312,26 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
       const int r = k * NW + ((k & 1) ? NW - 1 - warp : warp);
       const int i0 = 16 * r;
       if (i0 >= qc) continue;
-      uint32_t cf[4][4];              // C rows i0.., k-steps over N
+      uint32_t cf[KN][4];             // C rows i0.., k-steps over N
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < KN; ++kk)
         if (kk < NT)
-          ldsm_x4(cf[kk], cs + sw(i0 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                  16 * kk + ((lane >> 4) << 3)));
-      float acc[8][4];
+          ldsm_x4(cf[kk], cs + sw<DN>(i0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                      16 * kk + ((lane >> 4) << 3)));
+      float acc[2 * PB][4];
 #pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
+      for (int nb = 0; nb < 2 * PB; ++nb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
       // inter: C (h_hi + h_lo)^T, then the rows scaled by 2^la2_i
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < KN; ++kk) {
         if (kk >= NT) break;
 #pragma unroll
-        for (int pp = 0; pp < 4; ++pp) {
+        for (int pp = 0; pp < PB; ++pp) {
           if (pp >= PT) break;
-          const int off = sw(16 * pp + (lane & 7) + ((lane >> 4) << 3),
-                             16 * kk + (((lane >> 3) & 1) << 3));
+          const int off = sw<DN>(16 * pp + (lane & 7) + ((lane >> 4) << 3),
+                                 16 * kk + (((lane >> 3) & 1) << 3));
           uint32_t rh[4], rl[4];
           ldsm_x4(rh, hhi + off);
           ldsm_x4(rl, hlo + off);
@@ -308,7 +345,7 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
       const float la_a = la2[ia], la_b = la2[ib];
       const float ea = fast_exp2(la_a), eb = fast_exp2(la_b);
 #pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
+      for (int nb = 0; nb < 2 * PB; ++nb) {
         acc[nb][0] *= ea; acc[nb][1] *= ea;
         acc[nb][2] *= eb; acc[nb][3] *= eb;
       }
@@ -322,11 +359,11 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < KN; ++kk) {
           if (kk >= NT) break;
           uint32_t rb[4];
-          ldsm_x4(rb, bs + sw(j0 + (lane & 7) + ((lane >> 4) << 3),
-                              16 * kk + (((lane >> 3) & 1) << 3)));
+          ldsm_x4(rb, bs + sw<DN>(j0 + (lane & 7) + ((lane >> 4) << 3),
+                                  16 * kk + (((lane >> 3) & 1) << 3)));
           mma(s[0], cf[kk], rb[0], rb[1]);
           mma(s[1], cf[kk], rb[2], rb[3]);
         }
@@ -346,11 +383,11 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
           split2(g2, g3, ghi[2 * nb + 1], glo[2 * nb + 1]);
         }
 #pragma unroll
-        for (int pp = 0; pp < 4; ++pp) {
+        for (int pp = 0; pp < PB; ++pp) {
           if (pp >= PT) break;
           uint32_t rx[4];
-          ldsm_x4_t(rx, xs + sw(j0 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                16 * pp + ((lane >> 4) << 3)));
+          ldsm_x4_t(rx, xs + sw<DX>(j0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                    16 * pp + ((lane >> 4) << 3)));
           mma(acc[2 * pp], ghi, rx[0], rx[1]);
           mma(acc[2 * pp + 1], ghi, rx[2], rx[3]);
           mma(acc[2 * pp], glo, rx[0], rx[1]);
@@ -363,9 +400,9 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
         if (i >= qc) continue;
         bf16* yrow = yb + (long long)(c0 + i) * xstride;
 #pragma unroll
-        for (int nb = 0; nb < 8; ++nb) {
+        for (int nb = 0; nb < 2 * PB; ++nb) {
           const int p = 8 * nb + 2 * t;      // P is even
-          if (p < P)
+          if (p < pc)
             *reinterpret_cast<__nv_bfloat162*>(yrow + p) =
                 __floats2bfloat162_rn(acc[nb][2 * half], acc[nb][2 * half + 1]);
         }
@@ -373,23 +410,20 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
     }
     __syncthreads();     // every warp has read the state copies
 
-    // h <- 2^la2_last h + (x o w)^T B on this warp's state rows
+    // h <- 2^la2_last h + (x o w)^T B on this warp's state rows and columns
     const float dec = fast_exp2(last);
-#pragma unroll
-    for (int k = 0; k < PW; ++k) {
-      const int pt = warp + k * NW;
-      if (pt >= PT) break;
+    if (spt < PT) {
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) hacc[k][nb][e] *= dec;
+        for (int e = 0; e < 4; ++e) hacc[nb][e] *= dec;
 #pragma unroll 1
       for (int ks = 0; ks < RT; ++ks) {
         if (16 * ks >= qc) break;
         uint32_t rx[4], xhi[4], xlo[4];
         // A = (x o w)^T: rows p, columns j; x is stored (j, p), so .trans
-        ldsm_x4_t(rx, xs + sw(16 * ks + (lane & 7) + ((lane >> 4) << 3),
-                              16 * pt + (((lane >> 3) & 1) << 3)));
+        ldsm_x4_t(rx, xs + sw<DX>(16 * ks + (lane & 7) + ((lane >> 4) << 3),
+                                  16 * spt + (((lane >> 3) & 1) << 3)));
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int j = 16 * ks + 2 * t + 8 * (e >> 1);
@@ -399,25 +433,25 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
         }
 #pragma unroll
         for (int nn = 0; nn < 4; ++nn) {
-          if (nn >= NT) break;
+          if (nt0 + nn >= NT) break;
           uint32_t rb[4];
-          ldsm_x4_t(rb, bs + sw(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                16 * nn + ((lane >> 4) << 3)));
-          mma(hacc[k][2 * nn], xhi, rb[0], rb[1]);
-          mma(hacc[k][2 * nn + 1], xhi, rb[2], rb[3]);
-          mma(hacc[k][2 * nn], xlo, rb[0], rb[1]);
-          mma(hacc[k][2 * nn + 1], xlo, rb[2], rb[3]);
+          ldsm_x4_t(rb, bs + sw<DN>(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                    nq0 + 16 * nn + ((lane >> 4) << 3)));
+          mma(hacc[2 * nn], xhi, rb[0], rb[1]);
+          mma(hacc[2 * nn + 1], xhi, rb[2], rb[3]);
+          mma(hacc[2 * nn], xlo, rb[0], rb[1]);
+          mma(hacc[2 * nn + 1], xlo, rb[2], rb[3]);
         }
       }
       // the state's hi + lo copies for the next chunk's C h
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb) {
-        if (nb >= 2 * NT) break;
+        if (2 * nt0 + nb >= 2 * NT) break;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int off = sw(16 * pt + gq + 8 * half, 8 * nb + 2 * t);
+          const int off = sw<DN>(16 * spt + gq + 8 * half, nq0 + 8 * nb + 2 * t);
           uint32_t hi, lo;
-          split2(hacc[k][nb][2 * half], hacc[k][nb][2 * half + 1], hi, lo);
+          split2(hacc[nb][2 * half], hacc[nb][2 * half + 1], hi, lo);
           *reinterpret_cast<uint32_t*>(hhi + off) = hi;
           *reinterpret_cast<uint32_t*>(hlo + off) = lo;
         }
@@ -426,41 +460,42 @@ ssd_kernel_mma(const bf16* __restrict__ x, const bf16* __restrict__ dt,
     if (ci + 1 < nchunks && tid < Q) dts[(st ^ 1) * Q + tid] = dt_next;
   }
 
-  float* hb = hout + ((long long)b * H + h) * P * N;
-#pragma unroll
-  for (int k = 0; k < PW; ++k) {
-    const int pt = warp + k * NW;
-    if (pt >= PT) break;
+  if (spt < PT) {
+    float* hb = hout + ((long long)b * H + h) * P * N;
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) {
-      const int n = 8 * nb + 2 * t;          // N is even
+      const int n = nq0 + 8 * nb + 2 * t;    // N is even
       if (n >= N) continue;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int p = 16 * pt + gq + 8 * half;
-        if (p < P)
-          *reinterpret_cast<float2*>(hb + (long long)p * N + n) =
-              make_float2(hacc[k][nb][2 * half], hacc[k][nb][2 * half + 1]);
+        const int p = 16 * spt + gq + 8 * half;
+        if (p < pc)
+          *reinterpret_cast<float2*>(hb + (long long)(p0 + p) * N + n) =
+              make_float2(hacc[nb][2 * half], hacc[nb][2 * half + 1]);
       }
     }
   }
 }
 
-// The bf16 kernel's one launch shape.
+// The bf16 kernel's launch shape: chunks of 64 steps, 4 warps a block; N <=
+// 64 takes 64-wide B and C rows and whole 64-dim P tiles (P <= 64, as in
+// zamba2, in one tile whose offset is folded), 64 < N <= 128 takes 128-wide
+// rows and 32-dim P tiles (so that the state a warp holds stays 16 x 64 and
+// two blocks fit an SM).
 constexpr int MMA_CHUNK = 64;
 constexpr int MMA_WARPS = 4;
+constexpr int MAX_DIM = 128;     // P and N
 
-template <int Q, int NW>
+template <int Q, int NW, int DN, int PTW, bool ONE>
 int launch_mma(const void* x, const void* dt, const float* a, const void* bm,
                const void* cm, void* y, float* hout, int batch, int L, int H,
                int G, int P, int N, cudaStream_t stream) {
-  const int smem = (2 * 3 * Q * D + 2 * D * D) * (int)sizeof(bf16) +
-                   (2 * Q + NW * 2 * Q) * (int)sizeof(float);
-  auto kern = ssd_kernel_mma<Q, NW>;
+  constexpr int smem = mma_smem_bytes<Q, NW, DN, PTW>();
+  auto kern = ssd_kernel_mma<Q, NW, DN, PTW, ONE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(H, batch);
+  dim3 grid(H * ((P + PTW - 1) / PTW), batch);
   kern<<<grid, 32 * NW, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(dt), a,
       static_cast<const bf16*>(bm), static_cast<const bf16*>(cm),
@@ -473,6 +508,7 @@ int launch_mma(const void* x, const void* dt, const float* a, const void* bm,
 // ---------------------------------------------------------------------------
 
 constexpr int F32_THREADS = 256;
+constexpr int F32_SMEM_MAX = 232448;   // bytes of shared memory a block may have
 
 inline int f32_smem_floats(int q, int p, int n) {
   return q * p + 2 * n * q + q * q + n * p + 4 * q;
@@ -697,9 +733,12 @@ int launch_f32(const void* x, const void* dt, const float* a, const void* bm,
 
 }  // namespace
 
-// Q: steps per chunk of the float32 kernel (any Q <= 128); the bf16 kernel
-// takes chunks of 64 steps and 4 warps a block (PERF.md: the launch shape
-// measured fastest on an H100) and refuses another Q.
+// Q: steps per chunk of the float32 kernel (Q <= 128, and its shared
+// memory within the 227 KiB a block may have: the wrapper's chunk_for takes
+// 128 for N <= 64 and 64 above); the bf16 kernel takes chunks of 64 steps
+// and 4 warps a block (PERF.md: the launch shape measured fastest on an
+// H100) and refuses another Q.  P and N: multiples of 4 up to 128; any other
+// shape returns an error.
 extern "C" int ranky_ssd_scan(const void* x, const void* dt, const void* a,
                               const void* bm, const void* cm, void* y,
                               void* hout, int is_bf16, int batch, int L,
@@ -708,10 +747,20 @@ extern "C" int ranky_ssd_scan(const void* x, const void* dt, const void* a,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   float* hf = static_cast<float*>(hout);
-  if (!is_bf16)
+  if (P < 4 || P > MAX_DIM || P % 4 || N < 4 || N > MAX_DIM || N % 4)
+    return (int)cudaErrorInvalidValue;
+  if (!is_bf16) {
+    if (Q < 1 || Q > 128 || f32_smem_floats(Q, P, N) * 4 > F32_SMEM_MAX)
+      return (int)cudaErrorInvalidValue;
     return launch_f32(x, dt, af, bm, cm, y, hf, batch, L, H, G, P, N, Q, s);
-  if (Q == MMA_CHUNK)
-    return launch_mma<MMA_CHUNK, MMA_WARPS>(x, dt, af, bm, cm, y, hf, batch,
-                                            L, H, G, P, N, s);
-  return (int)cudaErrorInvalidValue;
+  }
+  if (Q != MMA_CHUNK) return (int)cudaErrorInvalidValue;
+  if (N <= 64 && P <= 64)
+    return launch_mma<MMA_CHUNK, MMA_WARPS, 64, 64, true>(
+        x, dt, af, bm, cm, y, hf, batch, L, H, G, P, N, s);
+  if (N <= 64)
+    return launch_mma<MMA_CHUNK, MMA_WARPS, 64, 64, false>(
+        x, dt, af, bm, cm, y, hf, batch, L, H, G, P, N, s);
+  return launch_mma<MMA_CHUNK, MMA_WARPS, 128, 32, false>(
+      x, dt, af, bm, cm, y, hf, batch, L, H, G, P, N, s);
 }

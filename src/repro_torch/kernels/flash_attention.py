@@ -34,7 +34,7 @@ from repro_torch.kernels import build
 # Number of kernel launches made by ``flash_attention`` in this process.
 launches = 0
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256     # gemma2-9b's head dim; the reference takes any
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -104,7 +104,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attention of q (B, Hq, Sq, D) over k, v (B, Hkv, Sk, D); D <= 128 on
+    """Attention of q (B, Hq, Sq, D) over k, v (B, Hkv, Sk, D); D <= 256 on
     the card."""
     global launches
     _check(q, k, v, window, softcap)

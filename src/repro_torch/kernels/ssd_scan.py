@@ -12,8 +12,10 @@ x's dtype; returns y (B, L, H, P) in x's dtype and the final state
 For bf16 inputs the kernel runs its four products on the tensor cores, with
 the float32 intermediates (G, the state, x o w) split into bf16 hi + lo
 terms; float32 inputs take a kernel of float32 FMAs on the CUDA cores.
-The kernel walks the sequence in chunks of ``CHUNK`` steps and masks a
-ragged last chunk itself, so the reference wrapper's fallback to the
+P and N may be any multiple of 4 up to 128 (the reference takes any size;
+no config of the repo needs more than 128: mamba2-1.3b has N = 128).  The
+kernel walks the sequence in chunks (``chunk_for``) and masks a ragged
+last chunk itself, so the reference wrapper's fallback to the
 sequential oracle when ``L % chunk != 0`` does not carry over: on the card
 every length goes to the kernel.  The plain version ``ssd_scan_ref`` is the
 sequential recurrence of the reference's ``ref.ssd_scan``;
@@ -35,18 +37,24 @@ launches = 0
 # Steps per chunk of the bf16 kernel (launched with 4 warps a block: of the
 # launch shapes 64 x 2, 64 x 4 and 128 x 4, 64 x 4 measured fastest on an
 # H100, PERF.md; the C entry refuses a chunk other than its MMA_CHUNK) and
-# of the float32 kernel.
+# of the float32 kernel (128 steps for N <= 64; above, 64, so that its
+# shared memory fits a block; the C entry refuses a float32 chunk over its
+# budget, F32_SMEM_MAX).
 CHUNK = 64
 F32_CHUNK = 128
-MAX_HEAD_DIM = 64     # P
-MAX_STATE = 64        # N
+F32_CHUNK_WIDE = 64
+MAX_HEAD_DIM = 128    # P
+MAX_STATE = 128       # N
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
 
 
-def chunk_for(dtype: torch.dtype) -> int:
-    """Steps per chunk of the kernel that takes inputs of ``dtype``."""
-    return CHUNK if dtype == torch.bfloat16 else F32_CHUNK
+def chunk_for(dtype: torch.dtype, n: int) -> int:
+    """Steps per chunk of the kernel that takes inputs of ``dtype`` at
+    state size ``n``."""
+    if dtype == torch.bfloat16:
+        return CHUNK
+    return F32_CHUNK if n <= 64 else F32_CHUNK_WIDE
 
 
 def work(b: int, seq: int, h: int, g: int, p: int, n: int,
@@ -121,7 +129,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b_mat: torch.Tensor, c_mat: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y (B, L, H, P), final state (B, H, P, N) float32).  On the card:
-    P <= 64 and N <= 64, each a multiple of 4."""
+    P <= 128 and N <= 128, each a multiple of 4."""
     global launches
     _check(x, dt, a, b_mat, c_mat)
     if x.device.type == "cpu":
@@ -147,7 +155,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         code = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                   b_mat.data_ptr(), c_mat.data_ptr(), y.data_ptr(),
                   h_fin.data_ptr(), int(x.dtype == torch.bfloat16), bsz,
-                  seq, h, g, p, n, chunk_for(x.dtype),
+                  seq, h, g, p, n, chunk_for(x.dtype, n),
                   torch.cuda.current_stream().cuda_stream)
     build.check(code, "ssd_scan")
     launches += 1

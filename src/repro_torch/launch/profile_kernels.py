@@ -1,8 +1,9 @@
-"""Profile three kernels on one GPU: ``flash_attention``, ``topk_score`` and
-``ssd_scan``, with what ptxas says of every kernel's registers.
+"""Profile four kernels on one GPU: ``flash_attention``, ``topk_score``,
+``ssd_scan`` and ``blockgram``, with what ptxas says of every kernel's
+registers.
 
   python3 src/repro_torch/launch/profile_kernels.py [--src DIR] [--out FILE]
-      [--only flash,topk,ssd]
+      [--only flash,topk,ssd,blockgram]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is measured (the
 default is this checkout's), so one call can profile two trees of the port
@@ -20,8 +21,11 @@ x (8, 1024, 80, 64), G 1, N 64 in bf16 and float32 and at its long prompt
 recurrence's operations (``ssd_scan.work`` of this checkout, whichever
 tree is measured, so that two trees are held to one yardstick), and the
 worst error of a smaller call against ``ssd_scan_ref`` over its limit
-(<= 1 holds).  ``--only`` times a subset of the kernels.  Needs a CUDA
-device.
+(<= 1 holds); for ``blockgram`` the same at the dense solve's shape (8,
+539, 21363) for 0/1, gaussian float32 and bf16 input, beside ``torch.bmm``
+and the bound of this checkout's ``blockgram.work`` at ``chip_smoke.py``'s
+``products``, errors against ``chip_smoke.gram_f64`` (float64 sums).
+``--only`` times a subset of the kernels.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -59,21 +63,21 @@ def _time_ms(fn, iters=10, warmup=2):
 
 def ptxas_report(csrc):
     """{source: [{kernel, registers, smem_bytes, stack_bytes,
-    spill_bytes}]} from ``nvcc -Xptxas -v`` (compiled to a throw-away
-    object)."""
+    spill_bytes}]} from ``nvcc -Xptxas -v`` (one throw-away object per
+    source, all compiled at once)."""
     from repro_torch.kernels import build
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for src in sorted(os.listdir(csrc)):
-            if not src.endswith(".cu"):
-                continue
-            proc = subprocess.run(
-                [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                 os.path.join(csrc, src), "-o",
-                 os.path.join(tmp, src + ".o")],
-                capture_output=True, text=True)
+        srcs = sorted(s for s in os.listdir(csrc) if s.endswith(".cu"))
+        procs = [subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             os.path.join(csrc, src), "-o", os.path.join(tmp, src + ".o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in srcs]
+        for src, proc in zip(srcs, procs):
+            text, _ = proc.communicate()
             rows, name, stack, spill = [], None, 0, 0
-            for line in (proc.stdout + proc.stderr).splitlines():
+            for line in text.splitlines():
                 m = re.search(r"Compiling entry function '(\w+)'", line)
                 if m:
                     name, stack, spill = m.group(1), 0, 0
@@ -90,7 +94,7 @@ def ptxas_report(csrc):
                                      smem_bytes=int(sm.group(1)) if sm else 0,
                                      stack_bytes=stack, spill_bytes=spill))
                     name = None
-            out[src] = rows if proc.returncode == 0 else proc.stderr[-2000:]
+            out[src] = rows if proc.returncode == 0 else text[-2000:]
     return out
 
 
@@ -216,6 +220,51 @@ def ssd_rows(ss, work):
     return rows
 
 
+def blockgram_rows(bg, work, products, gram_f64):
+    """``blockgram`` at the dense solve's shape (8, 539, 21363): 0/1 values
+    at the paper matrix's density (5e-4), gaussian float32 and the same
+    rounded to bf16.  Each: device time (CUDA events, cold L2, median of
+    10), ``torch.bmm``'s time on the same float32 values, the bound from
+    this checkout's ``work`` at the tensor-core rate over ``products``
+    bf16 products (or the float32 rate if higher), the errors of the
+    kernel and of ``torch.bmm`` against ``gram_f64`` (float64 sums)
+    beside chip_smoke's limit (0 for 0/1, else 1e-5 of max|G|), and
+    whether two calls give the same bits."""
+    gen = torch.Generator("cuda").manual_seed(31)
+    shape = (8, 539, 21363)
+    gauss = torch.randn(shape, generator=gen, device="cuda")
+    cases = (("0/1 at density 5e-4",
+              (torch.rand(shape, generator=gen, device="cuda") < 5e-4)
+              .float()),
+             ("gaussian f32", gauss),
+             ("gaussian bf16", gauss.to(torch.bfloat16)))
+    rows = []
+    for tag, a in cases:
+        got = bg.blockgram(a)
+        want = gram_f64(a)
+        a32 = a.float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        bmm_err = float((torch.bmm(a32, a32.mT) - want).abs().max())
+        limit = 0.0 if tag.startswith("0/1") else \
+            1e-5 * float(want.abs().max())
+        t = products(a)
+        nbytes, flops = work(*shape, a.element_size())
+        ms = _time_ms(lambda: bg.blockgram(a))
+        rows.append(dict(
+            case=tag, shape=list(shape), dtype=str(a.dtype)[6:], ms=ms,
+            tflops=flops / ms / 1e9, products=t,
+            bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                         flops / max(PEAK[torch.float32],
+                                     PEAK[torch.bfloat16] / t)) * 1e3,
+            bmm_ms=_time_ms(lambda: torch.bmm(a32, a32.mT)),
+            max_abs_err=err, bmm_max_abs_err=bmm_err, limit=limit,
+            bit_stable=bool(torch.equal(got, bg.blockgram(a))),
+            symmetric=bool(torch.equal(got, got.mT))))
+        del got, want, a32
+    return rows
+
+
 def _import_tree(src):
     """Let ``import repro_torch`` load the copy under ``src``, in place of
     any copy imported so far."""
@@ -231,17 +280,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=own_src)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", default="flash,topk,ssd",
+    ap.add_argument("--only", default="flash,topk,ssd,blockgram",
                     help="the kernels to time (ptxas covers all)")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("profile_kernels: needs a CUDA device", file=sys.stderr)
         return 1
-    # ssd_scan's yardstick comes from this checkout, the kernels from --src
+    # the yardsticks come from this checkout, the kernels from --src
     _import_tree(own_src)
+    sys.path.insert(0, os.path.dirname(own_src))
+    import chip_smoke
+    from repro_torch.kernels.blockgram import work as bg_work
     from repro_torch.kernels.ssd_scan import work as ssd_work
     _import_tree(os.path.abspath(args.src))
+    from repro_torch.kernels import blockgram as bg
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -254,7 +307,10 @@ def main(argv=None) -> int:
                ptxas=ptxas_report(str(build.CSRC)),
                flash_attention=flash_rows(fa) if "flash" in only else None,
                topk_score=topk_rows(tk) if "topk" in only else None,
-               ssd_scan=ssd_rows(ss, ssd_work) if "ssd" in only else None)
+               ssd_scan=ssd_rows(ss, ssd_work) if "ssd" in only else None,
+               blockgram=(blockgram_rows(bg, bg_work, chip_smoke.products,
+                                         chip_smoke.gram_f64)
+                          if "blockgram" in only else None))
     text = json.dumps(res)
     if args.out:
         with open(args.out, "w") as f:

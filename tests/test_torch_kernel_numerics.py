@@ -1,4 +1,4 @@
-"""The arithmetic of the port's three Hopper kernels, modelled in plain torch
+"""The arithmetic of the port's four Hopper kernels, modelled in plain torch
 on the CPU and held against their plain versions and the JAX oracles.
 
 The CUDA kernels run only on a GPU (``chip_smoke.py`` holds them against
@@ -27,6 +27,17 @@ implement, at small seeded shapes:
   one bf16 ulp of |plain| + 1e-4 * max|plain| for a bf16 y, 1e-4 * max
   for a float32 y and for the state.  The control -- G, h and x o w each
   rounded once to bf16 -- must exceed the bf16 limit by more than 4x.
+* ``blockgram`` (``csrc/blockgram.cu``): float32 input split into bf16
+  terms hi + mid + lo (exactly x), the six products mid.mid, hi.lo, lo.hi,
+  hi.mid, mid.hi, hi.hi summed per 16-column k-step and added in float32,
+  the products of a term skipped where a stage's terms of that kind are
+  all zero (no bit changes), W cut into the launch plan's slices summed in
+  order.  Exact on 0/1 data, within 1e-5 of max|G| on gaussian, mixed and
+  short rows and on rows of the values the split serves worst, where
+  leaving out mid.mid or lo misses that limit.
+* At the widths of mamba2-1.3b (N = 128) and gemma2-9b (head dim 256): the
+  ssd and flash models against the JAX oracles, and the float32 chunk
+  ``ssd_scan.chunk_for`` takes at each N.
 * ``launch_plan`` and the flash wrapper's head-dim padding, which are plain
   Python on the launch path.
 """
@@ -40,6 +51,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.serve import kvquant as jkvquant
 
+from repro_torch.kernels import blockgram as tbg
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ssd_scan as tss
 from repro_torch.kernels import topk_score as ttk
@@ -219,6 +231,42 @@ def test_flash_wrapper_pads_head_dims_to_a_multiple_of_8(d):
         assert y.data_ptr() == x.data_ptr()      # no copy when not needed
 
 
+WIDE_FLASH_CASES = [
+    ("causal GQA 4/2", (1, 4, 2, 128, 128, 256), {}),
+    ("window 64", (1, 2, 2, 160, 160, 256), dict(window=64)),
+    ("softcap 50", (1, 2, 1, 128, 128, 256), dict(softcap=50.0)),
+    ("sq 64 < sk 160", (1, 2, 2, 64, 160, 256), {}),
+]
+
+
+@pytest.mark.parametrize("name,shape,kw", WIDE_FLASH_CASES,
+                         ids=[c[0] for c in WIDE_FLASH_CASES])
+def test_flash_model_head_dim_256(name, shape, kw):
+    """gemma2-9b's head dim: the bf16 design (P_hi + P_lo, 64-key tiles)
+    within one bf16 ulp, and the float32 design (three terms, the 32-key
+    tiles the kernel takes at head dim 256) within 2e-5 of max, against the
+    plain version and the reference's ``ref.flash_attention``."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv(*shape, dtype, seed=5)
+        want = tfa.flash_attention_ref(q, k, v, **kw)
+        jwant = np.asarray(jref.flash_attention(
+            *(jnp.asarray(x.float().numpy()).astype(
+                jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+              for x in (q, k, v)), **kw), np.float32)
+        if dtype == torch.bfloat16:
+            got = flash_model(q, k, v, **kw)
+            assert _worst_over_bf16_limit(got, want) <= 1.0
+            assert np.abs(got.float().numpy() - jwant).max() \
+                <= 8e-3 * np.abs(jwant).max()
+        else:
+            got = flash_model(q, k, v, qkv_terms=3, p_terms=3, block_k=32,
+                              **kw)
+            limit = 2e-5 * float(want.abs().max())
+            assert float((got - want).abs().max()) <= limit
+            assert np.abs(got.numpy() - jwant).max() \
+                <= 2e-5 * np.abs(jwant).max()
+
+
 # ---------------------------------------------------------------------------
 # ssd_scan
 # ---------------------------------------------------------------------------
@@ -331,7 +379,7 @@ def test_ssd_model_bf16_hi_lo_within_one_bf16_ulp(name, shape, chunk):
                          ids=[c[0] for c in SSD_CASES])
 def test_ssd_model_f32_within_1e4(name, shape):
     args = _ssd_torch(_ssd_np(*shape), torch.float32)
-    got = ssd_model(*args, chunk=tss.chunk_for(torch.float32),
+    got = ssd_model(*args, chunk=tss.chunk_for(torch.float32, shape[5]),
                     split_terms=None)
     wy, wh = _ssd_worst(got, tss.ssd_scan_ref(*args), torch.float32)
     assert wy <= 1.0 and wh <= 1.0
@@ -410,6 +458,255 @@ def test_ssd_work_counts_the_recurrence_whatever_the_chunk(monkeypatch,
     monkeypatch.setattr(tss, "CHUNK", 128)
     monkeypatch.setattr(tss, "F32_CHUNK", 32)
     assert tss.work(2, 300, 8, 2, 16, 32, x.element_size()) == got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 160, 4, 1, 64, 128),
+                                   (1, 100, 2, 2, 128, 128)],
+                         ids=["P 64 N 128", "P 128 N 128 G 2"])
+def test_ssd_model_wide_state_matches_the_jax_oracle(shape, dtype):
+    """mamba2-1.3b's state N = 128 (and P = 128): the model at the chunk
+    the kernel takes for that N against the reference's ``ref.ssd_scan``
+    and the plain version, at chip_smoke's limits."""
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    arrays = _ssd_np(*shape, seed=6)
+    args = _ssd_torch(arrays, tdtype)
+    got = ssd_model(*args, chunk=tss.chunk_for(tdtype, shape[5]),
+                    split_terms=2 if dtype == "bfloat16" else None)
+    wy, wh = _ssd_worst(got, tss.ssd_scan_ref(*args), tdtype)
+    assert wy <= 1.0 and wh <= 1.0
+    jargs = [jnp.asarray(v) for v in arrays]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    yr, hr = jref.ssd_scan(jargs[0].astype(jdt), jargs[1].astype(jdt),
+                           jargs[2], jargs[3].astype(jdt),
+                           jargs[4].astype(jdt), return_state=True)
+    want = (torch.from_numpy(np.asarray(yr, np.float32)).to(tdtype),
+            torch.from_numpy(np.asarray(hr, np.float32)))
+    wy, wh = _ssd_worst(got, want, tdtype)
+    assert wy <= 1.0 and wh <= 1.0
+
+
+def test_ssd_chunk_for_follows_the_state_size():
+    """The float32 kernel takes 128-step chunks up to N = 64 and 64-step
+    chunks above, where 128 steps would pass the 227 KiB a block may have
+    (the C entry refuses such a chunk); the bf16 kernel takes ``CHUNK``
+    at every N the kernels take (multiples of 4 up to 128)."""
+    for n in range(4, tss.MAX_STATE + 1, 4):
+        assert tss.chunk_for(torch.float32, n) == (128 if n <= 64 else 64)
+        assert tss.chunk_for(torch.bfloat16, n) == tss.CHUNK == 64
+
+
+# ---------------------------------------------------------------------------
+# blockgram
+# ---------------------------------------------------------------------------
+
+# the kernel's products, the smallest first: mid.mid, hi.lo, lo.hi,
+# hi.mid, mid.hi, hi.hi (0 = hi, 1 = mid, 2 = lo)
+SIX = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))
+
+
+def blockgram_model(a, *, products=SIX, skip=True, plan=None):
+    """The kernel's arithmetic: W cut into the launch plan's slices; a is
+    split into bf16 terms hi = bf16(x), mid = bf16(x - hi), lo = x - hi -
+    mid (bf16 input: hi alone); per 16-column k-step the products term_i
+    term_j^T listed in ``products`` (in that order, bf16 values, float32
+    sums) start from zero and are added to the slice's sum in float32; in a
+    32-column stage whose mid (lo) terms are all zero the products that
+    involve mid (lo) are skipped (``skip``); the slices' partial grams are
+    added in slice order and the upper triangle is mirrored."""
+    d, m, w = a.shape
+    slices, cols = plan or tbg.launch_plan(d, m, w, a.dtype)
+    if a.dtype == torch.float32:
+        terms = _terms(a, 3)
+    else:
+        terms = [a.float()] + [torch.zeros(a.shape)] * 2
+    total = None
+    for s in range(slices):
+        k_lo, k_hi = s * cols, min(w, (s + 1) * cols)
+        g = torch.zeros((d, m, m))
+        for c0 in range(k_lo, k_hi, tbg.STAGE_COLS):
+            stage = slice(c0, min(k_hi, c0 + tbg.STAGE_COLS))
+            zero = [False] + [not bool(t[:, :, stage].any())
+                              for t in terms[1:]]
+            for k0 in range(c0, min(k_hi, c0 + tbg.STAGE_COLS), 16):
+                ks = slice(k0, min(k_hi, k0 + 16))
+                part = torch.zeros((d, m, m))
+                for i, j in products:
+                    if skip and (zero[i] or zero[j]):
+                        continue
+                    part = part + terms[i][:, :, ks] @ terms[j][:, :, ks].mT
+                g = g + part
+        total = g if total is None else total + g
+    upper = torch.triu(total)
+    return upper + torch.triu(total, 1).mT
+
+
+def _bg_gauss(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+def _bg_mixed(shape, seed=0):
+    """Gaussian, with every other column rounded to bf16."""
+    a = _bg_gauss(shape, seed)
+    a[:, :, ::2] = a[:, :, ::2].to(torch.bfloat16).float()
+    return a
+
+
+# Float32 values that the split serves worst (found by a search over
+# [1, 2)): the product of WORST[name] with itself errs by the most relative
+# to x^2 when the products ``name`` leaves out are left out.
+WORST = {"two terms": 1.0038985013961792,      # hi.hi + hi.mid + mid.hi
+         "no mid.mid": 1.0039061307907104,
+         "no lo": 1.0020065307617188}
+
+
+def _bg_worst(shape, x, seed=0):
+    """Rows of +-x scaled by powers of two (scaling by 2^k leaves the split
+    relative error as it is), so every product errs the same way."""
+    rng = np.random.default_rng(seed)
+    v = (x * rng.choice([-1.0, 1.0], shape)
+         * np.exp2(rng.integers(-3, 4, shape))).astype(np.float32)
+    return torch.from_numpy(v)
+
+
+def _bg_gram64(a):
+    a64 = a.double()
+    return (a64 @ a64.mT).float()
+
+
+def _bg_rel(got, want):
+    want = torch.as_tensor(np.asarray(want, np.float32))
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def test_blockgram_model_exact_on_0_1_data():
+    """0/1 values (the paper matrix made dense): one product each, every
+    sum a small integer, so the model equals the plain version and the
+    reference's ``ref.blockgram`` exactly."""
+    rng = np.random.default_rng(1)
+    x = (rng.random((2, 96, 3001)) < 0.05).astype(np.float32)
+    got = blockgram_model(torch.from_numpy(x))
+    assert torch.equal(got, tbg.blockgram_ref(torch.from_numpy(x)))
+    for k in range(2):
+        np.testing.assert_array_equal(got[k].numpy(),
+                                      np.asarray(jref.blockgram(
+                                          jnp.asarray(x[k]))))
+
+
+@pytest.mark.parametrize("shape", [(2, 67, 4099), (1, 130, 2600),
+                                   (3, 40, 5000), (1, 8, 5), (2, 40, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blockgram_model_gaussian_within_1e5(shape, dtype):
+    """Gaussian data, long rows and short: the six bf16 products keep G
+    within 1e-5 of max|G| against the float64 gram, the plain version and
+    ``ref.blockgram``; bf16 input takes one product."""
+    a = _bg_gauss(shape)
+    if dtype == "bfloat16":
+        a = a.to(torch.bfloat16)
+    got = blockgram_model(a)
+    assert torch.equal(got, got.mT)
+    assert _bg_rel(got, _bg_gram64(a)) <= 1e-5
+    assert _bg_rel(got, tbg.blockgram_ref(a)) <= 1e-5
+    for k in range(shape[0]):
+        want = jref.blockgram(jnp.asarray(a[k].float().numpy()))
+        assert _bg_rel(got[k], want) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 5), (3, 67, 203), (1, 64, 4099)])
+def test_blockgram_model_mixed_within_1e5(shape):
+    """Gaussian with every other column exact in bf16 (stages whose mid
+    and lo differ from stage to stage): within 1e-5 of max|G| of the
+    float64 gram and of ``ref.blockgram``."""
+    a = _bg_mixed(shape, seed=4)
+    got = blockgram_model(a)
+    assert _bg_rel(got, _bg_gram64(a)) <= 1e-5
+    for k in range(shape[0]):
+        want = jref.blockgram(jnp.asarray(a[k].numpy()))
+        assert _bg_rel(got[k], want) <= 1e-5
+
+
+@pytest.mark.parametrize("name", sorted(WORST))
+@pytest.mark.parametrize("shape", [(1, 8, 5), (2, 40, 203), (1, 16, 21363)])
+def test_blockgram_model_needs_six_products(name, shape):
+    """Rows of the values the split serves worst, short and as long as the
+    dense solve's: the six products stay within 1e-5 of max|G| (float64
+    gram), and the sets that leave out a term -- two terms (hi.hi +
+    hi.mid + mid.hi), no mid.mid, no lo -- miss it on the values that
+    expose them."""
+    a = _bg_worst(shape, WORST[name], seed=5)
+    want = _bg_gram64(a)
+    fewer = {"two terms": ((0, 1), (1, 0), (0, 0)),
+             "no mid.mid": SIX[1:],
+             "no lo": ((1, 1),) + SIX[3:]}
+    assert _bg_rel(blockgram_model(a), want) <= 1e-5
+    assert _bg_rel(blockgram_model(a, products=fewer[name]), want) > 1e-5
+
+
+@pytest.mark.parametrize("kind", ["0/1", "half bf16-exact",
+                                  "half exact in two terms"])
+def test_blockgram_zero_term_skipping_changes_no_bit(kind):
+    """A stage whose mid (lo) terms are all zero skips the products that
+    take them: the gram is the same bits as without skipping."""
+    rng = np.random.default_rng(3)
+    if kind == "0/1":
+        a = torch.from_numpy((rng.random((2, 70, 2500)) < 0.1)
+                             .astype(np.float32))
+    else:
+        a = _bg_gauss((2, 70, 2500), seed=3)
+        hi = a[:, :, :1280].to(torch.bfloat16).float()
+        if kind == "half bf16-exact":
+            a[:, :, :1280] = hi
+        else:
+            rest = a[:, :, :1280] - hi
+            a[:, :, :1280] = hi + rest.to(torch.bfloat16).float()
+    assert torch.equal(blockgram_model(a, skip=True),
+                       blockgram_model(a, skip=False))
+
+
+def test_blockgram_three_terms_are_float32_exactly():
+    """The pack's split: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
+    - mid), each remainder exact in float32; hi + mid + lo is x for every
+    float32 of normal size, and lo needs no rounding."""
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal(200_000)
+         * np.exp2(rng.integers(-60, 60, 200_000))).astype(np.float32)
+    x = torch.from_numpy(x)
+    hi, mid, lo = _terms(x, 3)
+    rest = x - hi - mid
+    assert torch.equal(lo, rest)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+
+
+def test_blockgram_launch_plan_is_a_function_of_the_shape():
+    """The plan (and with it the order of every sum) depends only on (D,
+    M, W, dtype): 12 slices of 1,792 columns at the dense solve's shape,
+    whole stages, covering W; one slice for short rows."""
+    plan = tbg.launch_plan(8, 539, 21363, torch.float32)
+    assert plan == (12, 1792)
+    assert tbg.launch_plan(8, 539, 21363, torch.float32) == plan
+    assert tbg.launch_plan(8, 539, 21363, torch.bfloat16) == plan
+    for d, m, w in ((8, 539, 21363), (1, 539, 170_893), (3, 67, 203),
+                    (2, 130, 31), (1, 8, 0), (4, 1000, 9999)):
+        slices, cols = tbg.launch_plan(d, m, w, torch.float32)
+        assert cols % tbg.STAGE_COLS == 0 and slices >= 1
+        assert slices * cols >= w and (slices - 1) * cols < max(w, 1)
+    assert tbg.launch_plan(3, 67, 203, torch.float32)[0] == 1
+    with pytest.raises(TypeError):
+        tbg.launch_plan(1, 8, 8, torch.float64)
+
+
+def test_blockgram_work_at_the_solver_shape():
+    """``work`` at (8, 539, 21363) float32: A read and G written once, D M
+    (M + 1) W operations; at 3.35 TB/s and 989 / 6 TFLOP/s the bound is
+    0.302 ms (operations), at one product (0/1 data) 0.113 ms (bytes)."""
+    nbytes, ops = tbg.work(8, 539, 21363, 4)
+    assert nbytes == 8 * 539 * 21363 * 4 + 8 * 539 * 539 * 4 == 377_765_696
+    assert ops == 8 * 539 * 540 * 21363 == 49_743_318_240
+    assert abs(ops / (989e12 / 6) * 1e3 - 0.3018) < 1e-4
+    assert abs(nbytes / 3.35e12 * 1e3 - 0.1128) < 1e-4
+    assert tbg.work(8, 539, 21363, 2)[0] \
+        == 8 * 539 * 21363 * 2 + 8 * 539 ** 2 * 4
 
 
 # ---------------------------------------------------------------------------

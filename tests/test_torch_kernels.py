@@ -162,6 +162,24 @@ def test_blockgram_ragged(monkeypatch, d, m, n):
         assert_close_rel(got[i], jops.blockgram(jnp.asarray(x[i])))
 
 
+def test_blockgram_plain_version_sums_in_float32():
+    """The plain version (the CPU path) is the reference's product: the
+    input widened to float32 and summed in float32, exact on 0/1 data, and
+    bf16 input gives the gram of its float32 widening."""
+    rng = np.random.default_rng(8)
+    x = (rng.random((2, 40, 5000)) < 0.2).astype(np.float32)
+    got = tbg.blockgram_ref(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.einsum("dmw,dnw->dmn", x, x))
+    g = torch.from_numpy(rng.standard_normal((1, 30, 700))
+                         .astype(np.float32)).to(torch.bfloat16)
+    g32 = g.float()
+    got = tbg.blockgram_ref(g)
+    assert got.dtype == torch.float32 and torch.equal(got, g32 @ g32.mT)
+    assert_close_rel(got[0], jref.blockgram(jnp.asarray(g32[0].numpy())))
+
+
 def test_blockgram_zeros():
     got = tops.blockgram(torch.zeros((2, 16, 512)))
     assert float(got.abs().max()) == 0.0
@@ -423,6 +441,24 @@ def test_flash_attention_unaligned(monkeypatch, s, bq, bk):
     assert_close_rel(got, jref.flash_attention(jq, jk, jv), 2e-5)
 
 
+@pytest.mark.parametrize("kw", [dict(), dict(window=64), dict(softcap=50.0)],
+                         ids=["causal", "window 64", "softcap 50"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256_sweep(kw, dtype):
+    """gemma2-9b's head dim 256 (GQA 4/2): the plain version vs the jnp
+    oracle AND the Pallas body in interpret mode."""
+    (tq, jq), (tk, jk), (tv, jv) = (_as(x, dtype) for x in
+                                    _qkv(1, 4, 2, 128, 128, 256, seed=11))
+    got = tfa.flash_attention_ref(tq, tk, tv, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    rel = _attn_rel(dtype)
+    assert_close_rel(got.float(), np.asarray(
+        jref.flash_attention(jq, jk, jv, **kw), np.float32), rel)
+    assert_close_rel(got.float(), np.asarray(jfa.flash_attention(
+        jq, jk, jv, block_q=64, block_k=64, interpret=True, **kw),
+        np.float32), rel)
+
+
 def test_flash_attention_rows_that_see_no_key_are_zero():
     """sq > sk, causal: the first sq - sk queries sit before every key.  The
     port gives those rows zeros (the jnp oracle gives NaN); every other row
@@ -477,6 +513,30 @@ def test_ssd_scan_sweep(b, l, h, g, p, n, chunk, dtype):
     rel = 1e-4 if dtype == "float32" else 8e-3
     yr, hr = jref.ssd_scan(jx, jdt, jnp.asarray(a), jb, jc, return_state=True)
     yk, hk = jssd.ssd_scan(jx, jdt, jnp.asarray(a), jb, jc, chunk=chunk,
+                           interpret=True)
+    for want_y, want_h in ((yr, hr), (yk, hk)):
+        assert_close_rel(y.float(), np.asarray(want_y, np.float32), rel)
+        assert_close_rel(hf, want_h, 1e-4)
+
+
+@pytest.mark.parametrize("b,l,h,g,p,n", [(1, 128, 2, 1, 64, 128),
+                                         (1, 64, 2, 2, 128, 128)],
+                         ids=["P 64 N 128", "P 128 N 128"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_wide_state_sweep(b, l, h, g, p, n, dtype):
+    """mamba2-1.3b's state N = 128 (and P = 128): the plain version vs the
+    jnp oracle AND the Pallas body in interpret mode, at the sweep's
+    limits."""
+    x, dt, a, bm, cm = _ssd_inputs(b, l, h, g, p, n, seed=12)
+    tx, jx = _as(x, dtype)
+    tdt, jdt = _as(dt, dtype)
+    tb, jb = _as(bm, dtype)
+    tc, jc = _as(cm, dtype)
+    y, hf = tss.ssd_scan_ref(tx, tdt, torch.from_numpy(a), tb, tc)
+    assert hf.shape == (b, h, p, n)
+    rel = 1e-4 if dtype == "float32" else 8e-3
+    yr, hr = jref.ssd_scan(jx, jdt, jnp.asarray(a), jb, jc, return_state=True)
+    yk, hk = jssd.ssd_scan(jx, jdt, jnp.asarray(a), jb, jc, chunk=64,
                            interpret=True)
     for want_y, want_h in ((yr, hr), (yk, hk)):
         assert_close_rel(y.float(), np.asarray(want_y, np.float32), rel)
