@@ -15,10 +15,19 @@ What it does, one JSON line per phase:
    block whose slots are all padding; for ``topk_score``: f32, int8 with
    kvquant scales, a valid width with an index offset, a ragged last tile and
    three-way ties, at the paper universe and at 256 x 1,048,576, compared
-   with ``torch.equal``).  Times kernel, plain version and, where one PyTorch
+   with ``torch.equal``; ``sparse_gram`` against a float64 sum -- exactly
+   on 0/1 data -- and the same bits over 10 calls, on the weighted paper
+   matrix, a ragged case with duplicates and an all-padding block, a row
+   longer than one sorted piece, K = 36, M = 33 and M above the row chunk;
+   ``sketch_panel`` at L = 24, 41 and 64, K = 36 and 1,300, Omega in
+   either contiguous layout and in neither, the same bits over 10 calls
+   and one device kernel a call where Omega is contiguous).  Times kernel,
+   plain version and, where one PyTorch
    call computes the same function, that call, and works out the least time
    the card could take (``bound_ms``) and the rates the kernel's time stands
-   for (``achieved_tflops``, ``achieved_gb_s``); ``topk_score``'s two passes
+   for (``achieved_tflops``, ``achieved_gb_s``), and counts the device
+   kernels one call of each wrapper launches (``device_kernels``, from
+   ``torch.profiler``; ``launches`` counts wrapper calls); ``topk_score``'s two passes
    are also timed apart (``pass_ms``, ``torch.profiler``),
    ``flash_attention`` is timed beside SDPA at the long prompt (2, 32, 3000,
    80), at head dim 128 and at gemma2-9b's widths (8, 16/8, 1024, 256, with
@@ -36,7 +45,10 @@ What it does, one JSON line per phase:
    / 7. ``solve_scaled``: ``repro_torch.core.api.svd`` on the paper's
    539 x 170,897 matrix (COO and dense input, exact and rank-16) and on two
    larger matrices, each result held against a float64 (or scipy) reference
-   of the repaired matrix.  Every kernel's launch counter is set to 0 just
+   of the repaired matrix; ``sparse_gram`` at (a)'s ELL (0/1 and with
+   seeded weights) and ``sketch_panel`` at (b)'s (L = 64, K = 36, Omega in
+   both layouts) are checked and timed there, under the ``kernels`` line's
+   ``timed_variants``.  Every kernel's launch counter is set to 0 just
    before each solve and read just after it; the counts are kept solve by
    solve and never added up across solves.  Stage times come from the
    solver's own stage timers (``repro_torch.core.stages``) around further
@@ -247,6 +259,184 @@ def sparse_gram_bound(rows, vals, m):
     return bound(nbytes, 2.0 * pairs)
 
 
+def sparse_gram_f64(rows, vals, m):
+    """The yardstick of sparse_gram's weighted checks: each block's
+    stored-column panel in float64, its gram summed in float64 and rounded
+    once (the plain version sums in float32)."""
+    out = torch.empty((rows.shape[0], m, m), dtype=torch.float32,
+                      device=rows.device)
+    for i in range(rows.shape[0]):
+        p = torch.zeros((rows.shape[1], m), dtype=torch.float64,
+                        device=rows.device)
+        p.scatter_add_(1, rows[i].long(), vals[i].double())
+        out[i] = (p.T @ p).float()
+        del p
+    return out
+
+
+def reweighted(vals, seed):
+    """The same slots with seeded weights in (0.5, 2) on the non-zero ones
+    (padding stays 0)."""
+    gen = torch.Generator(vals.device).manual_seed(seed)
+    w = torch.rand(vals.shape, generator=gen, device=vals.device) * 1.5 + 0.5
+    return torch.where(vals != 0, w, torch.zeros_like(w))
+
+
+def check_bit_stable(name, case, first, call, calls: int = 10) -> bool:
+    """``calls`` further calls give the same bits as ``first``
+    (``torch.equal``); a difference fails the run."""
+    for i in range(calls):
+        again = call()
+        torch.cuda.synchronize()
+        check(torch.equal(first, again),
+              f"{name}[{case}]: call {i + 2} differs from the first by "
+              f"{max_err(first, again)}")
+    return True
+
+
+def cuda_events(fn, iters: int):
+    """[(name, count, self device microseconds)] of the device-side events
+    of ``iters`` warm calls of ``fn`` (``torch.profiler``).  The profiler can
+    drop a call's events; the session is run again (three times at most)
+    until every event shows once per call or a whole multiple of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [(ev.key, ev.count,
+                   getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0)))
+                  for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA]
+        if events and all(count % iters == 0 for _, count, _ in events):
+            break
+    return events
+
+
+def device_kernels_per_call(fn, iters: int = 4):
+    """Device kernels (memsets and copies included) that one call of
+    ``fn`` launches (``cuda_events`` over ``iters`` warm calls); None where
+    the profiler saw no device activity, a fraction where it kept dropping
+    events."""
+    n = sum(count for _, count, _ in cuda_events(fn, iters))
+    return n / iters if n else None
+
+
+def check_device_kernels(name, case, got, want) -> None:
+    """A whole count of device kernels a call must be ``want``; a profiler
+    that saw nothing or dropped events (None, a fraction) checks nothing."""
+    if got is not None and float(got).is_integer():
+        check(got == want, f"{name}[{case}]: {got} device kernels a call, "
+              f"want {want}")
+
+
+def device_ms(fn):
+    """Device time of one warm call of ``fn``: its kernels' times summed
+    (``device_ms_by_kernel``), without the host's launch latency that an
+    event pair around a single call also holds; None where the profiler saw
+    no device time."""
+    return sum(device_ms_by_kernel(fn).values()) or None
+
+
+def sparse_gram_case(cases, case, rows, vals, m, *, exact=None,
+                     calls: int = 10) -> dict:
+    """sparse_gram held to a float64 sum at 1e-5 of max|G| (exactly where
+    every value is 0 or 1: ``exact`` None decides from the data) and to its
+    plain version at the same limit, and ``calls`` further calls giving the
+    same bits.  Returns the case's numbers (``symmetric``: G equal to G^T
+    bit for bit; ``max_asymmetry``: max |G - G^T|)."""
+    if exact is None:
+        exact = bool(((vals == 0) | (vals == 1)).all())
+    got = sg_mod.sparse_gram(rows, vals, m)
+    want = sparse_gram_f64(rows, vals, m)
+    rel = 0.0 if exact else 1e-5
+    err = compare("sparse_gram", got, want, rel, cases,
+                  f"{case}, against a float64 sum")
+    plain = sg_mod.sparse_gram_ref(rows, vals, m)
+    plain_err = max_err(plain, want)
+    compare("sparse_gram", got, plain, rel, cases,
+            f"{case}, against the plain version")
+    del plain
+    check_bit_stable("sparse_gram", case, got,
+                     lambda: sg_mod.sparse_gram(rows, vals, m), calls)
+    fields = dict(case=case, max_abs_err=err, plain_max_abs_err=plain_err,
+                  limit=rel * float(want.abs().max()), bit_stable_calls=calls,
+                  symmetric=bool(torch.equal(got, got.mT)),
+                  max_asymmetry=max_err(got, got.mT))
+    del got, want
+    return fields
+
+
+def sketch_panel_case(cases, case, omega, rows, vals, *,
+                      calls: int = 10) -> dict:
+    """sketch_panel held to its plain version at 1e-5 of max|plain|
+    (``equal`` says whether the bits agree), ``calls`` further calls giving
+    the same bits, and the device kernels of one call."""
+    got = sp_mod.sketch_panel(omega, rows, vals)
+    want = sp_mod.sketch_panel_ref(omega, rows, vals)
+    err = compare("sketch_panel", got, want, 1e-5, cases, case)
+    equal = bool(torch.equal(got, want))
+    check_bit_stable("sketch_panel", case, got,
+                     lambda: sp_mod.sketch_panel(omega, rows, vals), calls)
+    l, m = omega.shape
+    fields = dict(case=case, max_abs_err=err, equal_to_plain=equal,
+                  limit=1e-5 * float(want.abs().max()),
+                  omega_strides=list(omega.stride()),
+                  omega_route=sp_mod.omega_route(l, m, omega.stride()),
+                  bit_stable_calls=calls,
+                  device_kernels=device_kernels_per_call(
+                      lambda: sp_mod.sketch_panel(omega, rows, vals)))
+    check_device_kernels("sketch_panel", case, fields["device_kernels"],
+                         sp_mod.device_kernels(l, m, omega.stride()))
+    del got, want
+    return fields
+
+
+def ell_csr(rows, vals, m):
+    """The block-stacked (D*C, M) CSR of the stored columns (the cuSPARSE
+    yardstick's operand), built from the ELL slots."""
+    import warnings
+
+    d, c, k = rows.shape
+    live = vals.reshape(d * c, k) != 0
+    counts = live.sum(dim=1)
+    crow = torch.zeros(d * c + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = counts.cumsum(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # "beta" notices
+        return torch.sparse_csr_tensor(
+            crow, rows.reshape(d * c, k)[live].long(),
+            vals.reshape(d * c, k)[live], size=(d * c, m),
+            check_invariants=False)
+
+
+def sketch_timed(cases, case, omega, rows, vals, *, iters=10) -> dict:
+    """sketch_panel_case, then the kernel's time beside its bound and the
+    library yardstick: one ``torch.sparse.mm`` (cuSPARSE) of the
+    block-stacked (D*C, M) CSR of the stored columns by Omega^T (the CSR
+    built outside the timed window; the port never calls it)."""
+    fields = sketch_panel_case(cases, case, omega, rows, vals)
+    b_ms, b_by = sketch_panel_bound(omega, rows, vals)
+    csr = ell_csr(rows, vals, omega.shape[1])
+    om_t = omega.T
+    fields.update(
+        ms=time_ms(lambda: sp_mod.sketch_panel(omega, rows, vals),
+                   iters=iters),
+        device_ms=device_ms(lambda: sp_mod.sketch_panel(omega, rows, vals)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.sparse.mm(csr, om_t), iters=iters),
+        library="torch.sparse.mm((D*C, M) CSR, Omega^T), CSR built "
+                "outside the timed window")
+    del csr
+    return fields
+
+
 # bf16 products per product of float32 values that blockgram's kernel
 # makes: hi.hi + hi.mid + mid.hi + mid.mid + hi.lo + lo.hi, the least set
 # that holds 1e-5 of max|G| on every input
@@ -434,18 +624,132 @@ def compare_bf16(name, got, want, f32_rel, results, case):
     return err
 
 
-def synthetic_ell(rng, d, c, k, m, *, weighted, empty_block=None):
+def synthetic_ell(rng, d, c, k, m, *, weighted, empty_block=None,
+                  heavy_row=None):
     """Random (D, C, K) ELL arrays with padding slots, duplicate rows inside
-    a column, and optionally one block whose slots are all padding."""
+    a column, optionally one block whose slots are all padding, and
+    optionally ``heavy_row`` = (row, columns): that row in the first
+    ``columns`` columns of every block."""
     rows = rng.integers(0, m, size=(d, c, k)).astype(np.int32)
     vals = (rng.uniform(0.5, 2.0, size=(d, c, k)) if weighted
             else np.ones((d, c, k))).astype(np.float32)
     vals *= rng.random((d, c, k)) < 0.6            # padding slots
+    if heavy_row is not None:
+        r, cols = heavy_row
+        rows[:, :cols, 0] = r
+        vals[:, :cols, 0] = rng.uniform(0.5, 2.0, (d, cols)) if weighted \
+            else 1.0
     rows[:, ::3, -1] = rows[:, ::3, 0]             # duplicates in a column
     if empty_block is not None:
         vals[empty_block] = 0.0
     rows[vals == 0] = 0
     return (torch.from_numpy(rows).to(DEVICE), torch.from_numpy(vals).to(DEVICE))
+
+
+def sparse_gram_rows(cases, main, ell, well, ragged, rng) -> None:
+    """``sparse_gram`` at the paper's shape (``ell``, 0/1; ``well``, the
+    same matrix weighted) and on synthetic cases (``ragged``: D=3 C=37 K=5
+    M=67 with duplicates and an all-padding block 1)."""
+    rows, vals, m = ell.col_rows, ell.col_vals, ell.m
+    # The paper's 0/1 ELL: exact, the same bits over 10 calls; then the
+    # weighted paper matrix, a ragged case with duplicates and an
+    # all-padding block, a row longer than one sorted piece
+    # (sg_mod.SEG_CAP) spread over all warps, K = 36 > 32, M = 33 (not a
+    # multiple of 32) and M above the shared-memory row chunk
+    # (sg_mod.ROW_CHUNK), each against a float64 sum at 1e-5 of max|G|.
+    sg_cases = [sparse_gram_case(cases, "paper 0/1 (exact)", rows, vals, m)]
+    b_ms, b_by = sparse_gram_bound(rows, vals, m)
+    main["sparse_gram"] = dict(
+        shape=f"rows/vals {tuple(rows.shape)} -> {(rows.shape[0], m, m)}",
+        max_abs_err=sg_cases[0]["max_abs_err"],
+        ms=time_ms(lambda: sg_mod.sparse_gram(rows, vals, m)),
+        device_ms=device_ms(lambda: sg_mod.sparse_gram(rows, vals, m)),
+        plain_ms=time_ms(lambda: sg_mod.sparse_gram_ref(rows, vals, m)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        device_kernels=device_kernels_per_call(
+            lambda: sg_mod.sparse_gram(rows, vals, m)),
+        timed_variants=[])
+    check_device_kernels("sparse_gram", "paper 0/1",
+                         main["sparse_gram"]["device_kernels"],
+                         sg_mod.DEVICE_KERNELS)
+
+    sg_cases.append(sparse_gram_case(cases, "paper shape, weighted",
+                                     well.col_rows, well.col_vals, m))
+    r2, v2 = ragged
+    sg_cases.append(sparse_gram_case(
+        cases, "ragged D=3 C=37 K=5 M=67, duplicates, block 1 all padding",
+        r2, v2, 67))
+    check(float(sg_mod.sparse_gram(r2, v2, 67)[1].abs().max()) == 0.0,
+          "sparse_gram: an all-padding block must give a zero gram")
+    heavy = sg_mod.SEG_CAP * 2 + 400
+    rh, vh = synthetic_ell(rng, 2, heavy + 600, 3, 40, weighted=True,
+                           heavy_row=(5, heavy))
+    sg_cases.append(sparse_gram_case(
+        cases, f"a row in {heavy} columns (pieces of {sg_mod.SEG_CAP}, "
+        f"{sg_mod.WARPS} warps), D=2 K=3 M=40", rh, vh, 40))
+    for tag, (d_, c_, k_, m_, kw) in {
+            "K=36 > 32, M=100": (2, 300, 36, 100, {}),
+            "M=33, K=1": (2, 64, 1, 33, {}),
+            f"M=2500 > the row chunk {sg_mod.ROW_CHUNK}, a row in 2100 "
+            f"columns": (1, 3000, 2, 2500, dict(heavy_row=(7, 2100))),
+    }.items():
+        rx, vx = synthetic_ell(rng, d_, c_, k_, m_, weighted=True, **kw)
+        sg_cases.append(sparse_gram_case(cases, tag, rx, vx, m_))
+    rx, vx = synthetic_ell(rng, 2, 300, 36, 100, weighted=False)
+    sg_cases.append(sparse_gram_case(cases, "K=36 > 32, M=100, 0/1 (exact)",
+                                     rx, vx, 100))
+    main["sparse_gram"]["checked"] = sg_cases
+
+
+def sketch_panel_rows(cases, main, ell, well, ragged, rng) -> None:
+    """``sketch_panel`` on the paper's ELL (``ell``; ``well`` weighted) and
+    on synthetic cases (``ragged`` as for ``sparse_gram_rows``)."""
+    rows, vals, m = ell.col_rows, ell.col_vals, ell.m
+    # Omega as draw_omega gives it ((L, M) contiguous) and as the transpose
+    # of an (M, L)-contiguous tensor, at L = 24 (the paper's sketch), 41
+    # and 64; weighted data; a ragged case with duplicates and an
+    # all-padding block; K = 36 > 32 and K = 1300 (a column taken in
+    # pieces) with Omega too large to stage, in both layouts and in
+    # neither (the wrapper's copy).  Each within 1e-5 of max|plain| and the
+    # same bits over 10 calls.
+    omega = torch.from_numpy(rng.standard_normal((24, m))
+                             .astype(np.float32)).to(DEVICE)
+    main["sketch_panel"] = sketch_timed(cases, "paper ELL, omega (24, 539)",
+                                        omega, rows, vals)
+    main["sketch_panel"].update(
+        shape=f"omega {tuple(omega.shape)}, rows/vals {tuple(rows.shape)} "
+              f"-> {(rows.shape[0], 24, rows.shape[1])}",
+        plain_ms=time_ms(lambda: sp_mod.sketch_panel_ref(omega, rows, vals)),
+        timed_variants=[])
+    sp_cases = [sketch_panel_case(
+        cases, "paper ELL, omega (24, 539) as the transpose of (539, 24)",
+        omega.T.contiguous().T, rows, vals)]
+    sp_cases.append(sketch_panel_case(cases, "paper shape, weighted", omega,
+                                      well.col_rows, well.col_vals))
+    for l_ in (41, 64):
+        om = torch.from_numpy(rng.standard_normal((l_, m))
+                              .astype(np.float32)).to(DEVICE)
+        sp_cases.append(sketch_panel_case(cases, f"paper ELL, L={l_}", om,
+                                          rows, vals))
+    r2, v2 = ragged
+    om2 = torch.from_numpy(rng.standard_normal((41, 67))
+                           .astype(np.float32)).to(DEVICE)
+    sp_cases.append(sketch_panel_case(
+        cases, "ragged L=41 M=67 C=37 K=5, duplicates, block 1 all padding",
+        om2, r2, v2))
+    check(float(sp_mod.sketch_panel(om2, r2, v2)[1].abs().max()) == 0.0,
+          "sketch_panel: an all-padding block must give a zero panel")
+    for k_, c_, l_ in ((36, 300, 64), (36, 300, 41), (1300, 40, 8)):
+        m_ = 2000 if k_ == 36 else 5000
+        rx, vx = synthetic_ell(rng, 2, c_, k_, m_, weighted=True)
+        om = torch.randn((l_, m_), device=DEVICE)
+        for layout, o in (("(L, M)", om), ("(M, L)", om.T.contiguous().T),
+                          ("neither (every other column)",
+                           torch.randn((l_, 2 * m_), device=DEVICE)[:, ::2])):
+            sp_cases.append(sketch_panel_case(
+                cases, f"K={k_} C={c_} M={m_} L={l_}, omega {layout}", o,
+                rx, vx))
+    main["sketch_panel"]["checked"] = sp_cases
 
 
 def phase_kernels(state) -> None:
@@ -457,36 +761,11 @@ def phase_kernels(state) -> None:
     main = {}
     rng = np.random.default_rng(7)
 
-    # --- sparse_gram ------------------------------------------------------
-    want = sg_mod.sparse_gram_ref(rows, vals, m)
-    got = sg_mod.sparse_gram(rows, vals, m)
-    err = compare("sparse_gram", got, want, 0.0, cases, "paper 0/1 (exact)")
-    again = sg_mod.sparse_gram(rows, vals, m)
-    check(torch.equal(got, again), "sparse_gram: 0/1 data not bit-stable "
-          "from run to run")
-    b_ms, b_by = sparse_gram_bound(rows, vals, m)
-    main["sparse_gram"] = dict(
-        shape=f"rows/vals {tuple(rows.shape)} -> {tuple(got.shape)}",
-        max_abs_err=err,
-        ms=time_ms(lambda: sg_mod.sparse_gram(rows, vals, m)),
-        plain_ms=time_ms(lambda: sg_mod.sparse_gram_ref(rows, vals, m)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-
     wcoo = sparse.random_bipartite(cfg.rows, cfg.cols, cfg.density,
                                    seed=cfg.seed, weighted=True)
     well = sparse.block_ell_from_coo(wcoo, NUM_BLOCKS, device=DEVICE)
-    w1 = sg_mod.sparse_gram(well.col_rows, well.col_vals, m)
-    w2 = sg_mod.sparse_gram(well.col_rows, well.col_vals, m)
-    compare("sparse_gram", w1,
-            sg_mod.sparse_gram_ref(well.col_rows, well.col_vals, m), 1e-5,
-            cases, "paper shape, weighted")
-    state["sparse_gram_weighted_bit_stable"] = bool(torch.equal(w1, w2))
-    r2, v2 = synthetic_ell(rng, 3, 37, 5, 67, weighted=True, empty_block=1)
-    g2 = sg_mod.sparse_gram(r2, v2, 67)
-    compare("sparse_gram", g2, sg_mod.sparse_gram_ref(r2, v2, 67), 1e-5,
-            cases, "ragged D=3 C=37 K=5 M=67, duplicates, block 1 all padding")
-    check(float(g2[1].abs().max()) == 0.0,
-          "sparse_gram: an all-padding block must give a zero gram")
+    ragged = synthetic_ell(rng, 3, 37, 5, 67, weighted=True, empty_block=1)
+    sparse_gram_rows(cases, main, ell, well, ragged, rng)
 
     # --- blockgram --------------------------------------------------------
     # The paper matrix made dense, the solver's dense input: 0/1 values, so
@@ -512,6 +791,8 @@ def phase_kernels(state) -> None:
                          warmup=1),
         bound_ms=b_ms, bound_by=b_by, products=products(blocks),
         library_ms=bmm_ms(blocks),
+        device_kernels=device_kernels_per_call(
+            lambda: bg_mod.blockgram(blocks)),
         timed_variants=blockgram_variants(cases, blocks.shape, wcoo=wcoo))
     del blocks, want, got
     small = []
@@ -543,45 +824,20 @@ def phase_kernels(state) -> None:
             f"{bg_mod.launch_plan(1, 539, 170_893, torch.float32)[0]} slices")
     del a_sl
 
-    # --- sketch_panel -----------------------------------------------------
-    omega = torch.from_numpy(rng.standard_normal((24, m))
-                             .astype(np.float32)).to(DEVICE)
-    want = sp_mod.sketch_panel_ref(omega, rows, vals)
-    got = sp_mod.sketch_panel(omega, rows, vals)
-    err = compare("sketch_panel", got, want, 1e-5, cases,
-                  "paper ELL, omega (24, 539)")
-    b_ms, b_by = sketch_panel_bound(omega, rows, vals)
-    main["sketch_panel"] = dict(
-        shape=f"omega {tuple(omega.shape)}, rows/vals {tuple(rows.shape)} "
-              f"-> {tuple(got.shape)}",
-        max_abs_err=err,
-        ms=time_ms(lambda: sp_mod.sketch_panel(omega, rows, vals)),
-        plain_ms=time_ms(lambda: sp_mod.sketch_panel_ref(omega, rows, vals)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    compare("sketch_panel",
-            sp_mod.sketch_panel(omega, well.col_rows, well.col_vals),
-            sp_mod.sketch_panel_ref(omega, well.col_rows, well.col_vals),
-            1e-5, cases, "paper shape, weighted")
-    om2 = torch.from_numpy(rng.standard_normal((41, 67))
-                           .astype(np.float32)).to(DEVICE)
-    s2 = sp_mod.sketch_panel(om2, r2, v2)
-    compare("sketch_panel", s2, sp_mod.sketch_panel_ref(om2, r2, v2), 1e-5,
-            cases, "ragged L=41 M=67 C=37 K=5, duplicates, block 1 all padding")
-    check(float(s2[1].abs().max()) == 0.0,
-          "sketch_panel: an all-padding block must give a zero panel")
-
+    sketch_panel_rows(cases, main, ell, well, ragged, rng)
     topk_kernel_rows(state, cases, main)
     flash_kernel_rows(cases, main)
     ssd_kernel_rows(cases, main)
 
     state["kernel_main"] = main
+    state["kernel_cases"] = cases
     emit("kernels", cases=cases, main_shapes=main,
-         sparse_gram_weighted_bit_stable=state[
-             "sparse_gram_weighted_bit_stable"],
          tolerance="0 for 0/1 sparse_gram and blockgram and for "
                    "topk_score (torch.equal on values and indices); else "
-                   "1e-5 * max|plain| (f32 summation order; blockgram is "
-                   "held against the gram summed in float64); "
+                   "1e-5 * max|plain| (f32 summation order; blockgram and "
+                   "sparse_gram are held against the gram summed in "
+                   "float64); sparse_gram and sketch_panel also the same "
+                   "bits over 10 calls (torch.equal); "
                    "flash_attention 2e-5 and "
                    "ssd_scan 1e-4 of max|plain| in float32 (online against "
                    "direct softmax; chunked scan against the sequential "
@@ -627,25 +883,10 @@ def achieved(flops, nbytes, ms) -> dict:
 
 def device_ms_by_kernel(fn, iters: int = 10) -> dict:
     """Device time per call of each kernel ``fn`` launches, by name
-    (``torch.profiler`` over ``iters`` warm calls); {} where the profiler
-    saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-        if dev > 0:
-            out[ev.key[:80]] = dev / 1e3 / iters
-    return out
+    (``cuda_events`` over ``iters`` warm calls); {} where the profiler saw
+    no device time."""
+    return {key[:80]: dev / 1e3 / iters
+            for key, _, dev in cuda_events(fn, iters) if dev > 0}
 
 
 def lm_randn(shape, gen, dtype):
@@ -709,7 +950,9 @@ def flash_kernel_rows(cases, main) -> None:
             plain_ms=time_ms(lambda: fa_mod.flash_attention_ref(q, k, v),
                              iters=3, warmup=1),
             bound_ms=b_ms, bound_by=b_by, **achieved(flops, nbytes, ms),
-            library_ms=sdpa_ms(q, k, v, True))
+            library_ms=sdpa_ms(q, k, v, True),
+            device_kernels=device_kernels_per_call(
+                lambda: fa_mod.flash_attention(q, k, v)))
         del q, k, v
     variants = [
         ("GQA Hq 8 Hkv 2", (2, 8, 2, 1024, 1024, 80), {}),
@@ -845,6 +1088,8 @@ def ssd_kernel_rows(cases, main) -> None:
             plain_ms=time_ms(lambda: ss_mod.ssd_scan_ref(*args), iters=2,
                              warmup=1),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_kernels=device_kernels_per_call(
+                lambda: ss_mod.ssd_scan(*args)),
             **achieved(flops, nbytes, ms))
         del args
     timed = []
@@ -1215,24 +1460,37 @@ def phase_solve_scaled(state) -> None:
     fields = check_exact_result(name, res, repaired, NUM_BLOCKS, recon=False)
     del repaired
     res2, _ = timed_svd(ell, cfg)
-    # The kernel at this shape, against its plain version.
-    want = sg_mod.sparse_gram_ref(ell.col_rows, ell.col_vals, m)
-    got = sg_mod.sparse_gram(ell.col_rows, ell.col_vals, m)
-    torch.cuda.synchronize()
-    k_err = max_err(got, want)
-    check(k_err == 0.0, f"{name}: sparse_gram differs from plain by {k_err}")
-    del want, got
-    b_ms, b_by = sparse_gram_bound(ell.col_rows, ell.col_vals, m)
+    # The kernel at this shape: 0/1 (exact) and with seeded weights in
+    # (0.5, 2) on the non-zero slots, each the same bits over 10 calls,
+    # timed beside its bound and its plain version (phase ``kernels``'
+    # timed_variants).
+    main = state["kernel_main"]["sparse_gram"]
+    w_vals = reweighted(ell.col_vals, 13)
+    for tag, vals in (("0/1 (exact)", ell.col_vals),
+                      ("weights in (0.5, 2)", w_vals)):
+        case = f"{name} ({m} x {n}) {tag}, rows/vals " \
+               f"{tuple(ell.col_rows.shape)}"
+        kf = sparse_gram_case(state["kernel_cases"], case, ell.col_rows,
+                              vals, m)
+        b_ms, b_by = sparse_gram_bound(ell.col_rows, vals, m)
+        kf.update(
+            ms=time_ms(lambda: sg_mod.sparse_gram(ell.col_rows, vals, m),
+                       iters=10),
+            device_ms=device_ms(
+                lambda: sg_mod.sparse_gram(ell.col_rows, vals, m)),
+            plain_ms=time_ms(lambda: sg_mod.sparse_gram_ref(
+                ell.col_rows, vals, m), iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_kernels=device_kernels_per_call(
+                lambda: sg_mod.sparse_gram(ell.col_rows, vals, m)))
+        main["timed_variants"].append(kf)
+    del w_vals
     emit("solve_scaled", case="a", m=m, n=n, nnz=coo.nnz,
          ell_capacity=list(ell.capacity), host_generate_s=t_gen,
          host_block_ell_from_coo_s=t_ell,
          warm_wall_time_s_ell_input=res2.diagnostics.wall_time_s,
-         sparse_gram_ms=time_ms(lambda: sg_mod.sparse_gram(
-             ell.col_rows, ell.col_vals, m), iters=5),
-         sparse_gram_plain_ms=time_ms(lambda: sg_mod.sparse_gram_ref(
-             ell.col_rows, ell.col_vals, m), iters=3, warmup=1),
-         sparse_gram_bound_ms=b_ms, sparse_gram_bound_by=b_by,
-         sparse_gram_max_abs_err=k_err, stage_ms=stage_ms(ell, cfg),
+         sparse_gram=main["timed_variants"][-2:],
+         stage_ms=stage_ms(ell, cfg),
          **diag_fields(res, counts), **fields)
     del ell, res, res2
     torch.cuda.empty_cache()
@@ -1266,27 +1524,27 @@ def phase_solve_scaled(state) -> None:
     t_ref = time.perf_counter() - t0
     fields = check_topk(name, res.s, s_ref.copy(), 16)
     res2, _ = timed_svd(ell, cfg)
-    # The kernel at this shape, against its plain version.
+    # The kernel at this shape (L = 64 = rank + oversample, K = 36 > 32),
+    # with Omega as the solver passes it ((L, M) contiguous) and as the
+    # transpose of an (M, L)-contiguous tensor (phase ``kernels``'
+    # timed_variants).
     omega = torch.randn((64, m), device=DEVICE,
                         generator=torch.Generator(DEVICE).manual_seed(3))
-    want = sp_mod.sketch_panel_ref(omega, ell.col_rows, ell.col_vals)
-    got = sp_mod.sketch_panel(omega, ell.col_rows, ell.col_vals)
-    torch.cuda.synchronize()
-    k_err = max_err(got, want)
-    k_lim = 1e-5 * float(want.abs().max())
-    check(k_err <= k_lim, f"{name}: sketch_panel err {k_err} > {k_lim}")
-    del want, got
-    b_ms, b_by = sketch_panel_bound(omega, ell.col_rows, ell.col_vals)
+    main = state["kernel_main"]["sketch_panel"]
+    for layout, om in (("(L, M)", omega),
+                       ("(M, L) transposed", omega.T.contiguous().T)):
+        kf = sketch_timed(
+            state["kernel_cases"], f"{name} ({m} x {n}) omega "
+            f"{tuple(omega.shape)} {layout}, rows/vals "
+            f"{tuple(ell.col_rows.shape)}", om, ell.col_rows, ell.col_vals)
+        kf["plain_ms"] = time_ms(lambda: sp_mod.sketch_panel_ref(
+            om, ell.col_rows, ell.col_vals), iters=3, warmup=1)
+        main["timed_variants"].append(kf)
     emit("solve_scaled", case="b", m=m, n=n, nnz=coo.nnz,
          ell_capacity=list(ell.capacity), host_generate_s=t_gen,
          host_block_ell_from_coo_s=t_ell, host_scipy_svds_s=t_ref,
          warm_wall_time_s_ell_input=res2.diagnostics.wall_time_s,
-         sketch_panel_ms=time_ms(lambda: sp_mod.sketch_panel(
-             omega, ell.col_rows, ell.col_vals), iters=5),
-         sketch_panel_plain_ms=time_ms(lambda: sp_mod.sketch_panel_ref(
-             omega, ell.col_rows, ell.col_vals), iters=3, warmup=1),
-         sketch_panel_bound_ms=b_ms, sketch_panel_bound_by=b_by,
-         sketch_panel_max_abs_err=k_err, sketch_panel_err_limit=k_lim,
+         sketch_panel=main["timed_variants"][-2:],
          stage_ms=stage_ms(ell, cfg),
          **diag_fields(res, counts), **fields)
 
@@ -1341,6 +1599,7 @@ def topk_case(cases, case, qs, v, k_top, *, scale=None, valid_n=None,
                          iters=plain_iters, warmup=1),
         bound_ms=b_ms, bound_by=b_by, **achieved(flops, nbytes, ms),
         library_ms=time_ms(library, iters=5, warmup=1),
+        device_kernels=device_kernels_per_call(call),
         **(dict(pass_ms=device_ms_by_kernel(call)) if passes else {}))
 
 
@@ -2148,7 +2407,8 @@ def main() -> int:
             name=name, **info, launches=launches,
             launches_by_solve={solve: counts[name]
                                for solve, counts in by_solve.items()},
-            **state["kernel_main"][name]))
+            **{key: value for key, value in state["kernel_main"][name]
+               .items() if key != "checked"}))
     emit("stage_summary", **state["stage_summary"])
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

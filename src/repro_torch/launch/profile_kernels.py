@@ -1,15 +1,16 @@
-"""Profile four kernels on one GPU: ``flash_attention``, ``topk_score``,
-``ssd_scan`` and ``blockgram``, with what ptxas says of every kernel's
-registers.
+"""Profile six kernels on one GPU: ``flash_attention``, ``topk_score``,
+``ssd_scan``, ``blockgram``, ``sparse_gram`` and ``sketch_panel``, with
+what ptxas says of every kernel's registers.
 
   python3 src/repro_torch/launch/profile_kernels.py [--src DIR] [--out FILE]
-      [--only flash,topk,ssd,blockgram]
+      [--only flash,topk,ssd,blockgram,sgram,sketch] [--no-ptxas]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is measured (the
 default is this checkout's), so one call can profile two trees of the port
 side by side.  Prints one JSON object: the card (``nvidia-smi`` name and
 power limit); for every kernel function of ``csrc/*.cu`` the registers,
-shared memory, stack and spills that ``nvcc -Xptxas -v`` reports; for
+shared memory, stack and spills that ``nvcc -Xptxas -v`` reports (unless
+``--no-ptxas``); for
 ``flash_attention`` the device time (CUDA events, cold L2, median of 10),
 the achieved TFLOP/s over the pairs the mask shows and SDPA's time on the
 same inputs; for ``topk_score`` the device time of each of its kernels by
@@ -24,8 +25,21 @@ worst error of a smaller call against ``ssd_scan_ref`` over its limit
 (<= 1 holds); for ``blockgram`` the same at the dense solve's shape (8,
 539, 21363) for 0/1, gaussian float32 and bf16 input, beside ``torch.bmm``
 and the bound of this checkout's ``blockgram.work`` at ``chip_smoke.py``'s
-``products``, errors against ``chip_smoke.gram_f64`` (float64 sums).
-``--only`` times a subset of the kernels.  Needs a CUDA device.
+``products``, errors against ``chip_smoke.gram_f64`` (float64 sums); for
+``sparse_gram`` (``sgram``) the device time at the paper's ELL (8, 5096,
+5), M 539, and at ``chip_smoke.py``'s 2048 x 1,048,576 ELL (8, 84104, 8),
+each 0/1 and weighted, beside ``chip_smoke.sparse_gram_bound``, with the
+device kernels of a call, the error against ``chip_smoke.sparse_gram_f64``
+(a float64 sum) and whether 10 calls give the same bits; for
+``sketch_panel`` (``sketch``) the same at the paper's ELL with Omega (24,
+539) and at the 32,768 x 262,144 ELL (8, 32768, 36) with Omega (64,
+32768), each Omega (L, M)-contiguous and as the transpose of an
+(M, L)-contiguous tensor, beside ``chip_smoke.sketch_panel_bound`` and one
+``torch.sparse.mm`` of the block-stacked (D*C, M) CSR by Omega^T
+(cuSPARSE; the CSR built outside the timed window).  The inputs of the two
+sparse kernels come from this checkout's generators and seeds
+(``chip_smoke.py``'s).  ``--only`` times a subset of the kernels.  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -265,6 +279,98 @@ def blockgram_rows(bg, work, products, gram_f64):
     return rows
 
 
+def _sparse_inputs(cs, which):
+    """``chip_smoke.py``'s ELL inputs: "paper" (the paper matrix, 0/1,
+    and its weighted twin), "a" (2048 x 1,048,576, 0/1) or "b" (32,768 x
+    262,144), each as (rows, vals, m)."""
+    if which == "paper":
+        cfg = cs.RankyPaperConfig()
+        coo = cs.bipartite.paper_coo(cfg)
+        wcoo = cs.sparse.random_bipartite(cfg.rows, cfg.cols, cfg.density,
+                                          seed=cfg.seed, weighted=True)
+        return [cs.sparse.block_ell_from_coo(x, cs.NUM_BLOCKS, device="cuda")
+                for x in (coo, wcoo)]
+    m, n = cs.SCALED_EXACT if which == "a" else cs.SCALED_TALL
+    coo = cs.scaled_coo(m, n, 5e-4, seed=11 if which == "a" else 12)
+    return [cs.sparse.block_ell_from_coo(coo, cs.NUM_BLOCKS, device="cuda")]
+
+
+def sgram_rows(sg, cs):
+    """``sparse_gram`` at the paper's shape (0/1, weighted) and at (a)
+    (0/1, seeded weights in (0.5, 2) on the non-zero slots): device time,
+    bound, device kernels a call, error against a float64 sum over
+    chip_smoke's limit (0 for 0/1 data, else 1e-5 of max|G|), the same bits
+    over 10 calls, exact symmetry."""
+    paper, wpaper = _sparse_inputs(cs, "paper")
+    (big,) = _sparse_inputs(cs, "a")
+    cases = [("paper 0/1", paper.col_rows, paper.col_vals, paper.m),
+             ("paper weighted", wpaper.col_rows, wpaper.col_vals, paper.m),
+             ("(a) 0/1", big.col_rows, big.col_vals, big.m),
+             ("(a) weights in (0.5, 2)", big.col_rows,
+              cs.reweighted(big.col_vals, 13), big.m)]
+    rows = []
+    for tag, r, v, m in cases:
+        got = sg.sparse_gram(r, v, m)
+        want = cs.sparse_gram_f64(r, v, m)
+        torch.cuda.synchronize()
+        exact = bool(((v == 0) | (v == 1)).all())
+        limit = 0.0 if exact else 1e-5 * float(want.abs().max())
+        err = float((got - want).abs().max())
+        stable = all(torch.equal(got, sg.sparse_gram(r, v, m))
+                     for _ in range(10))
+        b_ms, b_by = cs.sparse_gram_bound(r, v, m)
+        rows.append(dict(
+            case=tag, shape=list(r.shape), m=m,
+            ms=_time_ms(lambda: sg.sparse_gram(r, v, m)),
+            bound_ms=b_ms, bound_by=b_by,
+            device_kernels=cs.device_kernels_per_call(
+                lambda: sg.sparse_gram(r, v, m)),
+            kernel_ms=cs.device_ms_by_kernel(lambda: sg.sparse_gram(r, v, m)),
+            max_abs_err=err, limit=limit, bit_stable_10=stable,
+            symmetric=bool(torch.equal(got, got.mT))))
+        del got, want
+    return rows
+
+
+def sketch_rows(sp, cs):
+    """``sketch_panel`` at the paper's shape (Omega (24, 539)) and at (b)
+    (Omega (64, 32768), K = 36), Omega (L, M)-contiguous and as the
+    transpose of an (M, L)-contiguous tensor: device time, bound, the
+    cuSPARSE yardstick, device kernels a call, error against the plain
+    version over 1e-5 of its max, the same bits over 10 calls."""
+    paper, _ = _sparse_inputs(cs, "paper")
+    (tall,) = _sparse_inputs(cs, "b")
+    gen = torch.Generator("cuda").manual_seed(3)
+    rows = []
+    for tag, ell, l in (("paper", paper, 24), ("(b)", tall, 64)):
+        omega = torch.randn((l, ell.m), generator=gen, device="cuda")
+        csr = cs.ell_csr(ell.col_rows, ell.col_vals, ell.m)
+        for layout, om in (("(L, M)", omega),
+                           ("(M, L) transposed", omega.T.contiguous().T)):
+            r, v = ell.col_rows, ell.col_vals
+            got = sp.sketch_panel(om, r, v)
+            want = sp.sketch_panel_ref(om, r, v)
+            torch.cuda.synchronize()
+            b_ms, b_by = cs.sketch_panel_bound(om, r, v)
+            rows.append(dict(
+                case=f"{tag} omega {tuple(om.shape)} {layout}",
+                shape=list(r.shape),
+                ms=_time_ms(lambda: sp.sketch_panel(om, r, v)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=_time_ms(lambda: torch.sparse.mm(csr, om.T)),
+                device_kernels=cs.device_kernels_per_call(
+                    lambda: sp.sketch_panel(om, r, v)),
+                kernel_ms=cs.device_ms_by_kernel(
+                    lambda: sp.sketch_panel(om, r, v)),
+                max_abs_err=float((got - want).abs().max()),
+                limit=1e-5 * float(want.abs().max()),
+                equal_to_plain=bool(torch.equal(got, want)),
+                bit_stable_10=all(torch.equal(got, sp.sketch_panel(om, r, v))
+                                  for _ in range(10))))
+            del got, want
+    return rows
+
+
 def _import_tree(src):
     """Let ``import repro_torch`` load the copy under ``src``, in place of
     any copy imported so far."""
@@ -280,8 +386,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=own_src)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", default="flash,topk,ssd,blockgram",
-                    help="the kernels to time (ptxas covers all)")
+    ap.add_argument("--only", default="flash,topk,ssd,blockgram,sgram,"
+                    "sketch", help="the kernels to time (ptxas covers all)")
+    ap.add_argument("--no-ptxas", action="store_true",
+                    help="skip the ptxas report")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -297,6 +405,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import blockgram as bg
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sketch_panel as sp
+    from repro_torch.kernels import sparse_gram as sg
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import topk_score as tk
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -304,13 +414,18 @@ def main(argv=None) -> int:
                          text=True).stdout.strip().splitlines()[0]
     build.load()
     res = dict(card=smi, src=os.path.abspath(args.src),
-               ptxas=ptxas_report(str(build.CSRC)),
+               ptxas=(None if args.no_ptxas
+                      else ptxas_report(str(build.CSRC))),
                flash_attention=flash_rows(fa) if "flash" in only else None,
                topk_score=topk_rows(tk) if "topk" in only else None,
                ssd_scan=ssd_rows(ss, ssd_work) if "ssd" in only else None,
                blockgram=(blockgram_rows(bg, bg_work, chip_smoke.products,
                                          chip_smoke.gram_f64)
-                          if "blockgram" in only else None))
+                          if "blockgram" in only else None),
+               sparse_gram=sgram_rows(sg, chip_smoke) if "sgram" in only
+               else None,
+               sketch_panel=sketch_rows(sp, chip_smoke) if "sketch" in only
+               else None)
     text = json.dumps(res)
     if args.out:
         with open(args.out, "w") as f:

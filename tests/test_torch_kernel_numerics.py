@@ -1,5 +1,6 @@
-"""The arithmetic of the port's four Hopper kernels, modelled in plain torch
-on the CPU and held against their plain versions and the JAX oracles.
+"""The arithmetic of the port's six Hopper kernels, modelled in plain torch
+or numpy on the CPU and held against their plain versions and the JAX
+oracles.
 
 The CUDA kernels run only on a GPU (``chip_smoke.py`` holds them against
 their plain versions there).  What can be checked here is the design they
@@ -35,6 +36,21 @@ implement, at small seeded shapes:
   order.  Exact on 0/1 data, within 1e-5 of max|G| on gaussian, mixed and
   short rows and on rows of the values the split serves worst, where
   leaving out mid.mid or lo misses that limit.
+* ``sparse_gram`` (``csrc/sparse_gram.cu``): the row index (counts, scan,
+  a placement in any order, each row's list sorted: complete and in
+  ascending (c, k)), then every G[r1, r2] summed in the kernel's order --
+  a row's list in pieces shared by warps, entries 32 at a time, their
+  (entry, slot) pairs 32 a step up to each column's last non-zero slot,
+  the products of one r2 in a step summed in lane order, the warps'
+  copies in warp order -- in float32.  Exact on 0/1 data; within 1e-5 of
+  max|G| of a float64 sum, of the plain version and of the JAX oracles on
+  weighted data with duplicates, an all-padding block, a heavy row over
+  several warps and pieces, K = 36 and M = 33.  The workspace is a
+  function of (D, C, K, M) alone.
+* ``sketch_panel`` (``csrc/sketch_panel.cu``): the slots of a column in
+  ascending k, a rounded product and a rounded add each -- the plain
+  version's own order, so the two are equal bit for bit -- and the route
+  by which the kernel reads Omega through its strides.
 * At the widths of mamba2-1.3b (N = 128) and gemma2-9b (head dim 256): the
   ssd and flash models against the JAX oracles, and the float32 chunk
   ``ssd_scan.chunk_for`` takes at each N.
@@ -48,13 +64,18 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.serve import kvquant as jkvquant
 
 from repro_torch.kernels import blockgram as tbg
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import sketch_panel as tsp
+from repro_torch.kernels import sparse_gram as tsg
 from repro_torch.kernels import ssd_scan as tss
 from repro_torch.kernels import topk_score as ttk
+
+from test_torch_helpers import assert_close_rel
 
 NEG = -1e30
 LOG2E = 1.4426950408889634
@@ -931,3 +952,275 @@ def test_topk_launch_plan_falls_back_and_refuses():
     assert ttk.launch_plan(100, 5000, 128, 132, {32: False, 8: True})[0] == 8
     with pytest.raises(ValueError, match="shared memory"):
         ttk.launch_plan(100, 5000, 128, 132, {32: False, 8: False})
+
+
+# ---------------------------------------------------------------------------
+# sparse_gram
+# ---------------------------------------------------------------------------
+
+def _ell(d, c, k, m, *, seed=0, weighted=True, zero_frac=0.4,
+         duplicates=False, empty_block=None, heavy_row=None):
+    """Seeded (D, C, K) ELL arrays with padding slots anywhere in a column;
+    optionally duplicate (column, row) slots, an all-padding block and
+    ``heavy_row`` = (row, columns): that row in the first ``columns``
+    columns of every block."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, m, size=(d, c, k)).astype(np.int32)
+    vals = (rng.uniform(0.5, 2.0, (d, c, k)) if weighted
+            else np.ones((d, c, k))).astype(np.float32)
+    vals *= rng.random((d, c, k)) >= zero_frac
+    if heavy_row is not None:
+        r, cols = heavy_row
+        rows[:, :cols, 0] = r
+        vals[:, :cols, 0] = (rng.uniform(0.5, 2.0, (d, cols)) if weighted
+                             else 1.0)
+    if duplicates and k > 1:
+        rows[:, ::3, -1] = rows[:, ::3, 0]
+    if empty_block is not None:
+        vals[empty_block] = 0.0
+    rows[vals == 0] = 0
+    return torch.from_numpy(rows), torch.from_numpy(vals)
+
+
+def sg_row_index(rows, vals, m, seed=0):
+    """The kernels' row index of one block, (offsets, lists): integer counts
+    per row, their exclusive scan, a placement in an arbitrary order (the
+    atomics' order: here a seeded shuffle), then each row's list sorted,
+    as the gram pass sorts it."""
+    r = rows.reshape(-1).numpy()
+    live = np.flatnonzero(vals.reshape(-1).numpy() != 0)
+    counts = np.bincount(r[live], minlength=m)
+    off = np.concatenate([[0], np.cumsum(counts)])
+    cursor = off[:-1].copy()
+    lists = np.empty(len(live), np.int64)
+    for s in np.random.default_rng(seed).permutation(live):
+        lists[cursor[r[s]]] = s
+        cursor[r[s]] += 1
+    for i in range(m):
+        lists[off[i]:off[i + 1]].sort()
+    return off, lists
+
+
+def sparse_gram_model(rows, vals, m, *, warps=None, epw=None, split=None,
+                      seg_cap=None):
+    """The kernel's order of every sum, in float32 (``csrc/sparse_gram.cu``),
+    at the module's launch plan unless given one: per row r1 its list in
+    ascending slot order; a row of at most ``epw``
+    entries is one warp's, a longer one of n entries is cut into pieces of
+    ``seg_cap`` and shared by nw = min(warps, ceil(n / split)) warps, each a
+    contiguous part of every piece; a warp takes its entries 32 at a time,
+    their pairs (entry, slot k2 < the length of its column: the last non-zero
+    slot + 1) one flat sequence, 32 a step; in a step the products
+    v(r1, c) * v(r2, c) of one r2 are summed in lane order and the sum added
+    to the warp's copy of the row; the copies are summed in warp order."""
+    warps = warps or tsg.WARPS
+    epw = epw or tsg.entries_per_warp(m)
+    split = split or tsg.SPLIT
+    seg_cap = seg_cap or tsg.SEG_CAP
+    d, c, k = rows.shape
+    out = np.zeros((d, m, m), np.float32)
+    f32 = np.float32
+    for b in range(d):
+        r = rows[b].reshape(-1).numpy()
+        v = vals[b].reshape(-1).numpy()
+        live = vals[b].numpy() != 0
+        lens = np.where(live.any(1), k - np.argmax(live[:, ::-1], axis=1), 0)
+        off, lists = sg_row_index(rows[b], vals[b], m)
+        for r1 in range(m):
+            lst = lists[off[r1]:off[r1 + 1]]
+            n = len(lst)
+            if n == 0:
+                continue
+            if n <= epw:
+                nw, pieces = 1, [lst]
+            else:
+                nw = min(warps, -(-n // split))
+                pieces = [lst[i:i + seg_cap] for i in range(0, n, seg_cap)]
+            copies = np.zeros((nw, m), np.float32)
+            for piece in pieces:
+                plen = len(piece)
+                for w in range(nw):
+                    part = piece[w * plen // nw:(w + 1) * plen // nw]
+                    for e0 in range(0, len(part), 32):
+                        pairs = [(s1, s1 // k * k + k2)
+                                 for s1 in part[e0:e0 + 32]
+                                 for k2 in range(lens[s1 // k])]
+                        for q0 in range(0, len(pairs), 32):
+                            groups = {}
+                            for s1, s2 in pairs[q0:q0 + 32]:
+                                if v[s2] != 0:
+                                    groups.setdefault(r[s2], []).append(
+                                        f32(v[s1]) * f32(v[s2]))
+                            for r2, ps in groups.items():
+                                t = ps[0]
+                                for x in ps[1:]:
+                                    t = f32(t + x)
+                                copies[w, r2] = f32(copies[w, r2] + t)
+            row = copies[0]
+            for w in range(1, nw):
+                row = row + copies[w]
+            out[b, r1] = row
+    return torch.from_numpy(out)
+
+
+def _sg_f64(rows, vals, m):
+    out = []
+    for b in range(rows.shape[0]):
+        p = torch.zeros((rows.shape[1], m), dtype=torch.float64)
+        p.scatter_add_(1, rows[b].long(), vals[b].double())
+        out.append((p.T @ p).float())
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sparse_gram_row_index_complete_and_ascending(seed):
+    """Each row's list holds every non-zero slot of that row, once, in
+    ascending (c, k) order, at offsets that are the exclusive scan of the
+    counts, whatever order the placement took (duplicates and padding
+    anywhere in a column)."""
+    rows, vals = _ell(1, 300, 6, 41, seed=seed, duplicates=True)
+    off, lists = sg_row_index(rows[0], vals[0], 41, seed=seed)
+    _, again = sg_row_index(rows[0], vals[0], 41, seed=seed + 10)
+    np.testing.assert_array_equal(lists, again)
+    r = rows[0].reshape(-1).numpy()
+    live = np.flatnonzero(vals[0].reshape(-1).numpy() != 0)
+    assert off[-1] == len(live)
+    for i in range(41):
+        got = lists[off[i]:off[i + 1]]
+        np.testing.assert_array_equal(got, live[r[live] == i])
+        assert np.all(np.diff(got) > 0)
+
+
+@pytest.mark.parametrize("case", ["paper-like", "K 36", "ragged M 33"])
+def test_sparse_gram_model_exact_on_0_1_data(case):
+    """0/1 data: every partial sum is a small integer, so the model equals
+    the plain version and the reference's jnp oracle bit for bit."""
+    d, c, k, m = {"paper-like": (2, 600, 5, 67), "K 36": (1, 120, 36, 50),
+                  "ragged M 33": (2, 90, 3, 33)}[case]
+    rows, vals = _ell(d, c, k, m, seed=3, weighted=False, duplicates=True)
+    got = sparse_gram_model(rows, vals, m)
+    assert torch.equal(got, tsg.sparse_gram_ref(rows, vals, m))
+    for b in range(d):
+        np.testing.assert_array_equal(
+            got[b].numpy(), np.asarray(jref.sparse_gram(
+                jnp.asarray(rows[b].numpy()), jnp.asarray(vals[b].numpy()),
+                m)))
+
+
+@pytest.mark.parametrize("case,shape,kw,plan", [
+    ("duplicates, block 1 all padding", (3, 37, 5, 67),
+     dict(duplicates=True, empty_block=1), {}),
+    ("K 36 > 32, M 100", (2, 80, 36, 100), dict(duplicates=True), {}),
+    ("M 33", (2, 64, 1, 33), {}, {}),
+    ("a row over several warps and pieces", (1, 700, 3, 40),
+     dict(heavy_row=(5, 650)), dict(epw=16, split=8, seg_cap=64)),
+    ("a row in 2,100 columns, the kernel's plan", (1, 2300, 2, 24),
+     dict(heavy_row=(7, 2100)), {}),
+])
+def test_sparse_gram_model_weighted_within_1e5(case, shape, kw, plan):
+    """Weighted data: the model is within 1e-5 of max|G| of a float64 sum,
+    of the plain version and of the jnp oracle; an all-padding block gives
+    zeros; a heavy row is cut into pieces and shared by warps."""
+    d, c, k, m = shape
+    rows, vals = _ell(d, c, k, m, seed=4, **kw)
+    got = sparse_gram_model(rows, vals, m, **plan)
+    want = _sg_f64(rows, vals, m)
+    assert_close_rel(got, want)
+    assert_close_rel(got, tsg.sparse_gram_ref(rows, vals, m))
+    for b in range(d):
+        assert_close_rel(got[b], jref.sparse_gram(
+            jnp.asarray(rows[b].numpy()), jnp.asarray(vals[b].numpy()), m))
+    if kw.get("empty_block") is not None:
+        assert float(got[kw["empty_block"]].abs().max()) == 0.0
+
+
+def test_sparse_gram_model_matches_the_pallas_body(monkeypatch):
+    """The model against the reference's Pallas body in interpret mode
+    (through its padding wrapper), weighted with duplicates."""
+    rows, vals = _ell(2, 40, 4, 24, seed=5, duplicates=True)
+    got = sparse_gram_model(rows, vals, 24)
+    monkeypatch.setenv("REPRO_KERNELS", "interpret")
+    for b in range(2):
+        assert_close_rel(got[b], jops.sparse_gram(
+            jnp.asarray(rows[b].numpy()), jnp.asarray(vals[b].numpy()), 24))
+
+
+def test_sparse_gram_model_heavy_split_changes_only_last_bits():
+    """The plan fixes the order: two plans give results within float32
+    rounding of each other, and each is the same bits when computed again
+    (the placement order does not enter)."""
+    rows, vals = _ell(1, 500, 3, 30, seed=6, heavy_row=(2, 450))
+    a = sparse_gram_model(rows, vals, 30, epw=16, split=8, seg_cap=64)
+    b = sparse_gram_model(rows, vals, 30)
+    assert torch.equal(a, sparse_gram_model(rows, vals, 30, epw=16, split=8,
+                                            seg_cap=64))
+    assert_close_rel(a, b)
+
+
+@pytest.mark.parametrize("d,c,k,m", [(8, 5096, 5, 539), (8, 84104, 8, 2048),
+                                     (3, 37, 5, 67), (1, 1, 0, 1)])
+def test_sparse_gram_workspace_is_a_function_of_the_shape(d, c, k, m):
+    """The int32 scratch: 8 counters, D M + 1 offsets, D M heavy rows, D C
+    column lengths, D C K ranks and D C K list entries: the shape alone
+    sizes it, so no call waits on the data to allocate."""
+    n = tsg.workspace_ints(d, c, k, m)
+    assert n == 2 * d * m + 9 + d * c + 2 * d * c * k
+    assert n < 2 ** 31
+    assert tsg.SEG_CAP & (tsg.SEG_CAP - 1) == 0
+    assert 1 <= tsg.WARPS <= 32 and tsg.ROW_CHUNK % 4 == 0
+
+
+# ---------------------------------------------------------------------------
+# sketch_panel
+# ---------------------------------------------------------------------------
+
+def sketch_panel_model(omega, rows, vals):
+    """The kernel's arithmetic: each out[d, l, c] sums the slots of column c
+    in ascending k, a rounded product and a rounded add a slot, val-0 slots
+    skipped (float32 throughout)."""
+    om = omega.numpy()
+    r = rows.numpy()
+    v = vals.numpy()
+    d, c, k = r.shape
+    out = np.zeros((d, om.shape[0], c), np.float32)
+    for s in range(k):
+        on = v[:, :, s] != 0
+        prod = (om[:, r[:, :, s]].transpose(1, 0, 2)
+                * v[:, None, :, s]).astype(np.float32)
+        out = np.where(on[:, None, :], (out + prod).astype(np.float32), out)
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("shape", [(2, 60, 5, 67, 24), (1, 40, 36, 90, 64),
+                                   (3, 37, 5, 67, 41)])
+def test_sketch_panel_model_is_the_plain_version_bit_for_bit(shape):
+    """The kernel's slot order is the plain version's: the model equals
+    ``sketch_panel_ref`` bit for bit (duplicates, padding anywhere, K = 36
+    above a warp, L = 24, 41 and 64), and the jnp oracle within 1e-5."""
+    d, c, k, m, l = shape
+    rows, vals = _ell(d, c, k, m, seed=7, duplicates=True, empty_block=0)
+    omega = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (l, m)).astype(np.float32))
+    got = sketch_panel_model(omega, rows, vals)
+    assert torch.equal(got, tsp.sketch_panel_ref(omega, rows, vals))
+    assert float(got[0].abs().max()) == 0.0
+    for b in range(d):
+        assert_close_rel(got[b], jref.sketch_panel(
+            jnp.asarray(omega.numpy()), jnp.asarray(rows[b].numpy()),
+            jnp.asarray(vals[b].numpy())))
+
+
+def test_sketch_panel_reads_omega_through_its_strides():
+    """Omega's route on the card: (M, L) memory is gathered from as it is,
+    (L, M) memory is transposed by the kernel (one launch either way), any
+    other layout is copied first (two)."""
+    om = torch.zeros((24, 539))
+    assert tsp.omega_route(24, 539, om.stride()) == "transpose"
+    assert tsp.omega_route(24, 539, om.T.contiguous().T.stride()) == "gather"
+    strided = torch.zeros((24, 1078))[:, ::2]
+    assert tsp.omega_route(24, 539, strided.stride()) == "copy"
+    assert tsp.omega_route(1, 539, (539, 1)) == "gather"
+    for t, n in ((om, 1), (om.T.contiguous().T, 1), (strided, 2)):
+        assert tsp.device_kernels(24, 539, t.stride()) == n
+    q, _ = torch.linalg.qr(torch.randn(300, 16))
+    assert tsp.omega_route(16, 300, q.T.stride()) == "transpose"
