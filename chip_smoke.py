@@ -66,6 +66,23 @@ What it does, one JSON line per phase:
    ingests, served in waves of 256 with k_top 100, f32 and int8.
    Phases 8-10 also hold ``sparse_gram`` against its plain version on
    repaired batches that their ingests factor.
+10b. ``hierarchical``: the tree merge (``backend="hierarchical"``, D = 8,
+   fanout 4) on the paper matrix exact from COO (one ``sparse_gram``) and
+   dense input (one ``blockgram``), with right vectors, against float64;
+   the same at rank 16 against the same solve on the CPU; rule R2
+   (``sketch=True``, rank 16) on phase 7b's 32,768 x 262,144 matrix (one
+   ``sketch_panel`` a pass over the whole block stack), never above the
+   truth and against the CPU; the wide group panels' orthogonality under
+   both cuSOLVER drivers.
+10c. ``stream_window``: ``svd_stream`` (rule R6) on a 1,048,576-item
+   catalogue at rank 64 (48 ELL batches of 1,000-1,024 rows after the
+   rank-growth batch) and on the paper's rows in dense batches of 50-64
+   rows at rank 16: ``window`` auto against ``window=1`` (``torch.equal``)
+   and against an ``svd_update`` loop (1e-3 * S[0]); ms per batch in each
+   mode, the host syncs of a window and of its batches one by one (torch's
+   sync debug mode), one window's measured peak against R6's closed form
+   (must not exceed it), and the kernels on a padded bucket against the
+   batch as it is (the same bits; times side by side).
 11. ``merge_driver_ab``: the streams of phases 8 and 9 on three seeds under
    each cuSOLVER driver of the merge SVD, orthogonality and time.
 12. ``lm_serve``: LM serving of zamba2-2.7b at full width (54 Mamba-2
@@ -384,16 +401,17 @@ def sketch_panel_case(cases, case, omega, rows, vals, *,
     equal = bool(torch.equal(got, want))
     check_bit_stable("sketch_panel", case, got,
                      lambda: sp_mod.sketch_panel(omega, rows, vals), calls)
-    l, m = omega.shape
+    l, m = omega.shape[-2:]
+    strides = omega.stride()[-2:]
     fields = dict(case=case, max_abs_err=err, equal_to_plain=equal,
                   limit=1e-5 * float(want.abs().max()),
                   omega_strides=list(omega.stride()),
-                  omega_route=sp_mod.omega_route(l, m, omega.stride()),
+                  omega_route=sp_mod.omega_route(l, m, strides),
                   bit_stable_calls=calls,
                   device_kernels=device_kernels_per_call(
                       lambda: sp_mod.sketch_panel(omega, rows, vals)))
     check_device_kernels("sketch_panel", case, fields["device_kernels"],
-                         sp_mod.device_kernels(l, m, omega.stride()))
+                         sp_mod.device_kernels(l, m, strides))
     del got, want
     return fields
 
@@ -554,10 +572,11 @@ def blockgram_variants(cases, shape, *, wcoo) -> list:
 
 
 def sketch_panel_bound(omega, rows, vals):
-    l, m = omega.shape
+    l = omega.shape[-2]
     d, c, _ = rows.shape
     nnz = float((vals != 0).sum())
-    nbytes = l * m * 4 + rows.numel() * 4 + vals.numel() * 4 + d * l * c * 4
+    nbytes = (omega.numel() * 4 + rows.numel() * 4 + vals.numel() * 4
+              + d * l * c * 4)
     return bound(nbytes, 2.0 * l * nnz)
 
 
@@ -749,6 +768,24 @@ def sketch_panel_rows(cases, main, ell, well, ragged, rng) -> None:
             sp_cases.append(sketch_panel_case(
                 cases, f"K={k_} C={c_} M={m_} L={l_}, omega {layout}", o,
                 rx, vx))
+    # A (D, L, M) Omega stack, one Omega_d a block (the power passes of the
+    # hierarchical tree's sketch leaves): as the batched QR's Q_d^T come
+    # ((L, M) contiguous, transposed in the kernel), as (M, L)-contiguous
+    # matrices and in neither layout; the paper's ELL and the ragged case.
+    om3 = torch.from_numpy(rng.standard_normal((rows.shape[0], 24, m))
+                           .astype(np.float32)).to(DEVICE)
+    for layout, o in (("(L, M) each", om3), ("(M, L) each",
+                                            om3.mT.contiguous().mT),
+                      ("neither (every other column)",
+                       torch.randn((rows.shape[0], 24, 2 * m),
+                                   device=DEVICE)[:, :, ::2])):
+        sp_cases.append(sketch_panel_case(
+            cases, f"paper ELL, omega stack {tuple(om3.shape)} {layout}", o,
+            rows, vals))
+    om3r = torch.randn((r2.shape[0], 41, 67), device=DEVICE)
+    sp_cases.append(sketch_panel_case(
+        cases, "ragged L=41 M=67 C=37 K=5, omega stack (3, 41, 67)", om3r,
+        r2, v2))
     main["sketch_panel"]["checked"] = sp_cases
 
 
@@ -1523,6 +1560,8 @@ def phase_solve_scaled(state) -> None:
                          return_singular_vectors=False))[::-1]
     t_ref = time.perf_counter() - t0
     fields = check_topk(name, res.s, s_ref.copy(), 16)
+    state["tall"] = dict(coo=coo, ell=ell, s_ref=s_ref.copy(),
+                         method=cfg.method)
     res2, _ = timed_svd(ell, cfg)
     # The kernel at this shape (L = 64 = rank + oversample, K = 36 > 32),
     # with Omega as the solver passes it ((L, M) contiguous) and as the
@@ -2013,6 +2052,430 @@ def phase_serve_scaled(state) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 10b: the hierarchical tree merge (backend="hierarchical", rule R2)
+# ---------------------------------------------------------------------------
+
+def tree_fields(name, res, counts, want) -> dict:
+    """The launch checks of one tree solve: ``want`` maps each kernel to
+    the launches the solve must make (every other kernel: none)."""
+    for kname, n in counts.items():
+        check(n == want.get(kname, 0),
+              f"{name}: {kname} launched {n} times, want "
+              f"{want.get(kname, 0)}")
+    check(res.plan.backend == "hierarchical", f"{name}: backend "
+          f"{res.plan.backend}")
+    return diag_fields(res, counts)
+
+
+def phase_hierarchical(state) -> None:
+    """The tree merge on the card: the paper matrix exact (r = M) from COO
+    (``sparse_gram`` leaves) and dense input (``blockgram`` leaves), D = 8,
+    fanout 4 (two levels), with right vectors; the same at rank 16 against
+    the same inputs and draws run on the CPU; rule R2 (``sketch=True``,
+    rank 16) on the tall 32,768 x 262,144 matrix of phase 7b
+    (``sketch_panel`` leaves, one launch a pass over the whole stack), held
+    like phase 6's default sketch.  The tree's wide (539, 4 x 539) group
+    panels are merged on ``gesvd`` through their transpose; the exact
+    sparse tree is also run under torch's default driver (``gesvdj``) for
+    the record (``wide_merge_driver_ab``)."""
+    coo, ell = state["coo"], state["ell"]
+    m, n = coo.shape
+    out = {}
+    base = dict(backend="hierarchical", method="neighbor_random",
+                num_blocks=NUM_BLOCKS, fanout=4, use_kernel=True,
+                want_right=True)
+    for kind, inp, kernel in (("exact sparse", coo, "sparse_gram"),
+                              ("exact dense", coo.todense(), "blockgram")):
+        cfg = api.SolveConfig(**base)
+        res, counts = timed_svd(inp, cfg)
+        name = f"hierarchical[{kind}]"
+        # the repair the solve made (the dense and the sparse checkers draw
+        # their neighbor scores over different candidate sets)
+        repaired = ranky.split_and_repair(
+            ell if kernel == "sparse_gram"
+            else api.as_block_input(inp, NUM_BLOCKS, device=DEVICE),
+            NUM_BLOCKS, cfg.method, cfg.resolved_key())
+        keep_counts(state, name, counts)
+        fields = tree_fields(name, res, counts, {kernel: 1})
+        check(res.s.shape == (m,) and res.v.shape == (n, m),
+              f"{name}: S / V shape")
+        fields.update(check_exact_result(name, res, repaired, NUM_BLOCKS))
+        v_err = ortho_err(res.v)
+        check(v_err <= 1e-4, f"{name}: |V^T V - I|_max {v_err} > 1e-4")
+        res2, _ = timed_svd(inp, cfg)
+        out[kind] = dict(v_ortho_err=v_err,
+                         warm_wall_time_s=res2.diagnostics.wall_time_s,
+                         stage_ms=stage_ms(inp, cfg), **fields)
+        del res, res2, repaired
+    # The wide group panels under each driver (exact sparse tree).
+    committed = hierarchy.CUDA_SVD_DRIVER
+    ab = {}
+    try:
+        for drv in (None, "gesvd"):
+            hierarchy.CUDA_SVD_DRIVER = drv
+            with stages.record() as times:
+                r = api.svd(coo, api.SolveConfig(**base))
+            ab[drv or "default"] = dict(
+                u_ortho_err=ortho_err(r.u), v_ortho_err=ortho_err(r.v),
+                merge_svd_ms=times["merge.svd"])
+    finally:
+        hierarchy.CUDA_SVD_DRIVER = committed
+    out["wide_merge_driver_ab"] = ab
+
+    # Rank 16 (truncated leaves and merges), GPU against CPU on the same
+    # inputs and the port's CPU draws.
+    cfg16 = api.SolveConfig(**{**base, "rank": 16})
+    draws = port_draws(cfg16.resolved_key(), cfg16.method,
+                       sparse.block_ell_from_coo(coo, NUM_BLOCKS,
+                                                 device="cpu"))
+    res, counts = timed_svd(coo, cfg16, draws=draws)
+    name = "hierarchical[rank 16]"
+    keep_counts(state, name, counts)
+    fields = tree_fields(name, res, counts, {"sparse_gram": 1})
+    t0 = time.perf_counter()
+    cpu = api.svd(coo, cfg16, device="cpu",
+                  draws=ranky.RepairDraws(draws.random_cols.cpu(),
+                                          draws.neighbor_scores.cpu()))
+    cpu_s = time.perf_counter() - t0
+    ds = float((res.s.cpu() - cpu.s).abs().max())
+    check(res.s.shape == (16,) and torch.isfinite(res.s).all()
+          and ds <= 1e-3 * float(cpu.s[0]),
+          f"{name}: GPU vs CPU max|dS| {ds} > 1e-3*S[0]")
+    u_err = ortho_err(res.u)
+    check(u_err <= 1e-4, f"{name}: |U^T U - I| {u_err}")
+    out["rank 16"] = dict(max_abs_dS_vs_cpu=ds, dS_limit=1e-3 * float(
+        cpu.s[0]), u_ortho_err=u_err, cpu_solve_s=cpu_s, s0=float(res.s[0]),
+        s15=float(res.s[-1]), **fields)
+    del res, cpu
+
+    # Rule R2: sketch leaves on the tall matrix.
+    tall = state.pop("tall")
+    cfg_r2 = api.SolveConfig(sketch=True, rank=16, method=tall["method"],
+                             num_blocks=NUM_BLOCKS)
+    res, counts = timed_svd(tall["coo"], cfg_r2)
+    name = "hierarchical[R2 sketch]"
+    keep_counts(state, name, counts)
+    passes = 1 + cfg_r2.power_iters
+    fields = tree_fields(name, res, counts, {"sketch_panel": passes})
+    check(res.plan.sketch_leaves and res.plan.reasons[0].startswith("R2"),
+          f"{name}: plan {res.plan.reasons}")
+    # Each leaf keeps its block's top 16 only, so the tree's S is never
+    # above the truth (every truncation is a projection) but its lower
+    # values lose what the leaves dropped, however accurate the sketch
+    # (the reference's tree has the same form).  So it is held at S[0] and
+    # never above the truth, and to the same solve on the CPU (the same
+    # key: the same draws and Omega).
+    s = res.s.double().cpu().numpy()
+    s_ref = tall["s_ref"]
+    rel = (s_ref[:16] - s) / s_ref[:16]
+    check(np.isfinite(s).all() and rel.min() >= -1e-4 and rel[0] <= 1e-3,
+          f"{name}: top-16 S above the reference or S[0] off by more than "
+          f"1e-3 (relative shortfall {rel.min()} .. {rel.max()})")
+    t0 = time.perf_counter()
+    cpu = api.svd(tall["ell"].to("cpu"), cfg_r2, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    ds = float((res.s.cpu() - cpu.s).abs().max())
+    check(ds <= 1e-3 * float(cpu.s[0]),
+          f"{name}: GPU vs CPU max|dS| {ds} > 1e-3*S[0]")
+    u_err = ortho_err(res.u)
+    check(u_err <= 1e-4, f"{name}: |U^T U - I| {u_err}")
+    res2, _ = timed_svd(tall["ell"], cfg_r2)
+    out["R2 sketch"] = dict(
+        m=tall["coo"].shape[0], n=tall["coo"].shape[1],
+        oversample=cfg_r2.oversample, power_iters=cfg_r2.power_iters,
+        held_at="S never above the reference (scipy svds) by 1e-4, S[0] "
+                "within 1e-3 of it; GPU vs CPU within 1e-3*S[0]",
+        s0=float(s[0]), s15=float(s[-1]), s_ref15=float(s_ref[15]),
+        max_rel_shortfall=float(rel.max()), max_abs_dS_vs_cpu=ds,
+        cpu_solve_s=cpu_s, u_ortho_err=u_err,
+        warm_wall_time_s_ell_input=res2.diagnostics.wall_time_s,
+        stage_ms=stage_ms(tall["ell"], cfg_r2), **fields)
+    del res, res2, tall
+    torch.cuda.empty_cache()
+    emit("hierarchical", fanout=4, num_blocks=NUM_BLOCKS,
+         merge_driver=hierarchy.CUDA_SVD_DRIVER or "default", **out)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10c: the scan-window stream driver (svd_stream, rule R6)
+# ---------------------------------------------------------------------------
+
+# The catalogue stream: 1,048,576 items, D = 8, rank 64, one batch that
+# grows the rank and 48 more of 1,000-1,024 rows (the 1,024-row bucket) at
+# density 5e-4; a 16 GiB budget lets R6 pick a window (its closed form
+# charges every batch a dense-sized repair transient).  The paper's rows
+# in dense batches of 50-64 rows at rank 16.
+STREAM_WINDOW = dict(n=1_048_576, rank=64, batches=48, rows=(1000, 1024),
+                     density=5e-4, budget=16 << 30)
+PAPER_WINDOW = dict(rank=16, rows=(50, 64))
+
+
+def sync_sites(fn):
+    """(result, {"file:line": count}) of the host syncs ``fn()`` makes, as
+    torch's sync debug mode reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = {}
+    for w in caught:
+        if "synchroniz" not in str(w.message):
+            continue
+        where = f"{os.path.relpath(w.filename)}:{w.lineno}"
+        sites[where] = sites.get(where, 0) + 1
+    return out, sites
+
+
+def stream_of(batches, cfg):
+    """svd_stream over ``batches``: its result."""
+    return api.svd_stream(iter(batches), cfg, device=DEVICE)
+
+
+def update_loop(batches, cfg):
+    """svd_init and one svd_update a batch: the final state."""
+    st = api.svd_init(batches[0].shape[1], cfg, device=DEVICE)
+    for b in batches:
+        st = api.svd_update(st, b, cfg).state
+    return st
+
+
+def counted(state, label, fn):
+    """(fn(), host seconds), the device synchronized at both ends, with the
+    launch counts of the call kept under ``label``."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    keep_counts(state, label, read_counts())
+    return out, secs
+
+
+def stream_case(state, name, batches, cfg, kernel) -> dict:
+    """One stream three ways: ``svd_stream`` with the R6 window, with
+    ``window=1`` (torch.equal to each other) and a plain ``svd_update``
+    loop (within 1e-3 * S[0]); the syncs of one window and of its batches
+    one by one; the measured peak of one window against R6's closed form."""
+    from repro_torch.stream import window as sw
+
+    loop_cfg = dataclasses.replace(cfg, window=1)
+    sw.clear_caches()
+    auto, auto_s = counted(state, f"stream_window[{name} window]",
+                           lambda: stream_of(batches, cfg))
+    counts_auto = sw.dispatch_counts()
+    sw.clear_caches()
+    loop, loop_s = counted(state, f"stream_window[{name} window=1]",
+                           lambda: stream_of(batches, loop_cfg))
+    counts_loop = sw.dispatch_counts()
+    sw.clear_caches()
+    upd, upd_s = counted(state, f"stream_window[{name} svd_update]",
+                         lambda: update_loop(batches, cfg))
+    # The three again in the opposite order (timing only): the first run of
+    # a mode pays first-use costs (pinned host buffers, library workspaces).
+    again = {}
+    for mode, fn in (("svd_update", lambda: update_loop(batches, cfg)),
+                     ("loop", lambda: stream_of(batches, loop_cfg)),
+                     ("window", lambda: stream_of(batches, cfg))):
+        _, again[mode] = counted({}, mode, fn)
+    nb = len(batches) - 1                          # after the growth batch
+    check(auto.plan.window > 1, f"{name}: R6 chose window "
+          f"{auto.plan.window} ({auto.plan.reasons[-1]})")
+    for f in ("u", "s", "v"):
+        a, b = getattr(auto.state, f), getattr(loop.state, f)
+        check(torch.equal(a, b), f"{name}: window=auto and window=1 differ "
+              f"in {f} by {max_err(a, b)}")
+    ds = float((auto.s - upd.s).abs().max())
+    check(ds <= 1e-3 * float(upd.s[0]), f"{name}: window vs svd_update "
+          f"max|dS| {ds} > 1e-3*S[0]")
+    check((auto.state.lonely_rows_seen, auto.state.repaired_rows_seen)
+          == (upd.lonely_rows_seen, upd.repaired_rows_seen),
+          f"{name}: lonely / repaired counts differ from svd_update")
+    for label in (f"stream_window[{name} window]",
+                  f"stream_window[{name} window=1]"):
+        got = state["launches_by_solve"][label][kernel]
+        check(got == len(batches), f"{label}: {kernel} launched {got} "
+              f"times, want one per batch ({len(batches)})")
+    u_err, v_err = ortho_err(auto.state.u), ortho_err(auto.state.v)
+    check(u_err <= 1e-4 and v_err <= 1e-4,
+          f"{name}: |U^T U - I| {u_err}, |V^T V - I| {v_err}")
+
+    # One more window from the final state (the batches again, one bucket,
+    # the plan's length): host syncs, peak memory against R6.
+    st = auto.state
+    norm = [stream_state.as_delta(b, st, device="cpu") for b in batches[1:]]
+    sig = sw.bucket_signature(norm[0])
+    group = [x for x in norm if sw.bucket_signature(x) == sig]
+    spec = api.ASpec(m=sig[1], n=st.n, nnz=api._delta_nnz_estimate(group[0]),
+                     num_blocks=st.num_blocks, kind="stream")
+    slots = sw.bucket_nnz_slots(sig, st.num_blocks)
+    plan = api.planner.make_window_plan(spec, cfg, nnz_slots=slots)
+    group = group[:plan.window]
+    t_len = len(group)
+    closed = api.planner.window_bytes(
+        spec, cfg.truncate_rank, cfg.oversample, exact=plan.rank is None,
+        window=t_len, batch_rank=plan.rank, nnz_slots=slots)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    (_, _), win_sync = sync_sites(lambda: sw.ingest_window(st, group, cfg,
+                                                           plan))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    check(peak <= closed, f"{name}: one window of {t_len} batches peaked at "
+          f"{peak:,}B above R6's closed form {closed:,}B")
+
+    def one_by_one():
+        s = st
+        for x in group:
+            s, _ = sw.ingest_window(s, [x], cfg, plan)
+        return s
+    _, loop_sync = sync_sites(one_by_one)
+    with stages.record() as times:          # where a window's time goes
+        sw.ingest_window(st, group, cfg, plan)
+    window_stages = sum_stages(times)
+    with stages.record() as times:
+        api.svd_update(st, batches[1], cfg)
+    update_stages = sum_stages(times)
+    _, upd_sync = sync_sites(
+        lambda: api.svd_update(st, batches[1], cfg).state)
+    return dict(
+        batches=len(batches), growth_batches=1,
+        window=auto.plan.window, r6_reason=auto.plan.reasons[-1],
+        dispatch_auto=counts_auto, dispatch_loop=counts_loop,
+        bucket=list(sig), plan_peak_bytes=auto.plan.peak_bytes,
+        ms_per_batch={mode: [secs / len(batches) * 1e3, again[mode]
+                             / len(batches) * 1e3]
+                      for mode, secs in (("window", auto_s), ("loop", loop_s),
+                                         ("svd_update", upd_s))},
+        max_abs_dS_vs_svd_update=ds, dS_limit=1e-3 * float(upd.s[0]),
+        u_ortho_err=u_err, v_ortho_err=v_err,
+        lonely_rows=auto.state.lonely_rows_seen,
+        repaired_rows=auto.state.repaired_rows_seen,
+        window_stage_ms=window_stages, svd_update_stage_ms=update_stages,
+        measured_window=dict(batches=t_len, peak_bytes=peak,
+                             r6_window_bytes=closed,
+                             peak_over_closed_form=peak / closed),
+        host_syncs=dict(
+            window=dict(total=sum(win_sync.values()), batches=t_len,
+                        sites=win_sync),
+            loop=dict(total=sum(loop_sync.values()), batches=t_len,
+                      sites=loop_sync),
+            svd_update=dict(total=sum(upd_sync.values()), batches=1,
+                            sites=upd_sync)),
+        clocks="ms_per_batch: host clock around the whole stream (its host "
+               "prologue included), the device synchronized at both ends; "
+               "[in the order window, loop, svd_update; then in the "
+               "opposite order]")
+
+
+def padded_kernel_times(st, delta, cases) -> dict:
+    """The kernels on one catalogue batch as its bucket pads it (rows to
+    m_pad, stored columns to C_pad, slots to K_pad, all padding zero) and
+    as it is: sparse_gram's padded gram is the unpadded one bit for bit
+    (padded rows and columns zero), sketch_panel's padded panel the
+    unpadded one in its first C columns and zero beyond; times side by
+    side with the slot counts."""
+    from repro_torch.stream import window as sw
+
+    e = stream_state.as_delta(delta, st, device="cpu")
+    sig = sw.bucket_signature(e)
+    _, m_pad, c_pad, k_pad = sig
+    ids, rows, vals = (x[0] for x in sw.build_window([e], sig,
+                                                     device=DEVICE))
+    e = e.to(DEVICE)
+    m, (c, k) = e.m, e.capacity
+    g_pad = sg_mod.sparse_gram(rows, vals, m_pad)
+    g = sg_mod.sparse_gram(e.col_rows, e.col_vals, m)
+    check(torch.equal(g_pad[:, :m, :m], g)
+          and float(g_pad[:, m:].abs().sum()) == 0.0
+          and float(g_pad[:, :, m:].abs().sum()) == 0.0,
+          "sparse_gram: the bucket's padding changed the gram")
+    gen = torch.Generator(DEVICE).manual_seed(8)
+    omega = torch.randn((72, m_pad), device=DEVICE, generator=gen)
+    p_pad = sp_mod.sketch_panel(omega, rows, vals)
+    p = sp_mod.sketch_panel(omega[:, :m].contiguous(), e.col_rows,
+                            e.col_vals)
+    check(torch.equal(p_pad[:, :, :c], p)
+          and float(p_pad[:, :, c:].abs().sum()) == 0.0,
+          "sketch_panel: the bucket's padding changed the panel")
+    cases.append(dict(kernel="sparse_gram", case="catalogue batch, padded "
+                      "bucket vs unpadded", max_abs_err=0.0, limit=0.0))
+    cases.append(dict(kernel="sketch_panel", case="catalogue batch, padded "
+                      "bucket vs unpadded", max_abs_err=0.0, limit=0.0))
+    slots = dict(padded=int(rows.numel()), unpadded=int(e.col_rows.numel()),
+                 nonzero=int((e.col_vals != 0).sum()))
+    out = dict(bucket=list(sig), unpadded_capacity=[m, c, k], slots=slots,
+               padded_over_unpadded_slots=slots["padded"]
+               / slots["unpadded"])
+    for kname, fp, fu in (
+            ("sparse_gram", lambda: sg_mod.sparse_gram(rows, vals, m_pad),
+             lambda: sg_mod.sparse_gram(e.col_rows, e.col_vals, m)),
+            ("sketch_panel", lambda: sp_mod.sketch_panel(omega, rows, vals),
+             lambda: sp_mod.sketch_panel(omega[:, :m].contiguous(),
+                                         e.col_rows, e.col_vals))):
+        tp, tu = time_ms(fp), time_ms(fu)
+        out[kname] = dict(padded_ms=tp, unpadded_ms=tu,
+                          padded_over_unpadded=tp / tu,
+                          padded_device_ms=device_ms(fp),
+                          unpadded_device_ms=device_ms(fu))
+    return out
+
+
+def phase_stream_window(state) -> None:
+    """svd_stream on the card: (a) the catalogue continued from
+    ``serve_scaled`` at rank 64 in ELL batches (``sparse_gram`` a step),
+    (b) the paper's rows in dense batches at rank 16 (``blockgram`` a
+    step); each window=auto against window=1 (the same bits) and against a
+    plain svd_update loop."""
+    sc = STREAM_WINDOW
+    rng = np.random.default_rng(77)
+    t0 = time.perf_counter()
+    sizes = [1024] + [int(x) for x in rng.integers(sc["rows"][0],
+                                                   sc["rows"][1] + 1,
+                                                   sc["batches"])]
+    cat = [sparse.random_bipartite(r, sc["n"], sc["density"], seed=500 + b,
+                                   power_law=True)
+           for b, r in enumerate(sizes)]
+    t_gen = time.perf_counter() - t0
+    cfg = api.SolveConfig(method="neighbor_random", truncate_rank=sc["rank"],
+                          num_blocks=NUM_BLOCKS, use_kernel=True,
+                          memory_budget_bytes=sc["budget"])
+    cases = state["kernel_cases"]
+    out = dict(catalogue=stream_case(state, "catalogue", cat, cfg,
+                                     "sparse_gram"))
+    st = api.svd_init(sc["n"], cfg, device=DEVICE)
+    st = api.svd_update(st, cat[0], cfg).state
+    out["catalogue"]["padding"] = padded_kernel_times(st, cat[1], cases)
+    out["catalogue"]["host_generate_s"] = t_gen
+    del cat, st
+    torch.cuda.empty_cache()
+
+    coo = state["coo"]
+    m = coo.shape[0]
+    bounds, lo = [0], 0
+    while lo < m:
+        lo = min(m, lo + (64 if lo == 0 else int(rng.integers(
+            PAPER_WINDOW["rows"][0], PAPER_WINDOW["rows"][1] + 1))))
+        bounds.append(lo)
+    paper = [coo_rows(coo, a, b).todense() for a, b in zip(bounds, bounds[1:])]
+    cfg = api.SolveConfig(method="neighbor_random",
+                          truncate_rank=PAPER_WINDOW["rank"],
+                          num_blocks=NUM_BLOCKS, use_kernel=True)
+    out["paper_dense"] = stream_case(state, "paper dense", paper, cfg,
+                                     "blockgram")
+    out["paper_dense"]["batch_rows"] = list(np.diff(bounds).tolist())
+    emit("stream_window", **out)
+    torch.cuda.empty_cache()
+
+
 MERGE_AB_SEEDS = (2020, 2021, 2022)
 
 
@@ -2392,8 +2855,8 @@ def main() -> int:
     for phase in (phase_kernels, phase_solve_sparse_exact,
                   phase_solve_dense_exact, phase_solve_randomized,
                   phase_solve_scaled, phase_stream_exact, phase_stream_serve,
-                  phase_serve_scaled, phase_merge_driver_ab,
-                  phase_lm_serve):
+                  phase_serve_scaled, phase_hierarchical, phase_stream_window,
+                  phase_merge_driver_ab, phase_lm_serve):
         phase(state)
         torch.cuda.synchronize()
 

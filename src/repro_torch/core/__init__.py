@@ -5,7 +5,8 @@ Public surface (``__all__``):
 
 * ``api``: the one front door: ``api.svd(a, SolveConfig(...)) ->
   SVDResult`` with an explainable plan (``api.plan``) and diagnostics;
-  streaming (``svd_init`` / ``plan_update`` / ``svd_update``) and serving
+  streaming (``svd_init`` / ``plan_update`` / ``svd_update`` /
+  ``svd_stream``) and serving
   (``api.serve_init`` / ``api.serve_topk``).  The streaming names,
   ``SolveConfig`` / ``SVDResult`` / ``Plan`` / ``ASpec`` / ``plan`` are
   re-exported here for convenience, as in the reference.
@@ -44,6 +45,7 @@ from repro_torch.core.api import (  # noqa: F401
     plan,
     plan_update,
     svd_init,
+    svd_stream,
     svd_update,
 )
 from repro_torch.core.planner import ASpec, Plan, PlanError  # noqa: F401
@@ -53,7 +55,7 @@ __all__ = [
     "api", "SolveConfig", "SVDResult", "Diagnostics", "plan",
     "ASpec", "Plan", "PlanError", "planner", "DEFAULT_SEED",
     # the streaming front door (repro_torch.stream underneath)
-    "svd_init", "svd_update", "plan_update",
+    "svd_init", "svd_update", "svd_stream", "plan_update",
     # legacy entry point (deprecation shim over the same engine)
     "ranky_svd",
     # submodules

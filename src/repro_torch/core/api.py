@@ -9,17 +9,18 @@
   tensor, ``sparse.COOMatrix``, ``sparse.BlockEll``) through one
   :func:`as_block_input` adapter, asks the planner (``core/planner.py``)
   for an explainable :class:`~repro_torch.core.planner.Plan`, runs the
-  single-host engine, and wraps the result in :class:`SVDResult` with the
-  plan and diagnostics (lonely/repaired row counts, estimated peak bytes,
-  wall time).
+  single-host engine or the hierarchical tree merge, and wraps the result
+  in :class:`SVDResult` with the plan and diagnostics (lonely/repaired row
+  counts, estimated peak bytes, wall time).
 * :func:`plan`: the planner alone: what WOULD ``svd`` do for a matrix
   of this shape, and why.
 * :func:`svd_init` / :func:`svd_update`: the STREAMING front door
   (``repro_torch.stream`` underneath): fold batches of new rows into a
   long-lived truncated factorization by merge-and-truncate, with
   :func:`plan_update` answering rule R5's "does one ingest fit this
-  device" from the batch shape alone.  (``svd_stream``, the scan-window
-  driver of rule R6, is not ported yet.)
+  device" from the batch shape alone; :func:`svd_stream` folds a whole
+  sequence of batches, same-bucket batches in windows (rule R6,
+  ``repro_torch.stream.window``).
 * :func:`serve_init` / :func:`serve_topk`: the SERVING front door (rule
   R7): a double-buffered snapshot of a streamed state, answered in
   request waves by the fused score + top-k kernel.
@@ -29,10 +30,10 @@ current CUDA device and RAISES when there is none; pass ``device="cpu"``
 to run on the host (the tests do).  A ``BlockEll`` or tensor input that
 already lies on a device is moved to the resolved one.
 
-Only ``backend="single"`` runs in this package so far: a plan whose
-backend is ``hierarchical`` or ``shard_map`` (one-shot, streaming or
-serving) raises ``NotImplementedError`` (never a silent single-host solve
-in its place).
+The backends ``single`` and ``hierarchical`` run in this package so far:
+a plan whose backend is ``shard_map`` (one-shot, streaming or serving)
+raises ``NotImplementedError`` (never a silent single-host solve in its
+place).
 
 Determinism: ``key=None`` everywhere resolves to the ONE documented
 default seed ``ranky.DEFAULT_SEED``, so repeated solves of the same input
@@ -52,6 +53,7 @@ Usage::
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -77,7 +79,6 @@ _REPAIR_DIAG_MAX_M = 4096
 
 # Where the backends that are not ported yet stand in ROADMAP.md.
 _UNPORTED_BACKENDS = {
-    "hierarchical": "Queue A item 6 (core/hierarchy.py)",
     "shard_map": "Queue A item 8 (core/distributed.py)",
 }
 
@@ -498,6 +499,19 @@ def _run_single(a, config: SolveConfig, *, draws=None, omega=None):
         key=config.resolved_key(), draws=draws, omega=omega)
 
 
+def _run_hierarchical(a, config: SolveConfig, *, sketch_override=...,
+                      draws=None, omega=None):
+    from repro_torch.core import hierarchy
+
+    sketch = config.sketch if sketch_override is ... else sketch_override
+    return hierarchy.solve_hierarchical(
+        a, num_blocks=config.num_blocks, fanout=config.fanout,
+        rank=config.rank, method=config.method, sketch=sketch,
+        oversample=config.oversample, power_iters=config.power_iters,
+        want_right=config.want_right, use_kernel=config.use_kernel,
+        key=config.resolved_key(), draws=draws, omega=omega)
+
+
 # ---------------------------------------------------------------------------
 # Diagnostics
 # ---------------------------------------------------------------------------
@@ -631,11 +645,12 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
                               mesh_provided=False)
     if note:
         p = dataclasses.replace(p, reasons=p.reasons + (note,))
-    if p.backend != "single":
+    if p.backend in _UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"the plan's backend is {p.backend!r}, which is not ported "
             f"yet: ROADMAP.md {_UNPORTED_BACKENDS[p.backend]}; only "
-            f"backend='single' runs (plan: {'; '.join(p.reasons)})")
+            f"backend='single' or 'hierarchical' runs (plan: "
+            f"{'; '.join(p.reasons)})")
 
     # local_mode is only consumed by the exact proxy merge; under the
     # gram merge (or the randomized path) a local_mode='svd' config
@@ -656,7 +671,12 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
     run_cfg = dataclasses.replace(config, num_blocks=d, backend=p.backend,
                                   rank=p.rank)
 
-    out = _run_single(a_norm, run_cfg, draws=draws, omega=omega)
+    if p.backend == "hierarchical":
+        out = _run_hierarchical(a_norm, run_cfg,
+                                sketch_override=p.sketch_leaves,
+                                draws=draws, omega=omega)
+    else:
+        out = _run_single(a_norm, run_cfg, draws=draws, omega=omega)
 
     u, s = out[0], out[1]
     v = out[2] if config.want_right else None
@@ -876,6 +896,152 @@ def svd_update(state, delta, config: Optional[SolveConfig] = None, *,
     v = new_state.trimmed_v() if config.want_right else None
     return SVDResult(u=new_state.u, s=new_state.s, v=v, plan=p,
                      diagnostics=diag, state=new_state)
+
+
+def _by_batch(src, b0: int):
+    """Injected per-batch inputs as a callable of the global batch index:
+    a sequence is indexed by the batch's place in this call's stream (its
+    first batch has global index ``b0``), a callable is kept."""
+    if src is None or callable(src):
+        return src
+    return lambda b: src[b - b0]
+
+
+def svd_stream(batches, config: Optional[SolveConfig] = None, *,
+               state=None, device=None, draws=None, omegas=None,
+               **overrides) -> SVDResult:
+    """Ingest a whole sequence of deltas and return the final result.
+
+    ``batches`` may be any iterable (a list, a generator, a socket
+    reader) and is consumed window by window, never materialized.  Two
+    regimes, switched per batch:
+
+    * while the state's rank is still growing toward ``truncate_rank``,
+      each batch runs through the per-batch engine (the window's carry is
+      fixed-shape, so the transient can't ride in it);
+    * at steady rank, consecutive batches with the same
+      ``stream.window.bucket_signature`` are grouped into windows of up
+      to ``plan.window`` batches (planner rule R6; ``config.window``
+      overrides, 1 = per-batch loop) and each window runs with the state
+      on the device throughout and one host read at its end
+      (``stream.window.ingest_window``).  ``config.adaptive_width``
+      re-picks the exact merge width from the state's spectral tail at
+      every window boundary.
+
+    ``state`` resumes an existing stream; ``device`` is where a fresh one
+    lives (``None``: the GPU; a given state's own device).  ``draws`` /
+    ``omegas`` inject each batch's random inputs (``RepairDraws``, the
+    sketch's Omega): a sequence indexed by the batch's place in this
+    call's stream, or a callable of its global batch index.  A batch
+    folded in a window takes them at its bucket's padded shape (see
+    ``ingest_window``).
+
+    Returns the final :class:`SVDResult` with CUMULATIVE diagnostics
+    (lonely/repaired counts summed over THIS call's batches, a resumed
+    stream's pre-existing history not re-counted, plus total wall time;
+    ``lonely_rows_per_block`` stays the last batch's) and the last
+    window's R6 plan (or the last per-batch R5 plan if the whole stream
+    stayed in the rank-growth regime).
+    """
+    from repro_torch import stream as streaming
+    from repro_torch.stream import window as swindow
+
+    config = _require_stream_config(_coerce_config(config, overrides))
+    it = iter(batches)
+    try:
+        first = next(it)
+    except StopIteration:
+        raise ValueError("svd_stream needs at least one batch")
+    if state is None:
+        n, d = _batch_universe(first)
+        cfg0 = config if (d is None or config.num_blocks is not None) \
+            else dataclasses.replace(config, num_blocks=d)
+        state = svd_init(n, cfg0, device=device)
+    else:
+        state = _state_to(state, state.device if device is None
+                          else resolve_device(device))
+    if (config.num_blocks is not None
+            and config.num_blocks != state.num_blocks):
+        raise ValueError(
+            f"config.num_blocks={config.num_blocks} but the state's "
+            f"column universe has num_blocks={state.num_blocks}; the "
+            f"universe is fixed at svd_init time")
+    device = state.device
+    dev_count = _device_count(device)
+    t0, built_before = _timed_start(device)
+    base_lonely = state.lonely_rows_seen
+    base_repaired = state.repaired_rows_seen
+    draws = _by_batch(draws, state.batches_seen)
+    omegas = _by_batch(omegas, state.batches_seen)
+    k = config.truncate_rank
+
+    last_plan = None
+    last_pb: Tuple[int, ...] = ()
+    pending: list = []          # host-normalized same-bucket deltas
+    pending_sig = None
+    pending_cfg = config        # the window's config (adaptive l_b)
+    pending_plan = None
+
+    def flush():
+        nonlocal state, last_plan, last_pb, pending, pending_sig
+        if not pending:
+            return
+        state, info = swindow.ingest_window(state, pending, pending_cfg,
+                                            pending_plan, draws=draws,
+                                            omegas=omegas)
+        last_plan, last_pb = pending_plan, info.lonely_rows_per_block
+        pending, pending_sig = [], None
+
+    def pick(src, b):
+        return None if src is None else src(b)
+
+    for delta in itertools.chain([first], it):
+        if state.rank != k:
+            # Rank-growth prologue: the per-batch ingest until the carry
+            # shape is steady (nothing is pending here: the rank only
+            # grows, never shrinks back below k).
+            p = plan_update(delta, config, state=state)
+            b = state.batches_seen
+            state, info = streaming.ingest(state, delta, config, p,
+                                           draws=pick(draws, b),
+                                           omega=pick(omegas, b))
+            last_plan, last_pb = p, info.lonely_rows_per_block
+            continue
+        norm = streaming.as_delta(delta, state, device="cpu")
+        sig = swindow.bucket_signature(norm)
+        if pending and sig != pending_sig:
+            flush()
+        if not pending:
+            pending_sig = sig
+            pending_cfg = config
+            if config.adaptive_width:
+                eff = swindow.adaptive_oversample(state.s, k,
+                                                  config.oversample)
+                if eff != config.oversample:
+                    pending_cfg = dataclasses.replace(config,
+                                                      oversample=eff)
+            spec = ASpec(m=sig[1], n=state.n,
+                         nnz=_delta_nnz_estimate(norm),
+                         num_blocks=state.num_blocks, kind="stream")
+            pending_plan = planner.make_window_plan(
+                spec, pending_cfg, device_count=dev_count,
+                nnz_slots=swindow.bucket_nnz_slots(sig, state.num_blocks))
+        pending.append(norm)
+        if len(pending) >= pending_plan.window:
+            flush()
+    flush()
+    wall, compile_s, run_s = _timed_finish(device, t0, built_before)
+
+    diag = Diagnostics(
+        lonely_rows_per_block=last_pb,
+        lonely_rows=state.lonely_rows_seen - base_lonely,
+        repaired_rows=state.repaired_rows_seen - base_repaired,
+        strategy=last_plan.strategy,
+        estimated_peak_bytes=last_plan.estimated_peak_bytes,
+        wall_time_s=wall, compile_time_s=compile_s, run_time_s=run_s)
+    v = state.trimmed_v() if config.want_right else None
+    return SVDResult(u=state.u, s=state.s, v=v, plan=last_plan,
+                     diagnostics=diag, state=state)
 
 
 # ---------------------------------------------------------------------------

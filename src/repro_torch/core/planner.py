@@ -11,11 +11,13 @@ solve result (``api.SVDResult.plan``) echoes the plan back, so "why did
 it sketch?" is always answerable from the result object.
 
 This is the reference's ``repro.core.planner`` for the one-shot rules
-R1-R4, the streaming rules R5/R5d (:func:`make_stream_plan`) and the
-serving rule R7 (:func:`make_serve_plan`), carried over as pure
-arithmetic: every estimate, decision and reason string equals the
-reference's to the byte.  The window (R6) and recovery (R8) rules arrive
-with their slices.  A plan may name the ``shard_map`` backend (the
+R1-R4, the streaming rules R5/R5d (:func:`make_stream_plan`), the
+scan-window rule R6 (:func:`make_window_plan`) and the serving rule R7
+(:func:`make_serve_plan`), carried over as pure arithmetic: every
+estimate, decision and reason string equals the reference's to the byte
+(R6's "one lax.scan folds ..." included, though the port's window is the
+same step run T times, ``stream/window.py``).  The recovery rule (R8)
+arrives with its slice.  A plan may name the ``shard_map`` backend (the
 arithmetic does not depend on what is ported); the front door raises
 ``NotImplementedError`` for it.
 
@@ -68,6 +70,7 @@ BYTES_F32 = 4
 DEFAULT_MEMORY_BUDGET = 4 << 30  # 4 GiB
 DEFAULT_NUM_BLOCKS = 8           # dense auto default when nothing pins D
 EXACT_TRUNC_MAX_M = 2048         # auto prefers exact+truncate below this M
+DEFAULT_WINDOW = 16              # R6 auto window target (halved to fit)
 
 
 class PlanError(ValueError):
@@ -523,6 +526,150 @@ def make_stream_plan(batch: ASpec, config, *, device_count: int = 1) -> Plan:
         f"exact {est[exact_key]:,}B, sketch "
         f"{est[sketch_key]:,}B; proceeding with the cheaper "
         f"{'exact gram stack' if cheaper_exact else 'sketch'}"])
+
+
+# ---------------------------------------------------------------------------
+# Rule R6: window bytes for the scan-window stream driver
+# ---------------------------------------------------------------------------
+
+def window_carry_bytes(batch: ASpec, rank: int, *,
+                       per_device: bool = False) -> int:
+    """The fixed-shape window carry: the state's ``(s, v)`` at the
+    steady truncation rank plus the device-resident side-band counters
+    (batch index, lonely/repaired accumulators, the (D,) per-block
+    lonely vector).  ``v`` dominates: (N_pad, k) floats — or the
+    per-device (W, k) shard under the sharded engine."""
+    cols = batch.width if per_device else batch.num_blocks * batch.width
+    return BYTES_F32 * (rank * (cols + 1) + batch.num_blocks + 3)
+
+
+def window_input_bytes(batch: ASpec, window: int, *,
+                       nnz_slots: Optional[int] = None,
+                       per_device: bool = False) -> int:
+    """Stacked device-resident deltas for one window of T batches.
+
+    Dense: T * (m_b, N_pad) floats — the per-device slice is (m_b, W).
+    Bucketed ELL (``nnz_slots`` = D * C_b * K_b stored slots of the
+    canonical bucket shape): T * (rows + vals + ids) = T * (2 *
+    nnz_slots + nnz_slots / K) entries; int32 and float32 are both 4B,
+    and the ids term is bounded by the slots term, so the closed form
+    charges 3 slots-worth per batch (per-device: slots / D).
+    """
+    if nnz_slots is not None:
+        per = 3 * (nnz_slots // batch.num_blocks if per_device
+                   else nnz_slots)
+    else:
+        per = batch.m * (batch.width if per_device
+                         else batch.num_blocks * batch.width)
+    return BYTES_F32 * window * per
+
+
+def window_output_bytes(batch: ASpec, rank: int, oversample: int,
+                        window: int, *,
+                        batch_rank: Optional[int] = None) -> int:
+    """Stacked per-step window outputs, replicated on every device: the
+    small rotations ``uk`` (T, k + r_b, k), the batch left panels
+    ``u_b`` (T, m_b, r_b) — ``u`` grows with rows_seen so it can never
+    live in the fixed-shape carry; these are folded into it once, after
+    the scan — and the (T, D) per-block lonely counts."""
+    r_b = (stream_panel_width(rank, oversample, batch.m)
+           if batch_rank is None else min(batch_rank, batch.m))
+    per = (rank + r_b) * rank + batch.m * r_b + batch.num_blocks
+    return BYTES_F32 * window * per
+
+
+def window_bytes(batch: ASpec, rank: int, oversample: int, *, exact: bool,
+                 window: int, batch_rank: Optional[int] = None,
+                 nnz_slots: Optional[int] = None,
+                 per_device: bool = False) -> int:
+    """R6 total: one window's peak = fixed carry + stacked
+    inputs + stacked outputs (all window-proportional and resident for
+    the whole dispatch) + ONE step's R5/R5d working set (the per-batch
+    factorization + merge panel; steps run sequentially inside the
+    scan, so only one step's transient is live at a time).
+
+    ``batch`` must describe the BUCKETED batch (m = padded bucket rows);
+    the window engine and the benchmarks hand-compute this same form.
+    """
+    step = (streaming_bytes_per_device(batch, rank, oversample, exact=exact,
+                                       batch_rank=batch_rank)
+            if per_device else
+            streaming_bytes(batch, rank, oversample, exact=exact,
+                            batch_rank=batch_rank))
+    return (window_carry_bytes(batch, rank, per_device=per_device)
+            + window_input_bytes(batch, window, nnz_slots=nnz_slots,
+                                 per_device=per_device)
+            + window_output_bytes(batch, rank, oversample, window,
+                                  batch_rank=batch_rank)
+            + step)
+
+
+def make_window_plan(batch: ASpec, config, *, device_count: int = 1,
+                     nnz_slots: Optional[int] = None) -> Plan:
+    """Rule R6 on top of R5/R5d: decide the scan-window length for the
+    one-compilation stream driver.
+
+    Starts from :func:`make_stream_plan`'s backend / batch-factorization
+    decision (``batch`` already describes the bucketed delta), then
+    picks the window length T: ``config.window`` when set (shrunk by
+    halving if its R6 bytes exceed the budget, with a reason saying
+    so), else the largest power of two <= :data:`DEFAULT_WINDOW` that
+    fits.  When not even T=2 fits, the plan degrades honestly to the
+    per-batch loop (``window=1``) — streaming was explicitly requested,
+    so R6 never raises.  The chosen window and its closed-form bytes
+    are echoed in ``Plan.explain`` and ``Plan.estimates``.
+    """
+    base = make_stream_plan(batch, config, device_count=device_count)
+    k = config.truncate_rank
+    exact = base.rank is None
+    per_device = base.backend == "shard_map"
+    batch_rank = None if exact else base.rank
+
+    def wbytes(t: int) -> int:
+        return window_bytes(batch, k, config.oversample, exact=exact,
+                            window=t, batch_rank=batch_rank,
+                            nnz_slots=nnz_slots, per_device=per_device)
+
+    requested = getattr(config, "window", None)
+    target = requested if requested is not None else DEFAULT_WINDOW
+    reasons = []
+    if requested == 1:
+        reasons.append(
+            "R6: window=1 requested explicitly — per-batch loop (each "
+            "batch is its own dispatch; same jitted step as the scan)")
+        chosen = 1
+    else:
+        chosen = max(1, target)
+        while chosen > 1 and wbytes(chosen) > base.budget:
+            chosen //= 2
+        scope = "PER-DEVICE " if per_device else ""
+        if chosen == 1:
+            reasons.append(
+                f"R6: not even a 2-batch window fits the budget "
+                f"({wbytes(2):,}B {scope}> {base.budget:,}B); degrading "
+                f"honestly to the per-batch loop (window=1)")
+        else:
+            how = (f"window={requested} requested" if requested is not None
+                   else f"auto window (target {DEFAULT_WINDOW})")
+            shrunk = ("" if chosen == target else
+                      f", halved from {target} to fit the budget")
+            reasons.append(
+                f"R6: {how}{shrunk} — one lax.scan folds {chosen} "
+                f"same-bucket batches per dispatch; {scope}window peak = "
+                f"carry {window_carry_bytes(batch, k, per_device=per_device):,}B "
+                f"+ stacked inputs "
+                f"{window_input_bytes(batch, chosen, nnz_slots=nnz_slots, per_device=per_device):,}B "
+                f"+ stacked uk/u_b outputs "
+                f"{window_output_bytes(batch, k, config.oversample, chosen, batch_rank=batch_rank):,}B "
+                f"+ one step's R5{'d' if per_device else ''} working set "
+                f"= {wbytes(chosen):,}B <= budget {base.budget:,}B")
+    est = dict(base.estimates)
+    est["stream_window" + ("_per_device" if per_device else "")] = \
+        wbytes(chosen)
+    return dataclasses.replace(
+        base, window=chosen, estimates=est,
+        peak_bytes=wbytes(chosen) if chosen > 1 else base.peak_bytes,
+        reasons=base.reasons + tuple(reasons))
 
 
 # ---------------------------------------------------------------------------

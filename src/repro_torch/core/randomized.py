@@ -25,7 +25,10 @@ A itself, every pass applies one extra power of A A^T for free.
 Per sparse block the contractions are gather/scatter index algebra over
 the padded-ELL arrays: ``kernels.ops.sketch_panel`` for Omega @ E (the
 hand-written kernel on the GPU, O(nnz * L)) plus the <=1-entry-per-row
-repair side-band terms; a block is never densified to (M, W).
+repair side-band terms; a block is never densified to (M, W).  Every sum
+that more than one non-zero term reaches (a row of the pullback, a column
+that several repairs hit) runs in a fixed order (``sparse.segment_sum``),
+never through float atomics, so a solve gives the same bits on every run.
 
 Rank repair runs BEFORE sketching (the shared split_and_repair
 prologue): a rank-deficient block leaves lonely rows with no weight in
@@ -82,31 +85,47 @@ def pullback_block_dense(g: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
     return g @ blk.to(torch.float32).T
 
 
+def repair_col_segments(blocks: "sparse.RepairedSparseBlocks"):
+    """``sparse.sorted_segments`` of every block's repaired rows by the
+    column they land on, over the D * W columns of the stack (the repair
+    side-band of the sketch; the same for every pass of a solve)."""
+    ell = blocks.ell
+    d, w = ell.num_blocks, ell.width
+    base = torch.arange(d, device=ell.device)[:, None] * w
+    keys = torch.where(blocks.repair_mask,
+                       blocks.repair_cols.long() + base, d * w)
+    return sparse.sorted_segments(keys.reshape(-1), d * w)
+
+
 def sketch_stack_sparse(omega: torch.Tensor,
-                        blocks: "sparse.RepairedSparseBlocks") -> torch.Tensor:
-    """Sparse-native Omega @ (E_d + R_d) for every repaired block ->
-    (D, L, W), with ONE sketch_panel launch over the stack.
+                        blocks: "sparse.RepairedSparseBlocks", *,
+                        repair_segments=None) -> torch.Tensor:
+    """Sparse-native Omega_d @ (E_d + R_d) for every repaired block ->
+    (D, L, W), with ONE sketch_panel launch over the stack.  ``omega`` is
+    one (L, M) test matrix for every block or a (D, L, M) stack.
 
     E part: the (D, L, C) stored-column panels (kernels.ops.sketch_panel)
-    scattered to local column ids.  R part: row r contributes omega[:, r]
-    at column repair_cols[d, r] iff repair_mask[d, r].  Both are
-    O(nnz * L); the (M, W) block is never materialized.  The scatters are
-    f32 atomic adds on the GPU; a stored column id occurs once per block,
-    so only repairs sharing a column (or hitting a stored one) meet, and
-    those sums agree to f32 rounding from run to run.
+    scattered to local column ids; the live columns' ids are distinct and
+    padding columns add exact zeros, so the scatter gives the same bits in
+    any order.  R part: row r contributes omega_d[:, r] at column
+    repair_cols[d, r] iff repair_mask[d, r]; the rows that share a column
+    are summed in row order (``repair_segments``, from
+    :func:`repair_col_segments`, which this computes when not given).  Both
+    are O(nnz * L); the (M, W) block is never materialized.
     """
     from repro_torch.kernels import ops as kops
 
     ell = blocks.ell
-    d, l = ell.num_blocks, omega.shape[0]
+    d, w, m = ell.num_blocks, ell.width, ell.m
+    l = omega.shape[-2]
     panel = kops.sketch_panel(omega, ell.col_rows, ell.col_vals)  # (D, L, C)
-    g = torch.zeros((d, l, ell.width), dtype=torch.float32,
-                    device=omega.device)
+    g = torch.zeros((d, l, w), dtype=torch.float32, device=omega.device)
     g.scatter_add_(2, ell.col_ids.long()[:, None, :].expand_as(panel), panel)
-    rmask = blocks.repair_mask.to(torch.float32)
-    rsrc = omega[None, :, :] * rmask[:, None, :]                  # (D, L, M)
-    return g.scatter_add_(
-        2, blocks.repair_cols.long()[:, None, :].expand_as(rsrc), rsrc)
+    order, offsets = (repair_col_segments(blocks) if repair_segments is None
+                      else repair_segments)
+    rows = omega.mT.expand(d, m, l).reshape(d * m, l)      # row r of block d
+    hit = sparse.segment_sum(rows[order], offsets)          # (D * W, L)
+    return g + hit.view(d, w, l).transpose(1, 2)
 
 
 def sketch_block_sparse(
@@ -127,6 +146,15 @@ def sketch_block_sparse(
     return sketch_stack_sparse(omega, one)[0]
 
 
+def slot_row_segments(col_rows: torch.Tensor, col_vals: torch.Tensor,
+                      m: int):
+    """``sparse.sorted_segments`` of one block's non-zero ELL slots by row,
+    over its M rows (padding slots go nowhere): the row index of the
+    pullback, the same for every pass of a solve."""
+    keys = torch.where(col_vals != 0, col_rows.long(), m)
+    return sparse.sorted_segments(keys.reshape(-1), m)
+
+
 def pullback_block_sparse(
     g: torch.Tensor,
     col_ids: torch.Tensor,
@@ -135,19 +163,26 @@ def pullback_block_sparse(
     repair_cols: torch.Tensor,
     repair_mask: torch.Tensor,
     m: int,
+    *,
+    row_segments=None,
 ) -> torch.Tensor:
     """Sparse-native G_d @ (E + R)^T for one repaired block -> (L, M).
 
-    E part: gather G at stored column ids ((L, C)), scatter-add through
-    the ELL (row, value) slots.  R part: T[l, r] += mask_r * G[l, c_r].
+    E part: T[:, r] sums G[:, col_ids[c]] * vals[c, k] over the slots
+    (c, k) that name row r, in ascending slot order: the slots sorted by
+    row (``row_segments``, from :func:`slot_row_segments`, which this
+    computes when not given) and each row's run summed in order, so the
+    result is the same bits on every call.  R part: T[l, r] += mask_r *
+    G[l, c_r].
     """
-    l = g.shape[0]
-    ge = g.index_select(1, col_ids.long())                     # (L, C)
-    t = torch.zeros((l, m), dtype=torch.float32, device=g.device)
-    t.index_add_(1, col_rows.reshape(-1).long(),
-                 (ge[:, :, None] * col_vals[None]).reshape(l, -1))
+    k = col_rows.shape[-1]
+    order, offsets = (slot_row_segments(col_rows, col_vals, m)
+                      if row_segments is None else row_segments)
+    terms = (g.T.contiguous().index_select(0, col_ids.long()[order // k])
+             * col_vals.reshape(-1)[order][:, None])       # (C K, L) by row
+    t = sparse.segment_sum(terms, offsets)                 # (M, L)
     rmask = repair_mask.to(torch.float32)
-    return t + g.index_select(1, repair_cols.long()) * rmask[None, :]
+    return t.T + g.index_select(1, repair_cols.long()) * rmask[None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -164,20 +199,24 @@ def truncate_sketch(
     (rank-deficient sketch directions are dropped, not inverted), so
     Vtilde = G^T @ w has orthonormal columns and B = A @ Vtilde = t^T @ w.
     Returns (U (M, k), S (k,), vproj (L, k)) where a block's slice of the
-    right vectors is V_d = G_d^T @ vproj.
+    right vectors is V_d = G_d^T @ vproj.  A leading batch axis on ``t``
+    and ``h`` factors every sketch of the batch apart (the hierarchical
+    tree's per-block leaves).
     """
-    l = h.shape[0]
+    l = h.shape[-1]
     evals, evecs = torch.linalg.eigh(h)               # ascending
-    floor = torch.finfo(h.dtype).eps * torch.max(evals) * l
+    floor = (torch.finfo(h.dtype).eps
+             * torch.amax(evals, dim=-1, keepdim=True) * l)
     good = evals > floor
     inv_sqrt = torch.where(
         good, 1.0 / torch.sqrt(torch.where(good, evals,
                                            torch.ones_like(evals))),
         torch.zeros_like(evals))
-    w = evecs * inv_sqrt[None, :]                     # (L, L)
-    b = t.T @ w                                       # (M, L) = A @ Vtilde
+    w = evecs * inv_sqrt[..., None, :]                # (L, L)
+    b = t.mT @ w                                      # (M, L) = A @ Vtilde
     u_b, s, w_bt = torch.linalg.svd(b, full_matrices=False)
-    return u_b[:, :rank], s[:rank], w @ w_bt.T[:, :rank]
+    return (u_b[..., :rank], s[..., :rank],
+            w @ w_bt.mT[..., :rank])
 
 
 def _range_finder(
@@ -188,7 +227,8 @@ def _range_finder(
 ):
     """The shared sketch loop: returns (G, T) after q re-orthonormalized
     power passes.  ``pullback`` must already include the cross-block
-    reduction."""
+    reduction; or it returns a (D, L, M) stack, one range finder a block,
+    and the QR runs batched over the blocks."""
     def timed_sketch(om):
         with stage("sketch"):
             return sketch(om)
@@ -201,8 +241,8 @@ def _range_finder(
     for _ in range(power_iters):
         t = timed_pullback(g)                         # (L, M)
         with stage("qr"):
-            q, _ = torch.linalg.qr(t.T)               # (M, L) orthonormal
-        g = timed_sketch(q.T)
+            q, _ = torch.linalg.qr(t.mT)              # (M, L) orthonormal
+        g = timed_sketch(q.mT)
     return g, timed_pullback(g)
 
 
@@ -210,25 +250,35 @@ def _range_finder(
 # Single-host solver (over a repaired block stack, either representation)
 # ---------------------------------------------------------------------------
 
-def _stack_ops(blocks):
+def _stack_ops(blocks, *, summed: bool = True):
     """(m, sketch, pullback) of a repaired block stack: ``sketch`` maps
-    (L, M) -> (D, L, W), ``pullback`` maps (D, L, W) -> (L, M) summed over
-    blocks (one block at a time on the sparse side, whose (L, C, K)
-    intermediate is per block)."""
+    an (L, M) Omega, or a (D, L, M) stack of them, to (D, L, W);
+    ``pullback`` maps (D, L, W) -> (L, M) summed over blocks, or with
+    ``summed=False`` the (D, L, M) stack of each block's own.  The sparse
+    side runs one block at a time (its (C K, L) intermediate is per block),
+    through row and repair indexes sorted once here for every pass."""
     if isinstance(blocks, sparse.RepairedSparseBlocks):
         ell = blocks.ell
+        rep_seg = repair_col_segments(blocks)
+        row_seg = [slot_row_segments(ell.col_rows[d], ell.col_vals[d], ell.m)
+                   for d in range(ell.num_blocks)]
 
         def sketch(om):
-            return sketch_stack_sparse(om, blocks)
+            return sketch_stack_sparse(om, blocks, repair_segments=rep_seg)
+
+        def one(g, d):
+            return pullback_block_sparse(
+                g[d], ell.col_ids[d], ell.col_rows[d], ell.col_vals[d],
+                blocks.repair_cols[d], blocks.repair_mask[d], ell.m,
+                row_segments=row_seg[d])
 
         def pullback(g):
-            t = pullback_block_sparse(
-                g[0], ell.col_ids[0], ell.col_rows[0], ell.col_vals[0],
-                blocks.repair_cols[0], blocks.repair_mask[0], ell.m)
+            if not summed:
+                return torch.stack([one(g, d)
+                                    for d in range(ell.num_blocks)])
+            t = one(g, 0)
             for d in range(1, ell.num_blocks):
-                t += pullback_block_sparse(
-                    g[d], ell.col_ids[d], ell.col_rows[d], ell.col_vals[d],
-                    blocks.repair_cols[d], blocks.repair_mask[d], ell.m)
+                t += one(g, d)
             return t
 
         return ell.m, sketch, pullback
@@ -236,10 +286,12 @@ def _stack_ops(blocks):
     b32 = blocks.to(torch.float32)
 
     def sketch(om):
-        return torch.einsum("lm,dmw->dlw", om, b32)
+        return torch.einsum("lm,dmw->dlw" if om.dim() == 2 else
+                            "dlm,dmw->dlw", om, b32)
 
     def pullback(g):
-        return torch.einsum("dlw,dmw->lm", g, b32)
+        return torch.einsum("dlw,dmw->lm" if summed else "dlw,dmw->dlm",
+                            g, b32)
 
     return blocks.shape[1], sketch, pullback
 
@@ -293,33 +345,21 @@ def block_truncated_panels(
     """(D, M, rank) truncated ``U_d S_d`` leaf panels via an independent
     per-block sketch: the randomized leaves that feed the hierarchical
     tree merge in place of the O(M^3)-per-block gram+eigh leaves.  Every
-    block sketches with the same Omega (``omega``, or drawn from ``key``).
-    """
-    is_sparse = isinstance(blocks, sparse.RepairedSparseBlocks)
-    m = blocks.ell.m if is_sparse else blocks.shape[1]
+    block sketches with the same Omega (``omega``, or drawn from ``key``);
+    the power passes give each block its own Q_d.  The blocks run as one
+    stack, the counterpart of the reference's ``vmap`` over blocks: a pass
+    is one sketch over the whole stack (one ``sketch_panel`` launch on
+    sparse input, with the (D, L, M) stack of the Q_d as Omega), a batched
+    QR and per-block pullbacks."""
+    m, sketch, pullback = _stack_ops(blocks, summed=False)
     l = sketch_width(rank, oversample, m)
     if omega is None:
         omega = draw_omega(
             key, l, m,
-            device=blocks.ell.device if is_sparse else blocks.device)
-
-    def one_block(sketch1, pullback1):
-        g, t = _range_finder(sketch1, pullback1, omega, power_iters)
-        u, s, _ = truncate_sketch(t, g @ g.T, rank)
-        return u * s[None, :]
-
-    if is_sparse:
-        ell = blocks.ell
-        panels = []
-        for d in range(ell.num_blocks):
-            args = (ell.col_ids[d], ell.col_rows[d], ell.col_vals[d],
-                    blocks.repair_cols[d], blocks.repair_mask[d])
-            panels.append(one_block(
-                lambda om: sketch_block_sparse(om, *args, ell.width),
-                lambda g: pullback_block_sparse(g, *args, ell.m)))
-        return torch.stack(panels)
-
-    return torch.stack([
-        one_block(lambda om: sketch_block_dense(om, blk),
-                  lambda g: pullback_block_dense(g, blk))
-        for blk in blocks])
+            device=(blocks.ell.device
+                    if isinstance(blocks, sparse.RepairedSparseBlocks)
+                    else blocks.device))
+    g, t = _range_finder(sketch, pullback, omega, power_iters)
+    with stage("truncate_sketch"):
+        u, s, _ = truncate_sketch(t, g @ g.mT, rank)
+    return u * s[..., None, :]

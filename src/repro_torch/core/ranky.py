@@ -156,19 +156,20 @@ def _choose_masked_col(scores: torch.Tensor, mask: torch.Tensor
     arg-max returns for a full tie is not promised on every device), so
     callers must gate on has_candidate.
     """
-    scores = torch.where(mask, scores, scores.new_tensor(-1.0))
+    scores = torch.where(mask, scores, -1.0)
     return torch.argmax(scores, dim=1), torch.any(mask, dim=1)
 
 
 def _fill_rows(a_blk: torch.Tensor, rows_mask: torch.Tensor,
                cols: torch.Tensor) -> torch.Tensor:
     """A copy of the block with A[m, cols[m]] += 1 for every row m with
-    rows_mask[m].  An indexed add of the mask: no (M, W) one-hot."""
+    rows_mask[m].  A scatter of the mask, one entry a row (an exact 0 where
+    the row is not filled): no (M, W) one-hot, and shapes fixed by the
+    block's, so nothing waits for the device."""
     out = a_blk.clone()
-    idx = torch.nonzero(rows_mask).squeeze(1)
     # Rows being filled are all-zero inside the block, so add == set.
-    out[idx, cols.long()[idx]] += 1
-    return out
+    return out.scatter_add_(1, cols.long()[:, None],
+                            rows_mask[:, None].to(out.dtype))
 
 
 def _choose_for_lonely(lonely: torch.Tensor, row_adj: torch.Tensor,

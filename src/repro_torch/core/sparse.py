@@ -313,6 +313,35 @@ def stored_col_panel(
     return out.scatter_add_(1, col_rows.long(), v)
 
 
+def sorted_segments(keys: torch.Tensor, num: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(order, offsets)`` of a segmented sum over ``num`` segments.
+
+    ``keys`` (n,) names the segment in [0, num) of each value, or ``num``
+    for a value that goes nowhere.  ``order`` is a stable sort of the keys
+    (so a segment's values keep their order, and the sentinel's come last)
+    and ``offsets`` (num + 1,) the start of every segment in it.  Shapes are
+    fixed by ``keys`` and ``num``, so nothing waits for the device."""
+    keys = keys.long()
+    order = torch.sort(keys, stable=True).indices
+    counts = torch.zeros(num + 1, dtype=torch.long, device=keys.device)
+    counts.scatter_add_(0, keys, torch.ones_like(keys))
+    offsets = torch.zeros(num + 1, dtype=torch.long, device=keys.device)
+    torch.cumsum(counts[:num], 0, out=offsets[1:])
+    return order, offsets
+
+
+def segment_sum(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """(num, F): the sums of the segments of ``values`` (n, F), already in
+    the order of :func:`sorted_segments`; values past ``offsets[-1]`` (the
+    sentinel's) are left out.  Each sum runs over its segment in order, one
+    add after the other, so the result is the same bits on every call on
+    any device: the deterministic counterpart of a float ``index_add_``,
+    whose atomic adds on the GPU land in whatever order they arrive."""
+    return torch.segment_reduce(values, "sum", offsets=offsets, axis=0,
+                                unsafe=True)
+
+
 def check_ell_arrays(col_ids: np.ndarray, col_rows: np.ndarray,
                      col_vals: np.ndarray, *, m: int, width: int) -> None:
     """Hold host ELL arrays to the precondition of every device consumer:

@@ -30,7 +30,7 @@ basis of degenerate subspaces: compare S by value and U / V by subspace.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Tuple, Union
 
 import torch
 
@@ -46,23 +46,6 @@ def gram(a_blk: torch.Tensor, *, use_kernel: bool = False) -> torch.Tensor:
     return a_blk @ a_blk.T
 
 
-def repair_hits(col_ids: torch.Tensor, repair_cols: torch.Tensor,
-                repair_mask: torch.Tensor, width: int) -> torch.Tensor:
-    """(D, C) bool: the stored columns of every block that some repair
-    lands on, through a (D, W + 1) table of the columns repairs land on
-    (slot W takes the rows that are not repaired).  A handful of launches
-    for the whole stack, whose shapes do not depend on the data, so nothing
-    here waits for the device."""
-    d = col_ids.shape[0]
-    landed = torch.zeros((d, width + 1), dtype=torch.bool,
-                         device=col_ids.device)
-    at = torch.where(repair_mask, repair_cols,
-                     torch.full_like(repair_cols, width))
-    landed.scatter_(1, at.long(), True)
-    landed[:, width] = False
-    return landed.gather(1, col_ids.long())
-
-
 def repair_gram_terms(
     col_ids: torch.Tensor,
     col_rows: torch.Tensor,
@@ -70,39 +53,36 @@ def repair_gram_terms(
     repair_cols: torch.Tensor,
     repair_mask: torch.Tensor,
     m: int,
-    *,
-    hit_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``E R^T + (E R^T)^T + R R^T`` of one repaired sparse block, (M, M).
 
     * ``E R^T [r, j] = E[r, c_j] * mask_j``: a repair may hit a column E
-      already stores; this is the cross term that an append-only ELL
-      would silently drop.  Only the stored columns that some repair
-      actually hits contribute, so the (C_hit, M) panel of those columns
-      is contracted against their match matrix: the same numbers as the
-      full (C, M) panel product (every other term is an exact zero),
-      without a (C, M) intermediate.
+      already stores; this is the cross term that an append-only ELL would
+      silently drop.  A binary search of ``c_j`` among the sorted ids of
+      the live stored columns finds the K slots of column ``c_j`` for every
+      row j at once, and their values are scattered into column j of an
+      (M, M) panel.  A row occurs at most once in a stored column (the
+      container coalesces duplicates) and padding slots add exact zeros, so
+      the scatter gives the same bits in any order.
     * ``R R^T [i, j] = mask_i mask_j [c_i == c_j]``: two repairs hitting
       the same column see each other.
 
-    ``hit_idx`` is the index tensor of the stored columns that a repair
-    hits, where the caller already has it (``gram_stack`` finds it for all
-    blocks with one wait for the device); otherwise it is found here, which
-    waits once.
+    Every shape is fixed by the block's, so nothing here waits for the
+    device (the scan-window step runs it once a block and batch).
     """
+    c = col_ids.shape[0]
     rmask = repair_mask.to(torch.float32)
     g_r = (repair_cols[:, None] == repair_cols[None, :]).to(torch.float32) \
         * (rmask[:, None] * rmask[None, :])
-    if hit_idx is None:
-        landed = torch.where(repair_mask, repair_cols,
-                             torch.full_like(repair_cols, -1))
-        hit_idx = torch.nonzero(torch.isin(col_ids, landed))[:, 0]
-    if hit_idx.numel() == 0:
-        return g_r
-    panel = sparse.stored_col_panel(col_rows[hit_idx], col_vals[hit_idx], m)
-    match = (col_ids[hit_idx][:, None] == repair_cols[None, :]) \
-        .to(torch.float32) * rmask[None, :]                  # (C_hit, M)
-    cross = panel.T @ match                                  # (M, M)
+    live = (col_vals != 0).any(dim=1)
+    ids, perm = torch.sort(torch.where(
+        live, col_ids.long(), torch.iinfo(torch.int64).max))
+    at = torch.searchsorted(ids, repair_cols.long()).clamp(max=c - 1)
+    hit = (ids[at] == repair_cols.long()) & repair_mask
+    slot = perm[at]                                            # (M,)
+    vals = col_vals[slot] * hit[:, None].to(torch.float32)     # (M, K)
+    cross = torch.zeros((m, m), dtype=torch.float32, device=col_vals.device)
+    cross.scatter_add_(0, col_rows[slot].long().T, vals.T)    # (M, M)
     return cross + cross.T + g_r
 
 
@@ -145,31 +125,19 @@ def gram_stack(blocks: BlockStack, *, use_kernel: bool = False) -> torch.Tensor:
     """(D, M, M) grams of a block stack, dispatching on representation:
     dense (D, M, N_b) tensor or sparse.RepairedSparseBlocks.  With
     ``use_kernel`` the E E^T (sparse) or A A^T (dense) part of every block
-    comes from ONE kernel launch over the stack."""
+    comes from ONE kernel launch over the stack; the repair terms are added
+    block by block with fixed shapes, so the host never waits for the
+    device here."""
     if isinstance(blocks, sparse.RepairedSparseBlocks):
         ell = blocks.ell
         if use_kernel:
             from repro_torch.kernels import ops as kops
 
             grams = kops.sparse_gram(ell.col_rows, ell.col_vals, ell.m)
-            # Which stored columns the repairs hit, and how many rows each
-            # block repairs, for every block at once: the one place where
-            # the host waits for the device.  A block without repairs
-            # (every block, once M is small against the block's nnz) adds
-            # nothing.
-            nb = ell.num_blocks
-            d_idx, c_idx = torch.nonzero(
-                repair_hits(ell.col_ids, blocks.repair_cols,
-                            blocks.repair_mask, ell.width), as_tuple=True)
-            counts = torch.cat([torch.bincount(d_idx, minlength=nb),
-                                blocks.repair_mask.sum(dim=1)]).tolist()
-            per_block = c_idx.split(counts[:nb])
-            for d in range(nb):
-                if counts[nb + d]:
-                    grams[d] += repair_gram_terms(
-                        ell.col_ids[d], ell.col_rows[d], ell.col_vals[d],
-                        blocks.repair_cols[d], blocks.repair_mask[d], ell.m,
-                        hit_idx=per_block[d])
+            for d in range(ell.num_blocks):
+                grams[d] += repair_gram_terms(
+                    ell.col_ids[d], ell.col_rows[d], ell.col_vals[d],
+                    blocks.repair_cols[d], blocks.repair_mask[d], ell.m)
             return grams
         return torch.stack([
             sparse_gram_block(ell.col_ids[d], ell.col_rows[d],
@@ -296,10 +264,17 @@ def sparse_right_vectors(
     """Sparse-native right_vectors: V_blk (W, r) for one repaired sparse
     block.  A_blk^T @ U reduces to one (C, M) x (M, r) product over stored
     columns scattered to their local ids, plus the repair rows of U.
-    U may be square (exact paths) or truncated (M, r)."""
+    U may be square (exact paths) or truncated (M, r).
+
+    Both adds give the same bits on every call: the live stored columns'
+    ids are distinct and padding columns add exact zeros, and the repair
+    rows of U that share a column are summed in row order
+    (``sparse.segment_sum``), not by float atomics."""
     m = u.shape[0]
     panel = sparse.stored_col_panel(col_rows, col_vals, m)   # (C, M)
     atu = torch.zeros((width, u.shape[1]), dtype=u.dtype, device=u.device)
     atu.index_add_(0, col_ids.long(), panel @ u)
-    atu.index_add_(0, repair_cols.long(), repair_mask[:, None].to(u.dtype) * u)
+    order, offsets = sparse.sorted_segments(
+        torch.where(repair_mask, repair_cols.long(), width), width)
+    atu += sparse.segment_sum(u[order], offsets)
     return atu * masked_inverse(s, rcond=rcond)[None, :]

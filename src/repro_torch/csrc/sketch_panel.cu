@@ -1,5 +1,7 @@
-// sketch_panel: out[d, l, c] = sum_k Omega[l, rows[d, c, k]] * vals[d, c, k]
-// (Omega E_d restricted to the stored columns of every padded-ELL block).
+// sketch_panel: out[d, l, c] = sum_k Omega_d[l, rows[d, c, k]] * vals[d, c, k]
+// (Omega_d E_d restricted to the stored columns of every padded-ELL block),
+// with one Omega shared by every block or one Omega_d per block (the power
+// passes of the hierarchical tree's sketch leaves, whose Q_d differ).
 //
 // Replaces the TPU kernel src/repro/kernels/sketch_panel.py
 // (_sketch_panel_kernel / sketch_panel), which expands each ELL tile into
@@ -41,6 +43,8 @@
 //     x 64).
 //   - Only an Omega contiguous in neither layout is copied by the wrapper
 //     first (a second launch).
+//   A per-block Omega_d is read the same way, at its block's offset: the
+//   column's block is known from its place in the flat sequence.
 //   Staging the paper's 51.7 KB Omega whole in each block's shared memory
 //   was measured slower than these gathers on an H100 (PERF.md) and is not
 //   done.
@@ -81,13 +85,15 @@ constexpr int TR = 32;              // transpose tile edge
 enum Mode { GATHER = 0, TRANSPOSE = 1 };
 
 struct Args {
-  const float* omega;     // (L, M) through its strides
-  long long s_l, s_m;
+  const float* omega;     // (OD, L, M) through its strides
+  long long s_d, s_l, s_m;
   const int* rows;        // (D, C, K) contiguous
   const float* vals;
   float* out;             // (D, L, C) contiguous
-  float* ws;              // (M, L) workspace of the TRANSPOSE mode
-  const float* src;       // (M, L)-contiguous array gathered from
+  float* ws;              // (OD, M, L) workspace of the TRANSPOSE mode
+  const float* src;       // (OD, M, L) arrays gathered from, (M, L)-contiguous
+  long long src_d;        // elements between two blocks' arrays (0: shared)
+  int od;                 // 1 (one Omega for every block) or D
   int d, l, m, c, k;
   int mode, tc, kc, np, lc, ring, stage, out_elems, tiles;
 };
@@ -169,13 +175,13 @@ __device__ __forceinline__ void stage_run(const Args& a, int* s_rows,
   }
 }
 
-// Omega[l, r] for the VEC values of l from l_first on, from the (M, L)
-// array.  Plain (coherent) loads: in the TRANSPOSE mode it was written
-// earlier in this launch, by other blocks.
+// Omega_dd[l, r] for the VEC values of l from l_first on, from the (M, L)
+// array of block dd.  Plain (coherent) loads: in the TRANSPOSE mode it was
+// written earlier in this launch, by other blocks.
 template <int VEC>
-__device__ __forceinline__ void load_omega(const Args& a, int r, int l_first,
-                                           float (&w)[VEC]) {
-  const float* p = a.src + (size_t)r * a.l + l_first;
+__device__ __forceinline__ void load_omega(const Args& a, int dd, int r,
+                                           int l_first, float (&w)[VEC]) {
+  const float* p = a.src + dd * a.src_d + (size_t)r * a.l + l_first;
   if constexpr (VEC == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
@@ -198,24 +204,27 @@ sketch_panel_kernel(const Args a) {
   const int tcp = a.tc + 1;
 
   if (a.mode == TRANSPOSE) {
-    // Omega (L, M), M contiguous -> ws (M, L), 32 x 32 tiles through
+    // Each Omega (L, M), M contiguous -> ws (M, L), 32 x 32 tiles through
     // shared memory; then every block waits for the whole array.
     const int ntl = (a.l + TR - 1) / TR, ntm = (a.m + TR - 1) / TR;
+    const int per = ntl * ntm;
     const int nb = gridDim.x * gridDim.y;
     const int tx = tid % TR, ty = tid / TR;
-    for (int t = blockIdx.y * gridDim.x + blockIdx.x; t < ntl * ntm;
+    for (int t = blockIdx.y * gridDim.x + blockIdx.x; t < a.od * per;
          t += nb) {
-      const int lt = t / ntm, mt = t % ntm;
+      const int o = t / per, lt = (t % per) / ntm, mt = t % ntm;
+      const float* om = a.omega + o * a.s_d;
+      float* ws = a.ws + (size_t)o * a.m * a.l;
       for (int y = ty; y < TR; y += THREADS / TR) {
         const int ll = lt * TR + y, r = mt * TR + tx;
         if (ll < a.l && r < a.m)
-          s_tr[y * (TR + 1) + tx] = a.omega[(size_t)ll * a.s_l + r];
+          s_tr[y * (TR + 1) + tx] = om[(size_t)ll * a.s_l + r];
       }
       __syncthreads();
       for (int y = ty; y < TR; y += THREADS / TR) {
         const int r = mt * TR + y, ll = lt * TR + tx;
         if (ll < a.l && r < a.m)
-          a.ws[(size_t)r * a.l + ll] = s_tr[tx * (TR + 1) + y];
+          ws[(size_t)r * a.l + ll] = s_tr[tx * (TR + 1) + y];
       }
       __syncthreads();
     }
@@ -252,7 +261,7 @@ sketch_panel_kernel(const Args a) {
     const float* sv = s_vals + (i % a.ring) * a.stage + off;
     const int pairs = p.ncols * lv;
     for (int g0 = 0; g0 < pairs; g0 += THREADS * ROUNDS) {
-      int cc[ROUNDS], lq[ROUNDS];
+      int cc[ROUNDS], lq[ROUNDS], dd[ROUNDS];
       bool ok[ROUNDS];
       float acc[ROUNDS][VEC];
 #pragma unroll
@@ -261,6 +270,7 @@ sketch_panel_kernel(const Args a) {
         ok[u] = q < pairs;
         cc[u] = ok[u] ? q / lv : 0;
         lq[u] = ok[u] ? q % lv : 0;
+        dd[u] = a.od == 1 ? 0 : (int)((p.q0 + cc[u]) / a.c);
 #pragma unroll
         for (int v = 0; v < VEC; ++v)
           acc[u][v] = (p.j == 0 || !ok[u])
@@ -285,7 +295,7 @@ sketch_panel_kernel(const Args a) {
             if (val == 0.0f) continue;
             const int r = sr[at];
             if (r < 0 || r >= a.m) __trap();   // precondition broken
-            load_omega<VEC>(a, r, l0 + lq[u] * VEC, w[t][u]);
+            load_omega<VEC>(a, dd[u], r, l0 + lq[u] * VEC, w[t][u]);
             vv[t][u] = val;
           }
         }
@@ -374,21 +384,26 @@ inline int round4(long long x) { return (int)((x + 3) / 4 * 4); }
 
 }  // namespace
 
-// omega: (L, M) f32 with element strides (s_l, s_m), contiguous in one of
-// the two layouts: (M, L) memory (s_l == 1, s_m == L) is gathered from
-// directly; (L, M) memory (s_m == 1, s_l == M) is first transposed by the
-// kernel into ws, an (M, L) f32 workspace, which is then required.  Any
-// other Omega is refused (cudaErrorInvalidValue): the wrapper copies it
-// first.  rows, vals: (D, C, K) contiguous; out: (D, L, C) contiguous f32,
-// every element written.  Returns the launch's error code.
-extern "C" int ranky_sketch_panel(const void* omega, long long s_l,
-                                  long long s_m, const void* rows,
-                                  const void* vals, void* out, void* ws,
-                                  int d, int l, int m, int c, int k,
-                                  void* stream) {
+// omega: od (L, M) f32 matrices with element strides (s_d, s_l, s_m): od
+// is 1 (one Omega for every block; s_d is then ignored) or d (Omega_d for
+// block d).  Each is contiguous in one of the two layouts: (M, L) memory
+// (s_l == 1, s_m == L) is gathered from directly; (L, M) memory (s_m == 1,
+// s_l == M) is first transposed by the kernel into ws, an (od, M, L) f32
+// workspace, which is then required.  Any other Omega is refused
+// (cudaErrorInvalidValue): the wrapper copies it first.  rows, vals:
+// (D, C, K) contiguous; out: (D, L, C) contiguous f32, every element
+// written.  Returns the launch's error code.
+extern "C" int ranky_sketch_panel(const void* omega, long long s_d,
+                                  long long s_l, long long s_m, int od,
+                                  const void* rows, const void* vals,
+                                  void* out, void* ws, int d, int l, int m,
+                                  int c, int k, void* stream) {
   if (d <= 0 || l <= 0 || c <= 0) return 0;
+  if (od != 1 && od != d) return (int)cudaErrorInvalidValue;
   Args a{};
   a.omega = (const float*)omega;
+  a.od = od;
+  a.s_d = od == 1 ? 0 : s_d;
   a.s_l = s_l;
   a.s_m = s_m;
   a.rows = (const int*)rows;
@@ -399,9 +414,11 @@ extern "C" int ranky_sketch_panel(const void* omega, long long s_l,
   if (s_m == l && (s_l == 1 || l == 1)) {
     a.mode = GATHER;
     a.src = a.omega;
+    a.src_d = a.s_d;
   } else if (s_m == 1 && s_l == m && ws != nullptr) {
     a.mode = TRANSPOSE;
     a.src = a.ws;
+    a.src_d = od == 1 ? 0 : (long long)m * l;
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -414,7 +431,7 @@ extern "C" int ranky_sketch_panel(const void* omega, long long s_l,
   a.kc = k > STAGE_SLOTS ? STAGE_SLOTS : kk;
   a.np = (kk + a.kc - 1) / a.kc;
   a.lc = min(l, OUT_FLOATS / (a.tc + 1));
-  const bool vec_l = l % 4 == 0 &&
+  const bool vec_l = l % 4 == 0 && a.src_d % 4 == 0 &&
       (reinterpret_cast<uintptr_t>(a.src) & 15) == 0;
   if (vec_l && a.lc >= 4) a.lc -= a.lc % 4;
   const bool vec = vec_l && a.lc % 4 == 0;

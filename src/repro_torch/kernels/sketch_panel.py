@@ -1,5 +1,7 @@
 """sketch_panel: S = Omega E over the stored columns of every padded-ELL
 block, on the GPU by a hand-written CUDA kernel (``csrc/sketch_panel.cu``).
+Omega is one (L, M) matrix for every block or a (D, L, M) stack, Omega_d for
+block d (the power passes of per-block sketches, whose Q_d differ).
 
 Replaces the TPU kernel ``src/repro/kernels/sketch_panel.py``
 (``_sketch_panel_kernel`` / ``sketch_panel``) and its wrapper
@@ -31,39 +33,42 @@ from repro_torch.kernels import build
 # per call).
 launches = 0
 
-_ARGS = ((ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong)
+_ARGS = ((ctypes.c_void_p,) + (ctypes.c_longlong,) * 3 + (ctypes.c_int,)
          + (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
 
 
 def sketch_panel_ref(omega: torch.Tensor, col_rows: torch.Tensor,
                      col_vals: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: (L, M) test matrix x (D, C, K) padded-ELL
-    slots -> (D, L, C) panel.
+    """Plain PyTorch version: (L, M) test matrix (or a (D, L, M) stack, one
+    a block) x (D, C, K) padded-ELL slots -> (D, L, C) panel.
 
-    out[d, l, c] = sum_k omega[l, rows[d, c, k]] * vals[d, c, k], as an
+    out[d, l, c] = sum_k omega_d[l, rows[d, c, k]] * vals[d, c, k], as an
     O(nnz * L) gather-and-reduce over the slots, one slot index at a time
     so that no (L, C, K) intermediate is formed.  Padding slots carry
     val == 0 and are inert; duplicate (column, row) slots accumulate."""
     _check(omega, col_rows, col_vals)
     d, c, k = col_rows.shape
-    l = omega.shape[0]
+    l = omega.shape[-2]
     out = torch.zeros((d, l, c), dtype=torch.float32, device=omega.device)
     for i in range(d):
+        om = omega[i] if omega.dim() == 3 else omega
         for s in range(k):
-            gathered = omega.index_select(1, col_rows[i, :, s].long())
+            gathered = om.index_select(1, col_rows[i, :, s].long())
             out[i] += gathered * col_vals[i, :, s][None, :]
     return out
 
 
 def _check(omega: torch.Tensor, col_rows: torch.Tensor,
            col_vals: torch.Tensor) -> None:
-    if omega.dim() != 2:
-        raise ValueError(
-            f"sketch_panel wants an (L, M) omega, got {tuple(omega.shape)}")
     if col_rows.dim() != 3 or col_rows.shape != col_vals.shape:
         raise ValueError(
             f"sketch_panel wants (D, C, K) rows and vals of one shape, got "
             f"{tuple(col_rows.shape)} and {tuple(col_vals.shape)}")
+    if not (omega.dim() == 2
+            or (omega.dim() == 3 and omega.shape[0] == col_rows.shape[0])):
+        raise ValueError(
+            f"sketch_panel wants an (L, M) omega or a (D, L, M) stack with "
+            f"D = {col_rows.shape[0]}, got {tuple(omega.shape)}")
     if (omega.dtype != torch.float32 or col_rows.dtype != torch.int32
             or col_vals.dtype != torch.float32):
         raise TypeError(
@@ -95,28 +100,32 @@ def device_kernels(l: int, m: int, strides) -> int:
 
 def sketch_panel(omega: torch.Tensor, col_rows: torch.Tensor,
                  col_vals: torch.Tensor) -> torch.Tensor:
-    """out[d] = Omega E_d over stored columns: (L, M) f32, (D, C, K) int32
-    / f32 -> (D, L, C) f32.  Row indices must lie in [0, M)."""
+    """out[d] = Omega_d E_d over stored columns: (L, M) or (D, L, M) f32,
+    (D, C, K) int32 / f32 -> (D, L, C) f32.  Row indices must lie in
+    [0, M)."""
     global launches
     _check(omega, col_rows, col_vals)
     if omega.device.type == "cpu":
         return sketch_panel_ref(omega, col_rows, col_vals)
     if omega.device.type != "cuda":
         raise RuntimeError(f"sketch_panel: unsupported device {omega.device}")
-    l, m = omega.shape
+    l, m = omega.shape[-2:]
     d, c, k = col_rows.shape
-    route = omega_route(l, m, omega.stride())
+    od = omega.shape[0] if omega.dim() == 3 else 1
+    route = omega_route(l, m, omega.stride()[-2:])
     if route == "copy":
-        omega = omega.T.contiguous().T        # (M, L) memory: "gather"
+        omega = omega.mT.contiguous().mT      # (M, L) memory: "gather"
     rows = col_rows.contiguous()
     vals = col_vals.contiguous()
     fn = build.entry("ranky_sketch_panel", _ARGS)
     with torch.cuda.device(omega.device):
         out = torch.empty((d, l, c), dtype=torch.float32, device=omega.device)
-        ws = (torch.empty((m, l), dtype=torch.float32, device=omega.device)
+        ws = (torch.empty((od, m, l), dtype=torch.float32,
+                          device=omega.device)
               if route == "transpose" else None)
-        s_l, s_m = omega.stride()
-        code = fn(omega.data_ptr(), s_l, s_m, rows.data_ptr(),
+        s_l, s_m = omega.stride()[-2:]
+        s_d = omega.stride(0) if od > 1 else 0
+        code = fn(omega.data_ptr(), s_d, s_l, s_m, od, rows.data_ptr(),
                   vals.data_ptr(), out.data_ptr(),
                   None if ws is None else ws.data_ptr(), d, l, m, c, k,
                   torch.cuda.current_stream().cuda_stream)

@@ -138,9 +138,8 @@ def _ingest_math(a_norm, seed: int, s: torch.Tensor, v: torch.Tensor, *,
 
     # Merge-and-truncate: one panel SVD of [V diag(decay*s) | B^T U_b],
     # nothing bigger than (n_pad, k + r_b).
-    s_old = s * torch.tensor(config.history_decay, dtype=torch.float32,
-                             device=s.device)
-    p = torch.cat([v * s_old[None, :], panel_b], dim=1)
+    p = torch.cat([v * (s * float(config.history_decay))[None, :], panel_b],
+                  dim=1)
     k_new = min(config.truncate_rank, p.shape[1])
     v_new, s_new, uk = hierarchy.merge_svd(p, k_new)  # uk: (k_old+r_b, k_new)
     return blocks, u_b, v_new, s_new, uk

@@ -136,9 +136,10 @@ def _dense_on(delta, device: torch.device) -> torch.Tensor:
     return delta.to(device=device, dtype=torch.float32)
 
 
-def as_delta(delta: Delta, state: StreamingSVDState):
+def as_delta(delta: Delta, state: StreamingSVDState, *, device=None):
     """Normalize a batch of new rows into the state's column universe, on
-    the state's device.
+    ``device`` (``None``: the state's device; the window driver normalizes
+    on the host and stacks a window before one copy to the card).
 
     * dense (m_b, n) rows (ndarray or tensor): zero-padded to the
       universe's block multiple (lossless), a float32 tensor;
@@ -150,7 +151,7 @@ def as_delta(delta: Delta, state: StreamingSVDState):
     universe.  Dense rows already in padded column order (n_pad columns)
     are taken as they are, so normalizing twice changes nothing.
     """
-    device = state.device
+    device = state.device if device is None else torch.device(device)
     m_b, n_d = delta_shape(delta)
     if m_b < 1:
         raise ValueError(f"delta has {m_b} rows; an ingest needs >= 1")

@@ -1224,3 +1224,25 @@ def test_sketch_panel_reads_omega_through_its_strides():
         assert tsp.device_kernels(24, 539, t.stride()) == n
     q, _ = torch.linalg.qr(torch.randn(300, 16))
     assert tsp.omega_route(16, 300, q.T.stride()) == "transpose"
+
+
+def test_sketch_panel_omega_stack_is_each_blocks_own_sketch():
+    """A (D, L, M) Omega stack (the per-block Q_d of the tree's sketch
+    leaves): block d sums its slots against Omega_d in the kernel's order,
+    the model of a one-Omega call on that block alone, bit for bit; its
+    routes are read from the last two strides, as for one Omega (the
+    batched QR's Q_d^T are (L, M)-contiguous: transposed in the kernel)."""
+    d, c, k, m, l = 3, 37, 5, 67, 24
+    rows, vals = _ell(d, c, k, m, seed=9, duplicates=True, empty_block=1)
+    om = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (d, l, m)).astype(np.float32))
+    got = tsp.sketch_panel_ref(om, rows, vals)
+    for b in range(d):
+        assert torch.equal(got[b], sketch_panel_model(
+            om[b], rows[b:b + 1], vals[b:b + 1])[0])
+    assert float(got[1].abs().max()) == 0.0
+    q, _ = torch.linalg.qr(torch.randn(d, 300, 16))
+    assert tsp.omega_route(16, 300, q.mT.stride()[-2:]) == "transpose"
+    assert tsp.omega_route(l, m, om.stride()[-2:]) == "transpose"
+    assert tsp.omega_route(l, m, om.mT.contiguous().mT.stride()[-2:]) == \
+        "gather"

@@ -6,7 +6,8 @@
   messages), the same hand-computed bytes, plans equal to the reference's
   field by field, reasons as strings.
 * Stream == one-shot: the single-host twins of ``tests/test_streaming.py``
-  with ``svd_update`` loops in place of ``svd_stream`` (not ported).
+  with ``svd_update`` loops in place of ``svd_stream`` (whose own twins are
+  in ``tests/test_torch_window.py``).
 * Direct parity: the same batches through both packages, the reference's
   per-batch draws (``fold_in(key, b)``) injected into the port; S at rtol
   1e-4 (f32 gram + eigh + panel SVD on two LAPACK builds), U and V by
