@@ -51,8 +51,8 @@ What it does, one JSON line per phase:
    ``timed_variants``.  Every kernel's launch counter is set to 0 just
    before each solve and read just after it; the counts are kept solve by
    solve and never added up across solves.  Stage times come from the
-   solver's own stage timers (``repro_torch.core.stages``) around further
-   warm solves.
+   solver's obs spans (``obs.span_summary``; device time between each
+   span's two CUDA events) around further warm solves.
 8. ``stream_exact``: ``svd_init`` + ``svd_update`` of the paper matrix in 4
    row batches at full rank, held against float64 singular values.
 9. ``stream_serve``: the user's configuration: the paper rows in batches of
@@ -100,7 +100,25 @@ What it does, one JSON line per phase:
    x 32 tokens, greedy and sampled from a seeded generator.
    Phase 3 holds ``flash_attention`` and ``ssd_scan`` against their plain
    versions at this path's shapes, in bf16 and float32, with variants.
-13. ``stage_summary`` (one ingest, one serve wave), one line
+13. ``checkpoint``: the paper rows' sparse stream at rank 16
+   (``use_kernel=True``) saved with ``repro_torch.checkpoint`` and restored
+   onto the card; u, s, v equal (``torch.equal``) and the counters too, then
+   three more ``svd_update``s from the original and from the restored state
+   (the same bits), and a window resumed mid-stream from a restored state
+   against the uninterrupted one (the same bits); save and restore ms and
+   the file's size.
+14. ``observe``: ``svd_stream`` of the paper rows at rank 16 in sparse and
+   in dense batches (``use_kernel=True``) plus 20 waves of ``serve_topk``,
+   first with obs off, then on: u, s, v and every wave equal
+   (``torch.equal``), the same window dispatches, step shapes, kernel
+   launches and host syncs a batch (sync debug mode); R5, R6 and R7 drift
+   ratios recorded, each within ``obs.gate.drift_factor()``; every span's
+   CUDA events resolved, the top-level spans' sum within the wall time, the
+   Chrome trace valid; ms a batch with obs off and on.
+15. ``examples``: the four ``examples/*_torch.py`` twins as subprocesses on
+   the card (the streaming and serving twins also with ``--observe``): exit
+   code 0, wall seconds, and the kernel launches each one reports.
+16. ``stage_summary`` (one ingest, one serve wave), one line
    ``{"kernels": [...]}`` with every kernel's numbers, then the card as
    ``nvidia-smi`` names it, then the last line ``{"ok": true, "device":
    {...}}``.
@@ -111,6 +129,7 @@ on the CPU instead.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -126,7 +145,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.configs.ranky_paper import RankyPaperConfig  # noqa: E402
-from repro_torch.core import api, hierarchy, ranky, sparse, stages  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.core import api, hierarchy, ranky, sparse  # noqa: E402
 from repro_torch.data import bipartite  # noqa: E402
 from repro_torch.kernels import blockgram as bg_mod  # noqa: E402
 from repro_torch.kernels import build as kernel_build  # noqa: E402
@@ -1284,25 +1304,57 @@ def diag_fields(res, counts):
                 launches=counts)
 
 
+class SpanRecord:
+    """The obs spans of one :func:`spans` block: ``times`` {name: [ms,
+    ...]} in order of first run, ``summary`` ``obs.span_summary`` of them."""
+
+    def __init__(self):
+        self.times = {}
+        self.summary = ()
+
+
+@contextlib.contextmanager
+def spans():
+    """Where the time of the block's calls goes, from the solver's obs
+    spans: obs is on for the block only (its ring, registry and drift
+    memo cleared at both ends).  A span's duration is the device time
+    between its two CUDA events; spans nest (``svd.solve`` and
+    ``ingest.batch`` hold the stages inside them), so the names do not add
+    up to a wall time.  Obs on also arms the drift probe, which resets the
+    peak-memory counter: never measure peaks inside this block."""
+    rec = SpanRecord()
+    obs.enable()
+    obs.reset()
+    try:
+        yield rec
+    finally:
+        torch.cuda.synchronize()
+        evs = obs.trace.events()
+        for ev in evs:
+            if ev.ph == "X":
+                rec.times.setdefault(ev.name, []).append(ev.dur_us / 1e3)
+        rec.summary = obs.span_summary(evs)
+        obs.disable()
+        obs.reset()
+
+
 def stage_ms(a, cfg, reps: int = 3) -> dict:
-    """Where a warm solve's time goes, from the solver's own stage timers:
-    ``api.svd(a, cfg)`` is run ``reps`` more times inside
-    ``stages.record()`` and the run with the least wall time is kept.  A
-    stage that ran n times is summed and named ``stage xn``.  Recording
-    synchronizes the device around every stage, so ``recorded_wall_ms`` (the
-    same run's ``wall_time_s``) may exceed the unrecorded warm time;
-    ``diagnostics`` runs after the solve's wall time ends.  Made after the
-    solve it describes: the launches here are not the main path's."""
+    """Where a warm solve's time goes, from the solver's obs spans:
+    ``api.svd(a, cfg)`` is run ``reps`` more times inside :func:`spans` and
+    the run with the least wall time is kept.  A span that ran n times is
+    summed and named ``span xn``; ``recorded_wall_ms`` is the same run's
+    ``wall_time_s``; ``diagnostics`` runs after the solve's wall time ends.
+    Made after the solve it describes: the launches here are not the main
+    path's."""
     best = None
     for _ in range(reps):
-        with stages.record() as times:
+        with spans() as rec:
             res = api.svd(a, cfg)
         wall = res.diagnostics.wall_time_s
         if best is None or wall < best[0]:
-            best = (wall, times)
-    wall, times = best
-    out = {(f"{name} x{len(runs)}" if len(runs) > 1 else name): sum(runs)
-           for name, runs in times.items()}
+            best = (wall, rec)
+    wall, rec = best
+    out = sum_stages(rec)
     out["recorded_wall_ms"] = wall * 1e3
     return out
 
@@ -1708,9 +1760,11 @@ def ortho_err(x) -> float:
                  .abs().max())
 
 
-def sum_stages(times) -> dict:
-    return {(f"{name} x{len(runs)}" if len(runs) > 1 else name): sum(runs)
-            for name, runs in times.items()}
+def sum_stages(rec) -> dict:
+    """{span or "span xn": total ms} of a :class:`SpanRecord`, from its
+    ``obs.span_summary``."""
+    return {(f"{name} x{count}" if count > 1 else name): total_us / 1e3
+            for name, count, total_us in rec.summary}
 
 
 def stream_gram_case(cases, tag, st, delta, cfg, draws=None) -> None:
@@ -1744,12 +1798,12 @@ def phase_stream_exact(state) -> None:
     reset_counts()
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         befores.append(st)
-        with stages.record() as times:
+        with spans() as rec:
             res = api.svd_update(st, coo_rows(coo, int(lo), int(hi)), cfg)
         st = res.state
         walls.append(res.diagnostics.wall_time_s)
-        merge_ms.append(times["merge.svd"][0])
-        per_batch.append(sum_stages(times))
+        merge_ms.append(rec.times["merge.svd"][0])
+        per_batch.append(sum_stages(rec))
         check(res.plan.backend == "single" and res.plan.strategy ==
               "streaming" and res.plan.rank is None, "stream_exact: plan")
     counts = read_counts()
@@ -1845,9 +1899,9 @@ def phase_stream_serve(state) -> None:
     for b, before in ((0, st0), (4, st)):
         stream_gram_case(gram_cases, f"stream_serve batch {b}", before,
                          batches[b], cfg, draws_for(before, batches[b]))
-    with stages.record() as times:     # one more ingest, off the main path
+    with spans() as rec:     # one more ingest, off the main path
         api.svd_update(st, batches[4], cfg, draws=draws_for(st, batches[4]))
-    ingest_stages = sum_stages(times)
+    ingest_stages = sum_stages(rec)
 
     h32 = api.serve_init(st, api.ServeTopKConfig(batch_size=32, k_top=10))
     h8 = api.serve_init(st, api.ServeTopKConfig(batch_size=32, k_top=10,
@@ -1872,9 +1926,9 @@ def phase_stream_serve(state) -> None:
     i32, i8 = r32.indices.cpu().tolist(), r8.indices.cpu().tolist()
     overlap = float(np.mean([len(set(a) & set(b)) / 10
                              for a, b in zip(i32, i8)]))
-    with stages.record() as times:
+    with spans() as rec:
         api.serve_topk(h32, q)
-    wave_stages = sum_stages(times)
+    wave_stages = sum_stages(rec)
     # Cold start: raw interaction rows projected into factor space.
     raw = torch.from_numpy(coo_rows(coo, 0, 8).todense()).to(DEVICE)
     cold_q = ranker.project_rows(h32.read(), raw)
@@ -2114,11 +2168,11 @@ def phase_hierarchical(state) -> None:
     try:
         for drv in (None, "gesvd"):
             hierarchy.CUDA_SVD_DRIVER = drv
-            with stages.record() as times:
+            with spans() as rec:
                 r = api.svd(coo, api.SolveConfig(**base))
             ab[drv or "default"] = dict(
                 u_ortho_err=ortho_err(r.u), v_ortho_err=ortho_err(r.v),
-                merge_svd_ms=times["merge.svd"])
+                merge_svd_ms=rec.times["merge.svd"])
     finally:
         hierarchy.CUDA_SVD_DRIVER = committed
     out["wide_merge_driver_ab"] = ab
@@ -2338,12 +2392,12 @@ def stream_case(state, name, batches, cfg, kernel) -> dict:
             s, _ = sw.ingest_window(s, [x], cfg, plan)
         return s
     _, loop_sync = sync_sites(one_by_one)
-    with stages.record() as times:          # where a window's time goes
+    with spans() as rec:          # where a window's time goes
         sw.ingest_window(st, group, cfg, plan)
-    window_stages = sum_stages(times)
-    with stages.record() as times:
+    window_stages = sum_stages(rec)
+    with spans() as rec:
         api.svd_update(st, batches[1], cfg)
-    update_stages = sum_stages(times)
+    update_stages = sum_stages(rec)
     _, upd_sync = sync_sites(
         lambda: api.svd_update(st, batches[1], cfg).state)
     return dict(
@@ -2485,10 +2539,10 @@ def run_stream(coo, cfg, bounds):
     st = api.svd_init(coo.shape[1], cfg, device=DEVICE)
     merge_ms = []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
-        with stages.record() as times:
+        with spans() as rec:
             st = api.svd_update(st, coo_rows(coo, int(lo), int(hi)),
                                 cfg).state
-        merge_ms.append(times["merge.svd"][0])
+        merge_ms.append(rec.times["merge.svd"][0])
     return st, merge_ms
 
 
@@ -2821,6 +2875,310 @@ def phase_lm_serve(state) -> None:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: checkpoints, the observability layer, the example twins
+# ---------------------------------------------------------------------------
+
+# Phases 13-14: the user's stream (phase 9's configuration) on the kernels.
+OBSERVE_CFG = dict(method="neighbor_random", truncate_rank=16, oversample=8,
+                   num_blocks=NUM_BLOCKS, use_kernel=True)
+OBSERVE_WAVES = 20
+
+
+def paper_batches(coo, dense=False):
+    """The paper rows in batches of 64 (the last one shorter)."""
+    m = coo.shape[0]
+    bounds = list(range(0, m, STREAM_BATCH_ROWS)) + [m]
+    out = [coo_rows(coo, lo, hi) for lo, hi in zip(bounds, bounds[1:])]
+    return [b.todense() for b in out] if dense else out
+
+
+def states_equal(a, b) -> bool:
+    return (all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in ("u", "s", "v"))
+            and (a.seed, a.n, a.num_blocks, a.rows_seen, a.batches_seen,
+                 a.lonely_rows_seen, a.repaired_rows_seen)
+            == (b.seed, b.n, b.num_blocks, b.rows_seen, b.batches_seen,
+                b.lonely_rows_seen, b.repaired_rows_seen))
+
+
+def phase_checkpoint(state) -> None:
+    """A stream saved and restored on the card continues with the same
+    bits, per batch and mid-window."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.stream import window as sw
+
+    coo = state["coo"]
+    n = coo.shape[1]
+    cfg = api.SolveConfig(**OBSERVE_CFG)
+    batches = paper_batches(coo)
+    reset_counts()
+    st = api.svd_init(n, cfg, device=DEVICE)
+    for delta in batches[:3]:
+        st = api.svd_update(st, delta, cfg).state
+    counts = read_counts()
+    keep_counts(state, "checkpoint[ingest x3]", counts)
+    check(counts["sparse_gram"] == 3, f"checkpoint: sparse_gram launched "
+          f"{counts['sparse_gram']} times in 3 ingests")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ck.save(3, st, blocking=True)
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        out["file_bytes"] = os.path.getsize(os.path.join(path, "arrays.npz"))
+        t0 = time.perf_counter()
+        back, meta = ck.restore()             # device=None: the card
+        torch.cuda.synchronize()
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        check(back.device.type == "cuda", f"restored onto {back.device}")
+        check(states_equal(st, back), "checkpoint: the restored state "
+              "differs from the saved one")
+        a, b = st, back
+        for delta in batches[3:6]:
+            a = api.svd_update(a, delta, cfg).state
+            b = api.svd_update(b, delta, cfg).state
+        check(states_equal(a, b), "checkpoint: three svd_updates from the "
+              "restored state differ from those from the original")
+
+        # A window resumed mid-stream: dense batches of one bucket.
+        dense = [torch.from_numpy(x) for x in paper_batches(coo, dense=True)]
+        group = dense[3:7]
+        norm = stream_state.as_delta(group[0], st, device="cpu")
+        sig = sw.bucket_signature(norm)
+        spec = api.ASpec(m=sig[1], n=n, nnz=api._delta_nnz_estimate(norm),
+                         num_blocks=NUM_BLOCKS, kind="stream")
+        plan = api.planner.make_window_plan(
+            spec, cfg, nnz_slots=sw.bucket_nnz_slots(sig, NUM_BLOCKS))
+        check(plan.window >= len(group), f"checkpoint: R6 window "
+              f"{plan.window} < {len(group)}")
+        reset_counts()
+        whole, _ = sw.ingest_window(st, group, cfg, plan)
+        counts = read_counts()
+        keep_counts(state, "checkpoint[window of 4]", counts)
+        check(counts["blockgram"] == len(group), f"checkpoint: blockgram "
+              f"launched {counts['blockgram']} times in a window of 4")
+        half, _ = sw.ingest_window(st, group[:2], cfg, plan)
+        ck.save(5, half, blocking=True)
+        restored, _ = ck.restore(5)
+        resumed, _ = sw.ingest_window(restored, group[2:], cfg, plan)
+        check(states_equal(whole, resumed), "checkpoint: the window resumed "
+              "from a restored state differs from the uninterrupted one")
+        out["steps_kept"] = ck.list_steps()
+    emit("checkpoint", rank=st.rank, rows_seen=st.rows_seen,
+         state_shapes={f: list(getattr(st, f).shape) for f in ("u", "s", "v")},
+         resumed_updates_equal=True, resumed_window_equal=True,
+         window=dict(batches=len(group), bucket=list(sig)), **out,
+         clocks="host clock; save: device to host copy + npz write "
+                "(blocking); restore: read + host to device copy, the "
+                "device synchronized")
+
+
+def observe_pass(sparse_b, dense_b, queries) -> tuple:
+    """One pass of phase 14: svd_stream of both streams, then the waves
+    served from the sparse stream's state.  ((states, waves), numbers)."""
+    from repro_torch.stream import window as sw
+
+    cfg = api.SolveConfig(**OBSERVE_CFG)
+    sw.clear_caches()
+    reset_counts()
+    nums = dict(ms_per_batch={}, host_syncs_per_batch={}, sync_sites={})
+    results = {}
+    for name, batches in (("sparse", sparse_b), ("dense", dense_b)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, sites = sync_sites(lambda: api.svd_stream(iter(batches), cfg,
+                                                       device=DEVICE))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        results[name] = res
+        nums["ms_per_batch"][name] = secs / len(batches) * 1e3
+        nums["host_syncs_per_batch"][name] = (sum(sites.values())
+                                              / len(batches))
+        nums["sync_sites"][name] = sites
+        nums[f"{name}_wall_s"] = secs
+    handle = api.serve_init(results["sparse"].state,
+                            api.ServeTopKConfig(batch_size=32, k_top=10))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    waves, sites = sync_sites(lambda: [api.serve_topk(handle, q)
+                                       for q in queries])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nums["ms_per_batch"]["wave"] = secs / len(queries) * 1e3
+    nums["host_syncs_per_batch"]["wave"] = sum(sites.values()) / len(queries)
+    nums["sync_sites"]["wave"] = sites
+    nums["waves_wall_s"] = secs
+    nums["dispatch"] = sw.dispatch_counts()
+    nums["trace_count"] = sw.trace_count()
+    nums["launches"] = read_counts()
+    return (results, waves, handle), nums
+
+
+def observe_on_pass(sparse_b, dense_b, queries) -> tuple:
+    """One pass of phase 14 with obs on (cleared first, off after): the
+    pass and what obs recorded in it."""
+    obs.enable()
+    obs.reset()
+    try:
+        (res, waves, handle), nums = observe_pass(sparse_b, dense_b,
+                                                  queries)
+        rec = dict(metrics=handle.metrics(), events=obs.trace.events(),
+                   ratios=obs.drift_ratios(),
+                   diag=res["sparse"].diagnostics)
+        rec["chrome"] = obs.chrome_trace(rec["events"])
+        obs.validate_chrome_trace(rec["chrome"])
+    finally:
+        obs.disable()
+        obs.reset()
+    return (res, waves, handle), nums, rec
+
+
+def phase_observe(state) -> None:
+    """The observability layer on the card changes no result and adds no
+    host sync; it records R5 / R6 / R7 drift within the factor.  After an
+    obs-off warm-up pass, passes run off, on, on, off."""
+    coo = state["coo"]
+    sparse_b = paper_batches(coo)
+    dense_b = [torch.from_numpy(x) for x in paper_batches(coo, dense=True)]
+    gen = torch.Generator(DEVICE).manual_seed(19)
+    queries = [torch.randn((32, 16), generator=gen, device=DEVICE)
+               for _ in range(OBSERVE_WAVES)]
+    check(not obs.enabled(), "observe: obs is on before the phase")
+    observe_pass(sparse_b, dense_b, queries)             # warm-up, obs off
+    passes = []
+    for mode in ("off", "on", "on", "off"):
+        if mode == "on":
+            out, nums, rec = observe_on_pass(sparse_b, dense_b, queries)
+        else:
+            (out, nums), rec = observe_pass(sparse_b, dense_b, queries), None
+        passes.append((mode, out, nums, rec))
+
+    (ref, ref_waves, _), ref_n = passes[0][1], passes[0][2]
+    factor = obs.gate.drift_factor()
+    for i, (mode, (res, waves, _), nums, rec) in enumerate(passes[1:], 1):
+        what = f"observe: pass {i} (obs {mode})"
+        for name in ("sparse", "dense"):
+            for f in ("u", "s", "v"):
+                a, b = getattr(ref[name].state, f), getattr(res[name].state, f)
+                check(torch.equal(a, b), f"{what}: {name} {f} differs by "
+                      f"{max_err(a, b)}")
+        for j, (a, b) in enumerate(zip(ref_waves, waves)):
+            check(torch.equal(a.scores, b.scores)
+                  and torch.equal(a.indices, b.indices),
+                  f"{what}: wave {j} differs")
+        for key in ("dispatch", "trace_count", "launches",
+                    "host_syncs_per_batch"):
+            check(ref_n[key] == nums[key], f"{what}: {key} {nums[key]}, "
+                  f"with obs off {ref_n[key]}")
+        if rec is None:
+            continue
+        for rule in ("R5", "R6", "R7"):
+            keys = [k for k in rec["ratios"] if k.split("/")[0] == rule]
+            check(keys, f"{what}: no {rule} drift recorded {rec['ratios']}")
+            for k in keys:
+                check(rec["ratios"][k] <= factor, f"{what}: drift {k} = "
+                      f"{rec['ratios'][k]} > {factor}")
+        spans_x = [e for e in rec["events"] if e.ph == "X"]
+        check(spans_x and all(np.isfinite(e.dur_us) and e.dur_us >= 0
+                              for e in spans_x),
+              f"{what}: a span's duration is unresolved or negative")
+        rec["top_us"] = sum(e.dur_us for e in spans_x if e.depth == 0)
+        rec["wall_us"] = (nums["sparse_wall_s"] + nums["dense_wall_s"]
+                          + nums["waves_wall_s"]) * 1e6
+        check(rec["top_us"] <= rec["wall_us"], f"{what}: top-level spans "
+              f"{rec['top_us']} us > wall {rec['wall_us']} us")
+        d = rec["diag"]
+        check(d.span_summary is not None and d.drift_ratios is not None,
+              f"{what}: Diagnostics lacks the obs digests")
+        check(rec["metrics"]["serve_requests_total"] == OBSERVE_WAVES,
+              f"{what}: serve_requests_total "
+              f"{rec['metrics']['serve_requests_total']}")
+    for kernel, want in (("sparse_gram", len(sparse_b)),
+                         ("blockgram", len(dense_b)),
+                         ("topk_score", OBSERVE_WAVES)):
+        check(ref_n["launches"][kernel] == want, f"observe: {kernel} "
+              f"launched {ref_n['launches'][kernel]} times, want {want}")
+    ms = {mode: {k: [n["ms_per_batch"][k] for m, _, n, _ in passes
+                     if m == mode] for k in ("sparse", "dense", "wave")}
+          for mode in ("off", "on")}
+    on = [r for _, _, _, r in passes if r is not None]
+    emit("observe", batches=dict(sparse=len(sparse_b), dense=len(dense_b),
+                                 waves=OBSERVE_WAVES),
+         passes=[m for m, _, _, _ in passes], results_equal=True,
+         drift_ratios=[r["ratios"] for r in on], drift_factor=factor,
+         ms_per_batch=ms,
+         ms_per_batch_median={mode: {k: float(np.median(v))
+                                     for k, v in ms[mode].items()}
+                              for mode in ms},
+         host_syncs_per_batch=ref_n["host_syncs_per_batch"],
+         sync_sites=dict(off=ref_n["sync_sites"],
+                         on=passes[1][2]["sync_sites"]),
+         dispatch=ref_n["dispatch"], trace_count=ref_n["trace_count"],
+         launches=ref_n["launches"],
+         spans=[sum(e.ph == "X" for e in r["events"]) for r in on],
+         top_level_span_ms=[r["top_us"] / 1e3 for r in on],
+         wall_ms=[r["wall_us"] / 1e3 for r in on],
+         trace_events=[len(r["chrome"]["traceEvents"]) for r in on],
+         span_summary_ms={name: [count, us / 1e3] for name, count, us
+                          in obs.span_summary(on[0]["events"])},
+         serve_metrics={k: v for k, v in on[0]["metrics"].items()
+                        if k.startswith("serve_")},
+         clocks="ms_per_batch: host clock around each svd_stream / the "
+                "waves, device synchronized at both ends, one value a "
+                "pass (after an obs-off warm-up pass, off, on, on, off); "
+                "spans: device time between CUDA events")
+
+
+# (script, arguments, the kernels it must launch on the card)
+EXAMPLES = (
+    ("quickstart_torch.py", (), ()),
+    ("streaming_svd_torch.py", (), ()),
+    ("streaming_svd_torch.py", ("--observe",), ()),
+    ("serving_topk_torch.py", (), ("topk_score",)),
+    ("serving_topk_torch.py", ("--observe",), ("topk_score",)),
+    ("serve_lm_torch.py", (), ("flash_attention", "ssd_scan")),
+)
+
+
+def phase_examples(state) -> None:
+    """The four twins, each a process of its own on the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    runs = []
+    torch.cuda.empty_cache()
+    for script, args, kernels in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "examples", script), *args],
+            env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        name = " ".join((script,) + args)
+        check(proc.returncode == 0, f"examples: {name} exited "
+              f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+              f"{proc.stderr[-4000:]}")
+        last = proc.stdout.strip().splitlines()[-1]
+        check(last.startswith("summary "), f"examples: {name} printed no "
+              f"summary line")
+        summary = json.loads(last[len("summary "):])
+        launches = summary["launches"]
+        for kernel in kernels:
+            check(launches[kernel] >= 1, f"examples: {name} never launched "
+                  f"{kernel}")
+        if "waves" in summary:      # one launch a wave: live ones + 4 more
+            check(launches["topk_score"] == summary["waves"] + 4,
+                  f"examples: {name}: topk_score launched "
+                  f"{launches['topk_score']} times for "
+                  f"{summary['waves']} + 4 waves")
+        runs.append(dict(example=name, seconds=secs, **summary))
+        keep_counts(state, f"examples[{name}]", launches)
+    emit("examples", runs=runs,
+         clocks="wall seconds of each process, interpreter start and the "
+                "kernel library's load included")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script only "
@@ -2856,7 +3214,8 @@ def main() -> int:
                   phase_solve_dense_exact, phase_solve_randomized,
                   phase_solve_scaled, phase_stream_exact, phase_stream_serve,
                   phase_serve_scaled, phase_hierarchical, phase_stream_window,
-                  phase_merge_driver_ab, phase_lm_serve):
+                  phase_merge_driver_ab, phase_lm_serve, phase_checkpoint,
+                  phase_observe, phase_examples):
         phase(state)
         torch.cuda.synchronize()
 

@@ -12,8 +12,6 @@ Public surface (``__all__``):
   re-exported here for convenience, as in the reference.
 * ``ranky_svd``: the legacy entry point, a thin shim over the same engine.
 * ``sparse`` / ``randomized`` / ``planner`` / ``convert``: submodules.
-* ``stages``: opt-in wall times of a solve's stages (port only, until the
-  observability package is ported).
 * ``svd``: NOTE: this name is the *local SVD primitives submodule*
   (``repro_torch.core.svd``), as in the reference; the unified solver
   function lives at ``repro_torch.core.api.svd``.
@@ -36,7 +34,7 @@ from repro_torch.core.ranky import (  # noqa: F401
     split_and_repair,
 )
 from repro_torch.core import (  # noqa: F401
-    convert, planner, randomized, sparse, stages, svd)
+    convert, planner, randomized, sparse, svd)
 from repro_torch.core import api  # noqa: F401  (imports ranky/planner; keep last)
 from repro_torch.core.api import (  # noqa: F401
     SolveConfig,
@@ -59,7 +57,7 @@ __all__ = [
     # legacy entry point (deprecation shim over the same engine)
     "ranky_svd",
     # submodules
-    "sparse", "randomized", "svd", "convert", "stages",
+    "sparse", "randomized", "svd", "convert",
     # checker primitives and their random inputs
     "METHODS", "RepairDraws", "lonely_rows", "random_checker",
     "neighbor_checker", "neighbor_random_checker", "repair_block",

@@ -54,18 +54,16 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-import time
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import planner, ranky, sparse
 from repro_torch.core.planner import ASpec, Plan, PlanError  # noqa: F401  (re-export)
 from repro_torch.core.ranky import Key, RepairDraws  # noqa: F401  (re-export)
-from repro_torch.core.stages import stage
-from repro_torch.kernels import build as kernel_build
+from repro_torch.obs import clock
 
 BACKENDS = ("single", "hierarchical", "shard_map", "auto")
 STREAM_BACKENDS = ("single", "shard_map", "auto")
@@ -361,11 +359,16 @@ class Diagnostics:
 
     ``wall_time_s = compile_time_s + run_time_s``: host wall time around
     the solve with the device synchronized at both ends.  The compile side
-    is the time ``nvcc`` took to build the CUDA kernels when THIS call
-    triggered the build, else 0, so a first call may report a large
-    ``compile_time_s`` and a warm call 0; compare ``run_time_s``.
-    ``drift_ratios`` / ``span_summary`` belong to the observability layer,
-    which is not ported yet: they stay ``None``.
+    is the time ``nvcc`` took to build the CUDA kernels during THIS call
+    (the obs clock's compile probe), else 0, so a first call may report a
+    large ``compile_time_s`` and a warm call 0; compare ``run_time_s``.
+
+    With observability on (``SolveConfig(observe=True)`` or
+    ``obs.enable()``): ``drift_ratios`` is the measured/planned peak-byte
+    ratio per rule recorded so far, and ``span_summary`` the call's spans
+    as ``(name, count, total_us)`` (durations from CUDA events on the
+    card: device time between a span's two points).  Both ``None`` when
+    obs is off.
     """
 
     lonely_rows_per_block: Tuple[int, ...]
@@ -589,23 +592,39 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _timed_start(device: torch.device):
-    """(t0, kernel build seconds before): the clock of a front-door call,
-    the device synchronized first."""
-    _sync(device)
-    return time.perf_counter(), kernel_build.build_seconds
+class _CallTimer:
+    """Wall/compile/run split + obs digests for one front-door call, the
+    device synchronized at both ends.
 
+    ``config.observe=True`` stickily enables the full obs layer.  The
+    compile side is the obs clock's compile seconds (the kernels' build)
+    that appeared during the call, clamped so that ``run_time_s`` can
+    never go negative.  The span digest covers the spans appended since
+    the call began; they are read after the closing synchronize, so
+    resolving their CUDA events waits for nothing.
+    """
 
-def _timed_finish(device: torch.device, t0: float, built_before):
-    """(wall, compile, run) seconds of a call started by _timed_start:
-    the kernels are built at most once per process, so this call paid for
-    the build exactly when the recorded build time appeared during it."""
-    _sync(device)
-    wall = time.perf_counter() - t0
-    compile_s = (kernel_build.build_seconds or 0.0) \
-        if built_before is None else 0.0
-    compile_s = min(wall, compile_s)
-    return wall, compile_s, wall - compile_s
+    def __init__(self, config: Optional[SolveConfig], device: torch.device):
+        if config is not None and config.observe and not obs.enabled():
+            obs.enable()
+        self._device = device
+        _sync(device)
+        self._mark = obs.trace.mark()
+        self._t0 = clock.now()
+        self._c0 = clock.compile_seconds()
+
+    def finish(self) -> Dict[str, Any]:
+        """The Diagnostics timing/obs kwargs for this call."""
+        _sync(self._device)
+        wall = clock.now() - self._t0
+        comp = min(wall, max(0.0, clock.compile_seconds() - self._c0))
+        out: Dict[str, Any] = dict(wall_time_s=wall, compile_time_s=comp,
+                                   run_time_s=wall - comp)
+        if obs.enabled():
+            out["drift_ratios"] = obs.drift_ratios()
+            out["span_summary"] = obs.span_summary(
+                obs.trace.events_since(self._mark))
+        return out
 
 
 def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
@@ -633,8 +652,8 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
     config = _reject_stream_knobs(_coerce_config(config, overrides), "svd")
     device = resolve_device(device)
 
-    t0, built_before = _timed_start(device)
-    with stage("describe_and_plan"):
+    timer = _CallTimer(config, device)
+    with obs.span("describe_and_plan"):
         d, note = _resolve_num_blocks(a, config, device)
         spec = describe(a, d)
         if config.rank is not None and config.rank > spec.m:
@@ -663,7 +682,7 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
             "but the input is a sparse.BlockEll (the sparse path is "
             "gram-native); pass a dense array or COOMatrix, or use "
             "local_mode='gram'")
-    with stage("as_block_input"):
+    with obs.span("as_block_input"):
         a_norm = as_block_input(a, d, needs_dense=needs_dense, device=device)
     # Materialize the plan's decisions into the config the engine runs
     # with: p.rank is None when the plan is "solve exactly, truncate
@@ -671,12 +690,14 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
     run_cfg = dataclasses.replace(config, num_blocks=d, backend=p.backend,
                                   rank=p.rank)
 
-    if p.backend == "hierarchical":
-        out = _run_hierarchical(a_norm, run_cfg,
-                                sketch_override=p.sketch_leaves,
-                                draws=draws, omega=omega)
-    else:
-        out = _run_single(a_norm, run_cfg, draws=draws, omega=omega)
+    with obs.span("svd.solve", backend=p.backend, strategy=p.strategy,
+                  m=spec.m, n=spec.n):
+        if p.backend == "hierarchical":
+            out = _run_hierarchical(a_norm, run_cfg,
+                                    sketch_override=p.sketch_leaves,
+                                    draws=draws, omega=omega)
+        else:
+            out = _run_single(a_norm, run_cfg, draws=draws, omega=omega)
 
     u, s = out[0], out[1]
     v = out[2] if config.want_right else None
@@ -686,9 +707,9 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         v = v[:, :k] if v is not None else None
     if v is not None:
         v = v[:spec.n]  # trim the adapter's zero-column padding back off
-    wall, compile_s, run_s = _timed_finish(device, t0, built_before)
+    timing = timer.finish()
 
-    with stage("diagnostics"):       # after the clock: not in wall_time_s
+    with obs.span("diagnostics"):       # after the clock: not in wall_time_s
         lonely = ranky.lonely_rows_per_block(a_norm, d)
         lonely_total = sum(lonely)
         repaired = _repaired_rows(a_norm, d, config.method,
@@ -700,7 +721,7 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         repaired_rows=repaired,
         strategy=p.strategy,
         estimated_peak_bytes=p.estimated_peak_bytes,
-        wall_time_s=wall, compile_time_s=compile_s, run_time_s=run_s,
+        **timing,
     )
     return SVDResult(u=u, s=s, v=v, plan=p, diagnostics=diag)
 
@@ -873,8 +894,8 @@ def svd_update(state, delta, config: Optional[SolveConfig] = None, *,
     device = state.device if device is None else resolve_device(device)
     state = _state_to(state, device)
 
-    t0, built_before = _timed_start(device)
-    with stage("describe_and_plan"):
+    timer = _CallTimer(config, device)
+    with obs.span("describe_and_plan"):
         p = plan_update(delta, config, state=state)
     if p.backend != "single":
         raise NotImplementedError(
@@ -883,7 +904,7 @@ def svd_update(state, delta, config: Optional[SolveConfig] = None, *,
             f"stream_backend='single' (plan: {'; '.join(p.reasons)})")
     new_state, info = streaming.ingest(state, delta, config, p,
                                        draws=draws, omega=omega)
-    wall, compile_s, run_s = _timed_finish(device, t0, built_before)
+    timing = timer.finish()
 
     diag = Diagnostics(
         lonely_rows_per_block=info.lonely_rows_per_block,
@@ -891,7 +912,7 @@ def svd_update(state, delta, config: Optional[SolveConfig] = None, *,
         repaired_rows=info.repaired_rows,
         strategy=p.strategy,
         estimated_peak_bytes=p.estimated_peak_bytes,
-        wall_time_s=wall, compile_time_s=compile_s, run_time_s=run_s,
+        **timing,
     )
     v = new_state.trimmed_v() if config.want_right else None
     return SVDResult(u=new_state.u, s=new_state.s, v=v, plan=p,
@@ -968,7 +989,7 @@ def svd_stream(batches, config: Optional[SolveConfig] = None, *,
             f"universe is fixed at svd_init time")
     device = state.device
     dev_count = _device_count(device)
-    t0, built_before = _timed_start(device)
+    timer = _CallTimer(config, device)
     base_lonely = state.lonely_rows_seen
     base_repaired = state.repaired_rows_seen
     draws = _by_batch(draws, state.batches_seen)
@@ -1030,7 +1051,7 @@ def svd_stream(batches, config: Optional[SolveConfig] = None, *,
         if len(pending) >= pending_plan.window:
             flush()
     flush()
-    wall, compile_s, run_s = _timed_finish(device, t0, built_before)
+    timing = timer.finish()
 
     diag = Diagnostics(
         lonely_rows_per_block=last_pb,
@@ -1038,7 +1059,7 @@ def svd_stream(batches, config: Optional[SolveConfig] = None, *,
         repaired_rows=state.repaired_rows_seen - base_repaired,
         strategy=last_plan.strategy,
         estimated_peak_bytes=last_plan.estimated_peak_bytes,
-        wall_time_s=wall, compile_time_s=compile_s, run_time_s=run_s)
+        **timing)
     v = state.trimmed_v() if config.want_right else None
     return SVDResult(u=state.u, s=state.s, v=v, plan=last_plan,
                      diagnostics=diag, state=state)
@@ -1156,15 +1177,32 @@ class ServeHandle:
         return self.buffer.commit(state)
 
     def metrics(self) -> Dict[str, Any]:
-        """Live endpoint health: snapshot version + staleness from the
-        buffer itself and the plan's priced peak.  The serve-side
-        counters and latency quantiles of the observability layer are not
-        ported yet."""
-        return {
+        """Live endpoint health, always available (obs on or off):
+        snapshot version + staleness from the buffer itself, plus — when
+        observability is on — the serve-side counters, latency quantiles
+        and R7 drift ratio from the obs registry.  The latencies are the
+        waves' device times; reading them resolves the waves still in
+        flight (a wait for the device, off the serving path)."""
+        out: Dict[str, Any] = {
             "snapshot_version": self.buffer.version,
             "snapshot_age_s": self.buffer.age_seconds(),
             "planned_peak_bytes": self.plan.estimated_peak_bytes,
         }
+        if obs.enabled():
+            obs.trace.resolve()
+            reg = obs.registry()
+            out["serve_requests_total"] = reg.counter_value(
+                "serve_requests_total")
+            out["serve_queries_total"] = reg.counter_value(
+                "serve_queries_total")
+            out["serve_latency_us_p50"] = reg.histogram_quantile(
+                "serve_latency_us", 0.5)
+            out["serve_latency_us_p99"] = reg.histogram_quantile(
+                "serve_latency_us", 0.99)
+            out["drift_ratios"] = {
+                k: v for k, v in obs.drift_ratios().items()
+                if k.startswith("R7")}
+        return out
 
 
 def _coerce_serve_config(config: Optional[ServeTopKConfig],
@@ -1236,8 +1274,27 @@ def serve_topk(handle: ServeHandle, queries,
             f"wave of {queries.shape[0]} queries exceeds the planned "
             f"batch_size={cfg.batch_size}; split the wave or serve_init "
             f"with a larger batch_size")
-    with stage("serve.topk"):
+    if not obs.enabled():
         return ranker_mod.score_topk(
             handle.read(), queries,
             cfg.k_top if k_top is None else k_top,
             block_n=cfg.block_n, use_kernel=cfg.use_kernel)
+    snap = handle.read()
+    with obs.span("serve.topk", batch=int(queries.shape[0]),
+                  version=snap.version) as sp:
+        # The wave's latency is its device time: folded into the
+        # histogram when the span's events resolve, never waited for here.
+        sp.then(_observe_latency)
+        res = ranker_mod.score_topk(
+            snap, queries, cfg.k_top if k_top is None else k_top,
+            block_n=cfg.block_n, use_kernel=cfg.use_kernel,
+            plan_bytes=handle.plan.estimated_peak_bytes)
+    obs.counter_add("serve_requests_total")
+    obs.counter_add("serve_queries_total", float(queries.shape[0]))
+    obs.gauge_set("snapshot_version", snap.version)
+    obs.gauge_set("snapshot_age_seconds", handle.buffer.age_seconds())
+    return res
+
+
+def _observe_latency(dur_us: float) -> None:
+    obs.registry().histogram_observe("serve_latency_us", dur_us)

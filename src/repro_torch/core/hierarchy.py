@@ -23,8 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import ranky, sparse
-from repro_torch.core.stages import stage
 
 # The cuSOLVER driver of the merge SVD for CUDA tensors (``driver=`` of
 # ``torch.linalg.svd``; None is torch's default, the Jacobi ``gesvdj``).
@@ -71,7 +71,7 @@ def merge_svd(p: torch.Tensor, rank: int
     """
     m, rtot = p.shape[-2:]
     driver = CUDA_SVD_DRIVER if p.is_cuda else None
-    with stage("merge.svd"):
+    with obs.span("merge.svd", m=m, r_tot=rtot, rank=rank):
         if m > rtot:
             q, r = torch.linalg.qr(p)
             u_r, s, wt = torch.linalg.svd(r, full_matrices=False,
@@ -149,7 +149,7 @@ def solve_hierarchical(
     r = m if rank is None else min(rank, m)
     seed = ranky.seed_of(key)
 
-    with stage("split_and_repair"):
+    with obs.span("split_and_repair"):
         blocks = ranky.split_and_repair(a, num_blocks, method, seed,
                                         draws=draws)
 
@@ -159,9 +159,9 @@ def solve_hierarchical(
             blocks, rank=r, oversample=oversample, power_iters=power_iters,
             key=seed, omega=omega)
     else:
-        with stage("gram_stack"):
+        with obs.span("gram_stack"):
             grams = lsvd.gram_stack(blocks, use_kernel=use_kernel)
-        with stage("eigh_to_svd"):
+        with obs.span("eigh_to_svd"):
             us, ss = lsvd.eigh_to_svd(grams)
         panels = (us * ss[:, None, :])[:, :, :r]
 
@@ -177,7 +177,7 @@ def solve_hierarchical(
     u, s, _ = merge_svd(panels[0], r)
     if not want_right:
         return u, s
-    with stage("right_vectors_stack"):
+    with obs.span("right_vectors_stack"):
         return u, s, ranky.right_vectors_stack(blocks, u, s)
 
 

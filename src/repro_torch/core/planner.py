@@ -66,6 +66,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+from repro_torch import obs
+
 BYTES_F32 = 4
 DEFAULT_MEMORY_BUDGET = 4 << 30  # 4 GiB
 DEFAULT_NUM_BLOCKS = 8           # dense auto default when nothing pins D
@@ -288,6 +290,7 @@ def make_plan(spec: ASpec, config, *, device_count: int = 1,
     ``mesh_provided=True`` records that the caller handed an explicit
     mesh, which makes auto prefer shard_map.
     """
+    obs.counter_add("planner_plans_total", labels={"rule": "R1-R4"})
     budget = config.memory_budget_bytes or DEFAULT_MEMORY_BUDGET
     est = _estimates(spec, config)
     shard_ok = device_count == spec.num_blocks and (
@@ -426,6 +429,7 @@ def make_stream_plan(batch: ASpec, config, *, device_count: int = 1) -> Plan:
     planner degrades honestly to the cheaper batch factorization and
     says so.
     """
+    obs.counter_add("planner_plans_total", labels={"rule": "R5"})
     k = config.truncate_rank
     if k is None:
         raise ValueError(
@@ -619,6 +623,7 @@ def make_window_plan(batch: ASpec, config, *, device_count: int = 1,
     so R6 never raises.  The chosen window and its closed-form bytes
     are echoed in ``Plan.explain`` and ``Plan.estimates``.
     """
+    obs.counter_add("planner_plans_total", labels={"rule": "R6"})
     base = make_stream_plan(batch, config, device_count=device_count)
     k = config.truncate_rank
     exact = base.rank is None
@@ -738,6 +743,7 @@ def make_serve_plan(n: int, rank: int, config, *,
     * budget: when even the chosen path exceeds the budget there is no
       cheaper serving strategy, so the plan keeps it and says so.
     """
+    obs.counter_add("planner_plans_total", labels={"rule": "R7"})
     budget = config.memory_budget_bytes or DEFAULT_MEMORY_BUDGET
     d = config.num_blocks
     b, k_top, block_n = config.batch_size, config.k_top, config.block_n

@@ -44,9 +44,9 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import sparse
 from repro_torch.core.ranky import Key, _generator, derive_seed, seed_of
-from repro_torch.core.stages import stage
 
 # Seed tag of the test matrix: every solver derives the identical Omega
 # for a given key.
@@ -230,17 +230,17 @@ def _range_finder(
     reduction; or it returns a (D, L, M) stack, one range finder a block,
     and the QR runs batched over the blocks."""
     def timed_sketch(om):
-        with stage("sketch"):
+        with obs.span("sketch"):
             return sketch(om)
 
     def timed_pullback(g):
-        with stage("pullback"):
+        with obs.span("pullback"):
             return pullback(g)
 
     g = timed_sketch(omega)
     for _ in range(power_iters):
         t = timed_pullback(g)                         # (L, M)
-        with stage("qr"):
+        with obs.span("qr"):
             q, _ = torch.linalg.qr(t.mT)              # (M, L) orthonormal
         g = timed_sketch(q.mT)
     return g, timed_pullback(g)
@@ -322,13 +322,13 @@ def randomized_svd_blocks(
         raise ValueError(
             f"omega has shape {tuple(omega.shape)}, want (L, M) = ({l}, {m})")
     g, t = _range_finder(sketch, pullback, omega, power_iters)
-    with stage("sketch_gram"):
+    with obs.span("sketch_gram"):
         h = torch.einsum("dlw,dkw->lk", g, g)
-    with stage("truncate_sketch"):
+    with obs.span("truncate_sketch"):
         u, s, vproj = truncate_sketch(t, h, rank)
     if not want_right:
         return u, s
-    with stage("right_vectors"):
+    with obs.span("right_vectors"):
         v = torch.einsum("dlw,lk->dwk", g, vproj)     # (D, W, k)
     return u, s, v.reshape(-1, rank)
 
@@ -360,6 +360,6 @@ def block_truncated_panels(
                     if isinstance(blocks, sparse.RepairedSparseBlocks)
                     else blocks.device))
     g, t = _range_finder(sketch, pullback, omega, power_iters)
-    with stage("truncate_sketch"):
+    with obs.span("truncate_sketch"):
         u, s, _ = truncate_sketch(t, g @ g.mT, rank)
     return u * s[..., None, :]

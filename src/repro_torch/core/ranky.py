@@ -35,8 +35,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import sparse
-from repro_torch.core.stages import stage
 
 METHODS = ("none", "random", "neighbor", "neighbor_random")
 
@@ -583,7 +583,7 @@ def solve_single(
     is_sparse = isinstance(a, sparse.BlockEll)
     seed = seed_of(key)
 
-    with stage("split_and_repair"):
+    with obs.span("split_and_repair"):
         blocks = split_and_repair(a, num_blocks, method, seed, draws=draws)
 
     if rank is not None:
@@ -595,22 +595,22 @@ def solve_single(
             omega=omega)
 
     if merge_mode == "gram":
-        with stage("gram_stack"):
+        with obs.span("gram_stack"):
             grams = lsvd.gram_stack(blocks, use_kernel=use_kernel)
-        with stage("merge_grams_eigh"):
+        with obs.span("merge_grams_eigh"):
             u, s = lsvd.merge_grams_eigh(grams)
     elif merge_mode == "proxy":
         if local_mode == "gram":
             # local_svd_gram_stack, its two halves timed apart.
-            with stage("gram_stack"):
+            with obs.span("gram_stack"):
                 grams = lsvd.gram_stack(blocks, use_kernel=use_kernel)
-            with stage("eigh_to_svd"):
+            with obs.span("eigh_to_svd"):
                 u_all, s_all = lsvd.eigh_to_svd(grams)
         elif local_mode == "svd":
             if is_sparse:
                 raise ValueError(
                     "the sparse path is gram-native; use local_mode='gram'")
-            with stage("local_svd_exact"):
+            with obs.span("local_svd_exact"):
                 u_all, s_all = lsvd.local_svd_exact(blocks)
         else:
             raise ValueError(f"unknown local_mode {local_mode!r}")
@@ -627,14 +627,14 @@ def solve_single(
             panels = torch.where(dead[:, None, :],
                                  tail_noise * smax[:, :, None] * eps_scale,
                                  panels)
-        with stage("merge_panels_svd"):
+        with obs.span("merge_panels_svd"):
             u, s = lsvd.merge_panels_svd(panels)
     else:
         raise ValueError(f"unknown merge_mode {merge_mode!r}")
 
     if not want_right:
         return u, s
-    with stage("right_vectors_stack"):
+    with obs.span("right_vectors_stack"):
         v = right_vectors_stack(blocks, u, s)
     return u, s, v
 

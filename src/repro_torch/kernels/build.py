@@ -25,6 +25,8 @@ import subprocess
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
+from repro_torch.obs import clock
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3]
              / "build" / "repro_torch")
@@ -34,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lib: Optional[ctypes.CDLL] = None
 _entries: Dict[str, ctypes._CFuncPtr] = {}
 # Seconds the build took in this process (0.0 when the library was found
-# already built, None before the first load).
+# already built, None before the first load); also added to the obs
+# clock's compile seconds, which feed ``Diagnostics.compile_time_s``.
 build_seconds: Optional[float] = None
 
 
@@ -101,6 +104,7 @@ def build() -> pathlib.Path:
     finally:
         shutil.rmtree(obj_dir, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
+    clock.record_compile(build_seconds)
     return lib_path
 
 

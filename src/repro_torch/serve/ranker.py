@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import topk_score as tk
 from repro_torch.serve.snapshot import ServingSnapshot
@@ -113,12 +114,19 @@ def score_topk(
     block_n: int = 512,
     sharded: bool = False,
     use_kernel: bool = True,
+    plan_bytes: Optional[int] = None,
 ) -> TopKResult:
     """Answer one request wave: top ``k_top`` items per query row.
 
     ``queries`` are factor-space rows (B, k): use :func:`project_rows`
     for raw interaction deltas or :func:`user_queries` for known users.
     They are moved to the snapshot's device.
+
+    ``plan_bytes`` (the R7 closed-form estimate, threaded down by
+    ``api.serve_topk``) arms the drift monitor when observability is
+    on: the first wave of each shape is measured on the card (its peak
+    plus the resident snapshot factors and folded queries) and recorded
+    as the ``drift_ratio{rule="R7"}`` gauge.
     """
     if sharded:
         raise NotImplementedError(
@@ -142,8 +150,18 @@ def score_topk(
         for t in (factors, scale, snapshot.s):
             if t is not None:
                 t.record_stream(stream)
-    vals, idx = _local_topk(
-        qs, factors, k_top,
-        scale=scale, valid_n=snapshot.n, index_offset=0, block_n=block_n,
-        use_kernel=use_kernel)
+    def wave():
+        return _local_topk(
+            qs, factors, k_top,
+            scale=scale, valid_n=snapshot.n, index_offset=0,
+            block_n=block_n, use_kernel=use_kernel)
+
+    if plan_bytes is not None and obs.enabled():
+        vals, idx = obs.observe_call(
+            "R7", wave, plan_bytes, device=factors.device,
+            component="total", label="dense",
+            shape_key=obs.drift.shape_key(qs, factors, scale),
+            resident=(qs, factors, scale, snapshot.s))
+    else:
+        vals, idx = wave()
     return TopKResult(vals, idx, snapshot.version)

@@ -26,11 +26,12 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Optional
 
 import torch
 
+from repro_torch import obs
+from repro_torch.obs import clock
 from repro_torch.serve import kvquant
 from repro_torch.stream.state import StreamingSVDState
 
@@ -87,11 +88,16 @@ class ServingSnapshot:
             raise ValueError(
                 "cannot serve a rank-0 state: ingest at least one batch "
                 "before serve_init")
-        v_q = v_scale = None
-        v = state.v
+        v = v_q = v_scale = None
         if quantize:
             v_q, v_scale = kvquant.quantize(state.v, axis=-1)
-            v = None
+        else:
+            # The state's v is a column slice of the merge's output, a
+            # strided view: the snapshot keeps a contiguous copy, made once
+            # here rather than by the kernel's wrapper at every wave (what
+            # R7's drift probe showed on the card: twice the planned bytes
+            # a wave).
+            v = state.v.contiguous()
         return cls(
             s=state.s,
             v=v,
@@ -118,7 +124,7 @@ class SnapshotBuffer:
         self._lock = threading.Lock()
         # Wall stamp of the last publish: staleness is answerable
         # (ServeHandle.metrics) without any observability layer.
-        self._published_at = time.time()
+        self._published_at = clock.wall()
 
     def read(self) -> ServingSnapshot:
         """The current serving snapshot: always one consistent state."""
@@ -130,7 +136,7 @@ class SnapshotBuffer:
 
     def age_seconds(self) -> float:
         """Seconds since the front snapshot was published."""
-        return time.time() - self._published_at
+        return clock.wall() - self._published_at
 
     def stage(self, state: StreamingSVDState, *,
               quantize: Optional[bool] = None,
@@ -147,13 +153,15 @@ class SnapshotBuffer:
             quantize = front.quantized
         if keep_u is None:
             keep_u = front.u_rows is not None
-        snap = ServingSnapshot.from_state(
-            state, quantize=quantize, keep_u=keep_u,
-            version=front.version + 1)
-        if snap.device.type == "cuda":
-            torch.cuda.current_stream(snap.device).synchronize()
-        with self._lock:
-            self._back = snap
+        with obs.span("snapshot.stage", version=front.version + 1,
+                      quantize=quantize):
+            snap = ServingSnapshot.from_state(
+                state, quantize=quantize, keep_u=keep_u,
+                version=front.version + 1)
+            if snap.device.type == "cuda":
+                torch.cuda.current_stream(snap.device).synchronize()
+            with self._lock:
+                self._back = snap
         return snap
 
     def publish(self) -> ServingSnapshot:
@@ -163,8 +171,11 @@ class SnapshotBuffer:
             if self._back is not None:
                 self._front = self._back
                 self._back = None
-                self._published_at = time.time()
-            return self._front
+                self._published_at = clock.wall()
+            front = self._front
+        obs.event("snapshot.publish", version=front.version)
+        obs.gauge_set("snapshot_version", front.version)
+        return front
 
     def commit(self, state: StreamingSVDState, **stage_kw) -> ServingSnapshot:
         """stage + publish in one call: the per-ingest convenience."""

@@ -46,9 +46,9 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import hierarchy, randomized, ranky, sparse
 from repro_torch.core import svd as lsvd
-from repro_torch.core.stages import stage
 from repro_torch.stream import state as stream_state
 from repro_torch.stream.state import StreamingSVDState
 
@@ -101,13 +101,13 @@ def _factor_batch(blocks, m_b: int, config, plan, seed: int,
     if plan.rank is None:
         # Exact: per-block gram stack (sparse-native E+R grams) + eigh,
         # truncated to the merge width r_b = min(m_b, k + oversample).
-        with stage("gram_stack"):
+        with obs.span("gram_stack"):
             grams = lsvd.gram_stack(blocks, use_kernel=config.use_kernel)
-        with stage("merge_grams_eigh"):
+        with obs.span("merge_grams_eigh"):
             u_b, _ = lsvd.merge_grams_eigh(grams)
         r_b = min(m_b, config.truncate_rank + config.oversample)
         u_b = u_b[:, :r_b]
-        with stage("right_vectors_stack"):
+        with obs.span("right_vectors_stack"):
             panel_b = ranky.right_vectors_stack(
                 blocks, u_b, torch.ones((r_b,), dtype=torch.float32,
                                         device=u_b.device))   # B^T U_b
@@ -129,7 +129,7 @@ def _ingest_math(a_norm, seed: int, s: torch.Tensor, v: torch.Tensor, *,
     factorization, merge-and-truncate) WITHOUT the left-factor update
     (``u`` grows with rows_seen; rule R5's closed form excludes it)."""
     # Repair BEFORE factorization/truncation (the rank problem).
-    with stage("split_and_repair"):
+    with obs.span("split_and_repair"):
         blocks = ranky.split_and_repair(a_norm, d, config.method, seed,
                                         draws=draws)
 
@@ -166,7 +166,7 @@ def ingest(
     if plan.backend == "shard_map":
         return ingest_shard_map(state, delta, config, plan)
     _fire_seam("ingest.batch")
-    with stage("as_delta"):
+    with obs.span("as_delta"):
         a_norm = stream_state.as_delta(delta, state)
     m_b, _ = stream_state.delta_shape(delta)
     d = state.num_blocks
@@ -176,16 +176,32 @@ def ingest(
     # matrices as the uninterrupted one.
     seed_b = ranky.derive_seed(state.seed, state.batches_seen)
 
-    blocks, u_b, v_new, s_new, uk = _ingest_math(
-        a_norm, seed_b, state.s, state.v, d=d, m_b=m_b, config=config,
-        plan=plan, draws=draws, omega=omega)
-    k_old = state.rank
-    with stage("u_update"):
-        u_new = torch.cat([state.u @ uk[:k_old], u_b @ uk[k_old:]], dim=0)
+    def math():
+        return _ingest_math(a_norm, seed_b, state.s, state.v, d=d, m_b=m_b,
+                            config=config, plan=plan, draws=draws,
+                            omega=omega)
+
+    with obs.span("ingest.batch", rows=m_b, backend="single"):
+        if obs.enabled():
+            # R5 drift: the first ingest of each batch shape is measured
+            # on the card (peak allocated above what was live before it)
+            # against the plan's closed form.
+            blocks, u_b, v_new, s_new, uk = obs.observe_call(
+                "R5", math, plan.estimated_peak_bytes, device=state.device,
+                component="temp", label="single",
+                shape_key=obs.drift.shape_key(a_norm, state.s, state.v))
+        else:
+            blocks, u_b, v_new, s_new, uk = math()
+        k_old = state.rank
+        with obs.span("u_update"):
+            u_new = torch.cat([state.u @ uk[:k_old], u_b @ uk[k_old:]],
+                              dim=0)
+    obs.counter_add("ingest_batches_total")
+    obs.counter_add("ingest_rows_total", float(m_b))
 
     # Side-band diagnostics LAST: the device-to-host reads happen only
     # after the whole factor/merge pipeline is enqueued.
-    with stage("diagnostics"):
+    with obs.span("diagnostics"):
         lonely_pb = ranky.lonely_rows_per_block(a_norm, d)
         lonely_total = sum(lonely_pb)
         repaired = _repaired_count(blocks, lonely_total)

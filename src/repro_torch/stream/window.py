@@ -62,9 +62,9 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import hierarchy, randomized, ranky, sparse
+from repro_torch import obs
+from repro_torch.core import hierarchy, planner, randomized, ranky, sparse
 from repro_torch.core import svd as lsvd
-from repro_torch.core.stages import stage
 from repro_torch.stream import state as stream_state
 from repro_torch.stream.ingest import IngestInfo, _fire_seam
 from repro_torch.stream.state import StreamingSVDState
@@ -245,7 +245,7 @@ def _factor(kind: str, d: int, m_pad: int, width: int, n_univ: int,
     the merge."""
     dev = x[0].device
     valid = torch.arange(m_pad, device=dev) < true_m        # (m_pad,) rows
-    with stage("split_and_repair"):
+    with obs.span("split_and_repair"):
         if kind == "dense":
             a = x[0]                                         # (m_pad, n_pad)
             blocks0 = a.reshape(m_pad, d, width).permute(1, 0, 2)
@@ -272,12 +272,12 @@ def _factor(kind: str, d: int, m_pad: int, width: int, n_univ: int,
             repaired = rm.sum()
 
     if sk_rank is None:
-        with stage("gram_stack"):
+        with obs.span("gram_stack"):
             grams = lsvd.gram_stack(blocks, use_kernel=config.use_kernel)
-        with stage("merge_grams_eigh"):
+        with obs.span("merge_grams_eigh"):
             u_b, _ = lsvd.merge_grams_eigh(grams)
         u_b = u_b[:, :r_b]
-        with stage("right_vectors_stack"):
+        with obs.span("right_vectors_stack"):
             panel_b = ranky.right_vectors_stack(
                 blocks, u_b, torch.ones((r_b,), dtype=torch.float32,
                                         device=dev))
@@ -364,7 +364,7 @@ def ingest_window(
             "per-device form) is not ported yet: ROADMAP.md Queue A item 8 "
             "(core/distributed.py); use stream_backend='single'")
 
-    with stage("window.prologue"):
+    with obs.span("window.prologue"):
         norm = [stream_state.as_delta(x, state, device="cpu")
                 for x in deltas]
         true_m = [stream_state.delta_shape(x)[0] for x in norm]
@@ -382,26 +382,64 @@ def ingest_window(
     step_key = ("single", kind, d, m_pad, width, n_univ, r_b, k, plan.rank,
                 config.oversample, config.power_iters, config.method,
                 config.use_kernel, float(config.history_decay))
+    traces_before = len(_TRACES)
     _BUILT.add(step_key)
     _TRACES.add((step_key, sig[2:], t_len))
 
     # Merge-phase fault seam: before the window's first step.
     _fire_seam("ingest.merge")
-    s, v = state.s, state.v
-    uks, ubs, lonely_pb = [], [], []
-    repaired = torch.zeros((), dtype=torch.int64, device=state.device)
-    decay = float(config.history_decay)
-    for t in range(t_len):
-        b = state.batches_seen + t
-        s, v, uk, u_b, lon, rep = _step(
-            (kind, d, m_pad, width, n_univ, r_b, plan.rank, config,
-             ranky.derive_seed(state.seed, b), true_m[t],
-             tuple(x[t] for x in xs), _pick(draws, t, b),
-             _pick(omegas, t, b)), k, decay, s, v)
-        uks.append(uk)
-        ubs.append(u_b)
-        lonely_pb.append(lon)
-        repaired = repaired + rep
+
+    def steps():
+        s, v = state.s, state.v
+        uks, ubs, lonely_pb = [], [], []
+        repaired = torch.zeros((), dtype=torch.int64, device=state.device)
+        decay = float(config.history_decay)
+        for t in range(t_len):
+            b = state.batches_seen + t
+            s, v, uk, u_b, lon, rep = _step(
+                (kind, d, m_pad, width, n_univ, r_b, plan.rank, config,
+                 ranky.derive_seed(state.seed, b), true_m[t],
+                 tuple(x[t] for x in xs), _pick(draws, t, b),
+                 _pick(omegas, t, b)), k, decay, s, v)
+            uks.append(uk)
+            ubs.append(u_b)
+            lonely_pb.append(lon)
+            repaired = repaired + rep
+        return s, v, uks, ubs, lonely_pb, repaired
+
+    # "compiled": this window's (step shape, capacity, T) is new, the
+    # counterpart of the reference's jit-cache growth.
+    compiled = len(_TRACES) > traces_before
+    with obs.span("ingest.window", bucket=str(sig), batches=t_len,
+                  backend=plan.backend, compiled=compiled):
+        if obs.enabled():
+            # R6 drift at the ACTUAL window length (a tail window is
+            # shorter than plan.window): the closed form re-priced for
+            # t_len batches against the steps' measured peak plus the
+            # resident carry and stacked inputs.  Dense nnz = the padded
+            # block input; ell nnz = slot capacity (an upper bound).
+            nnz_slots = bucket_nnz_slots(sig, d)
+            spec = planner.ASpec(
+                m=m_pad, n=n_univ,
+                nnz=nnz_slots if nnz_slots is not None else m_pad * n_univ,
+                num_blocks=d, kind="stream")
+            est = planner.window_bytes(
+                spec, k, config.oversample, exact=plan.rank is None,
+                window=t_len, batch_rank=plan.rank, nnz_slots=nnz_slots)
+            s, v, uks, ubs, lonely_pb, repaired = obs.observe_call(
+                "R6", steps, est, device=state.device, component="total",
+                label=plan.backend,
+                shape_key=obs.drift.shape_key(xs, state.s, state.v),
+                resident=(state.s, state.v, *xs))
+        else:
+            s, v, uks, ubs, lonely_pb, repaired = steps()
+    if obs.enabled():
+        obs.counter_add("window_dispatch_total")
+        if compiled:
+            obs.counter_add("window_compile_total")
+        obs.counter_add("ingest_batches_total", float(t_len))
+        obs.counter_add("ingest_rows_total", float(sum(true_m)))
+        obs.gauge_set("jit_cache_size", trace_count())
 
     _DISPATCH["windows"] += 1
     _DISPATCH["batches"] += t_len
@@ -409,7 +447,7 @@ def ingest_window(
     # Fold the small rotations into u AFTER the window: u grows with
     # rows_seen and never rides in the carry.  Padded u_b rows are sliced
     # off with the host-side true row counts before they touch u.
-    with stage("u_update"):
+    with obs.span("u_update"):
         u = state.u
         for uk, u_b, m_t in zip(uks, ubs, true_m):
             u = torch.cat([u @ uk[:k], u_b[:m_t] @ uk[k:]], dim=0)

@@ -421,5 +421,5 @@ def test_core_all_exports_resolve():
         assert getattr(tcore, name) is not None, name
     # everything the port's core exports has a counterpart of the same name
     # in the reference, except the port-only names
-    port_only = {"convert", "stages", "RepairDraws", "DEFAULT_SEED"}
+    port_only = {"convert", "RepairDraws", "DEFAULT_SEED"}
     assert set(tcore.__all__) - port_only <= set(jcore.__all__)

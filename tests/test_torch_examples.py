@@ -1,0 +1,60 @@
+"""The port's example scripts (``examples/*_torch.py``) on the CPU.
+
+Each twin's ``main(device="cpu")`` runs to its end and passes its own
+checks (against numpy, bit-identical resumes and windows, the float32
+prefill check), with observability on where the script has ``--observe``.
+On the card ``chip_smoke.py`` runs them as scripts (phase ``examples``).
+"""
+import importlib.util
+import os
+
+import pytest
+
+from repro_torch import obs
+
+from conftest import REPO
+
+
+def _load(name):
+    path = os.path.join(REPO, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def clean_obs():
+    obs.disable()
+    obs.reset()
+    yield
+    obs.disable()
+    obs.reset()
+
+
+CASES = [
+    ("quickstart_torch", {}),
+    ("streaming_svd_torch", {"observe": False}),
+    ("streaming_svd_torch", {"observe": True}),
+    ("serving_topk_torch", {"observe": False}),
+    ("serving_topk_torch", {"observe": True}),
+    ("serve_lm_torch", {}),
+]
+
+
+@pytest.mark.parametrize("name,kw", CASES,
+                         ids=[f"{n}{'-observe' if kw.get('observe') else ''}"
+                              for n, kw in CASES])
+def test_example_runs_and_passes_its_checks(clean_obs, capsys, name, kw):
+    out = _load(name).main(device="cpu", **kw)
+    printed = capsys.readouterr().out
+    # on the CPU every kernel wrapper takes its plain version
+    assert set(out["launches"].values()) == {0}
+    if kw.get("observe"):
+        assert obs.enabled() and "observability (--observe)" in printed
+    assert "Traceback" not in printed
+
+
+def test_serve_lm_twin_refuses_unported_families(clean_obs):
+    with pytest.raises(NotImplementedError, match="item 16"):
+        _load("serve_lm_torch").main(arch="mamba2-1.3b", device="cpu")
