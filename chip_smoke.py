@@ -115,10 +115,30 @@ What it does, one JSON line per phase:
    ratios recorded, each within ``obs.gate.drift_factor()``; every span's
    CUDA events resolved, the top-level spans' sum within the wall time, the
    Chrome trace valid; ms a batch with obs off and on.
-15. ``examples``: the four ``examples/*_torch.py`` twins as subprocesses on
+15. ``drift_stages``: ``scripts/drift_stages_torch.py`` at the streaming
+   example's shapes: the R5 / R6 drift of its first ingests and window, the
+   peak bytes of every stage beside the term that prices it, and the
+   workspace of the merge's QR at those panels.
+16. ``distributed``: the sharded engine.  (a) A ``LocalMesh`` of 8 slots on
+   the card: gram, proxy, two-level (pod 2 x model 4), rank 16 and
+   right-vector solves of the paper matrix (COO, and dense input), each
+   against the single engine with the same seed (1e-5 of S[0]) and against
+   float64 at phases 4-7's limits, every kernel once over the D-stack; the
+   paper rows streamed sparse and dense (R5d ingest, sharded window: the
+   same bits as ``window=1``, S within 1e-3 of the single stream, host
+   syncs a batch); 20 sharded waves of 32, each equal to the single-device
+   ranker (``topk_score`` once a slot); R5d / R6 / R7 drift against 8 times
+   the per-device forms (label ``local``).  (b) 4 ranks over gloo on the
+   one card (CUDA tensors), each a process with its own allocator: the
+   solve at D = 4 against (a)'s local mesh of 4, and each rank's R5d drift
+   for one sharded ingest within the factor; a rank that fails, or ranks
+   that pass the deadline, fail the phase.  (c) NCCL at world =
+   ``torch.cuda.device_count()`` (1 on one card: a solve and an ingest at
+   D = 1 in this process).
+17. ``examples``: the six ``examples/*_torch.py`` twins as subprocesses on
    the card (the streaming and serving twins also with ``--observe``): exit
    code 0, wall seconds, and the kernel launches each one reports.
-16. ``stage_summary`` (one ingest, one serve wave), one line
+18. ``stage_summary`` (one ingest, one serve wave), one line
    ``{"kernels": [...]}`` with every kernel's numbers, then the card as
    ``nvidia-smi`` names it, then the last line ``{"ok": true, "device":
    {...}}``.
@@ -3132,6 +3152,428 @@ def phase_observe(state) -> None:
                 "spans: device time between CUDA events")
 
 
+def phase_drift_stages(state) -> None:
+    """Where the streaming example's first ingest and window spend their
+    peak bytes, stage by stage, beside the R5 / R6 terms
+    (``scripts/drift_stages_torch.py``)."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "drift_stages_torch", os.path.join(root, "scripts",
+                                           "drift_stages_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    torch.cuda.empty_cache()
+    out = mod.run(device=DEVICE)
+    check(not obs.enabled(), "drift_stages: obs left on")
+    emit("drift_stages", **out)
+
+
+# ---------------------------------------------------------------------------
+# Phase: the sharded engine (core/distributed.py, the sharded ingest,
+# window and ranker) on a local mesh, on ranks over gloo, and over NCCL
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 4
+DIST_TIMEOUT_S = 240
+
+# One rank of part (b) / (c): ``python -c`` with rank, world, backend, the
+# init file and the output path as arguments.
+DIST_RANK_BODY = r"""
+import datetime, json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, world, backend, init, out_path = (int(sys.argv[1]), int(sys.argv[2]),
+                                        sys.argv[3], sys.argv[4], sys.argv[5])
+device = torch.device("cuda", rank % torch.cuda.device_count())
+torch.cuda.set_device(device)
+dist.init_process_group(backend, init_method="file://" + init, rank=rank,
+                        world_size=world,
+                        timeout=datetime.timedelta(seconds=120))
+from repro_torch import obs
+from repro_torch.configs.ranky_paper import RankyPaperConfig
+from repro_torch.core import api
+from repro_torch.core.collectives import ProcessGroupMesh
+from repro_torch.data import bipartite
+from repro_torch.kernels import launch_counts
+from repro_torch.stream import state as stream_state
+coo = bipartite.paper_coo(RankyPaperConfig())
+mesh = ProcessGroupMesh(world, device=device)
+cfg = api.SolveConfig(backend="shard_map", method="neighbor_random",
+                      use_kernel=True)
+api.svd(coo, cfg, mesh=mesh)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+res = api.svd(coo, cfg, mesh=mesh)
+solve_ms = (time.perf_counter() - t0) * 1e3
+stream_state.set_stream_devices(mesh)
+scfg = api.SolveConfig(method="neighbor_random", truncate_rank=16,
+                       oversample=8, num_blocks=world, use_kernel=True,
+                       stream_backend="shard_map")
+rows = 64
+def batch(b):
+    sel = (coo.rows >= rows * b) & (coo.rows < rows * (b + 1))
+    from repro_torch.core import sparse
+    return sparse.COOMatrix(rows=(coo.rows[sel] - rows * b).astype(np.int32),
+                            cols=coo.cols[sel], vals=coo.vals[sel],
+                            shape=(rows, coo.shape[1]))
+st = api.svd_init(coo.shape[1], scfg, device=device)
+st = api.svd_update(st, batch(0), scfg).state          # warm: rank grows
+obs.enable()
+r = api.svd_update(st, batch(1), scfg)
+torch.cuda.synchronize()
+label = {"rule": "R5d", "site": "shard_map"}
+reg = obs.registry()
+out = dict(rank=rank, world=world, backend=backend, device=str(device),
+           s=res.s.cpu().tolist(), solve_ms=solve_ms,
+           ingest_backend=r.plan.backend, drift=obs.drift_ratios(),
+           r5d_measured_bytes=reg.gauge_value("drift_measured_bytes", label),
+           r5d_estimated_bytes=reg.gauge_value("drift_estimated_bytes",
+                                               label),
+           ingest_s=r.s.cpu().tolist(), launches=launch_counts(),
+           collectives=dict(mesh.counts))
+obs.disable()
+stream_state.set_stream_devices(None)
+with open(out_path, "w") as f:
+    json.dump(out, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def spawn_ranks(world: int, backend: str, tmp: str) -> list:
+    """``world`` processes of :data:`DIST_RANK_BODY`, joined with a deadline
+    (every rank is killed when it passes): each rank's JSON."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    init = os.path.join(tmp, f"init_{backend}")
+    outs = [os.path.join(tmp, f"{backend}_rank{r}.json") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DIST_RANK_BODY, str(r), str(world), backend,
+         init, outs[r]], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"distributed: the {backend} ranks did "
+                                   f"not finish within {DIST_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0 and os.path.exists(outs[r]),
+              f"distributed: {backend} rank {r} exited {p.returncode}:\n"
+              f"{logs[r][1][-3000:]}")
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def dist_solves(state, mesh, mesh2, dense) -> list:
+    """(a): the one-shot solves on the local mesh, each against the single
+    engine with the same seed and against float64."""
+    coo = state["coo"]
+    rows = []
+    cases = (("gram", coo, {}),
+             ("proxy", coo, dict(merge_mode="proxy")),
+             ("two_level", coo, dict(merge_mode="proxy", two_level=True)),
+             ("rank16", coo, dict(method="random", rank=16, oversample=48,
+                                  power_iters=4, want_right=True)),
+             ("right", coo, dict(want_right=True)),
+             ("dense", dense, dict(want_right=True)))
+    for name, a, kw in cases:
+        base = dict(dict(method="neighbor_random", use_kernel=True), **kw)
+        cfg = api.SolveConfig(backend="shard_map", **base)
+        on = mesh2 if kw.get("two_level") else mesh
+        api.svd(a, cfg, mesh=on)                                # warm
+        res, counts = timed_svd(a, cfg, mesh=on)
+        keep_counts(state, f"distributed[{name}]", counts)
+        single_kw = {k: v for k, v in base.items() if k != "two_level"}
+        scfg = api.SolveConfig(backend="single", num_blocks=NUM_BLOCKS,
+                               **single_kw)
+        api.svd(a, scfg, device=DEVICE)                         # warm
+        sres, _ = timed_svd(a, scfg, device=DEVICE)
+        what = f"distributed[{name}]"
+        check(res.plan.backend == "shard_map", f"{what}: backend "
+              f"{res.plan.backend}")
+        ds_single = float((res.s.double() - sres.s.double()).abs().max()
+                          / sres.s.double()[0])
+        # The same computation up to the order of the sums across blocks:
+        # 1e-5 of S[0].  The two-level merge is another merge tree than the
+        # single engine's flat one (an SVD of SVDs, one rounding more):
+        # 1e-4 of S[0] there, and float64 below holds both.
+        limit = 1e-4 if kw.get("two_level") else 1e-5
+        check(ds_single <= limit, f"{what}: S differs from the single "
+              f"engine by {ds_single} of S[0] (limit {limit})")
+        if kw.get("rank"):
+            want = {"sketch_panel": 1 + cfg.power_iters}
+            s_ref = reference_svals(state["sparse_random_repair"],
+                                    NUM_BLOCKS).cpu().numpy()
+            fields = check_topk(what, res.s, s_ref, 16)
+            ortho = float((res.u.T @ res.u - torch.eye(16, device=DEVICE))
+                          .abs().max())
+            check(ortho <= 1e-4, f"{what}: |U^T U - I|_max {ortho}")
+        else:
+            want = ({"blockgram": 1} if a is dense else {"sparse_gram": 1})
+            a_norm = api.as_block_input(a, NUM_BLOCKS, device=DEVICE)
+            repaired = ranky.split_and_repair(a_norm, NUM_BLOCKS, cfg.method,
+                                              cfg.resolved_key())
+            fields = check_exact_result(what, res, repaired, NUM_BLOCKS,
+                                        recon=res.v is not None)
+            del a_norm, repaired
+        if res.v is not None:
+            # V = A^T U / S of the gram path is as orthogonal as the small
+            # singular values allow, on either engine: held to the single
+            # engine's own, beside the reconstruction above.
+            def vortho_of(v):
+                k = v.shape[1]
+                return float((v.T @ v - torch.eye(k, device=DEVICE))
+                             .abs().max())
+            vortho, vortho_single = vortho_of(res.v), vortho_of(sres.v)
+            fields.update(v_ortho_err=vortho,
+                          v_ortho_err_single=vortho_single)
+            check(vortho <= vortho_single + 1e-5, f"{what}: |V^T V - I|_max "
+                  f"{vortho}, the single engine's {vortho_single}")
+        for kernel, n in want.items():
+            check(counts[kernel] == n, f"{what}: {kernel} launched "
+                  f"{counts[kernel]} times, want {n} (once over the D-stack)")
+        rows.append(dict(solve=name, mesh=on.shape,
+                         ms=res.diagnostics.wall_time_s * 1e3,
+                         single_ms=sres.diagnostics.wall_time_s * 1e3,
+                         dS_vs_single=ds_single, dS_vs_single_limit=limit,
+                         launches=counts, **fields))
+    return rows
+
+
+def dist_streams(state, mesh, dense_b) -> tuple:
+    """(a): the R5d ingest and the sharded window over the paper rows on
+    the local mesh, windows against ``window=1`` bit for bit, beside the
+    single engine; then 20 sharded waves against the single-device
+    ranker."""
+    cfg = api.SolveConfig(stream_backend="shard_map", **OBSERVE_CFG)
+    scfg = dataclasses.replace(cfg, stream_backend="single")
+    rows, states = [], {}
+    stream_state.set_stream_devices(mesh)
+    try:
+        for name, batches in (("sparse", paper_batches(state["coo"])),
+                              ("dense", dense_b)):
+            api.svd_stream(iter(batches), cfg, device=DEVICE)   # warm
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, sites = sync_sites(lambda: api.svd_stream(
+                iter(batches), cfg, device=DEVICE))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            keep_counts(state, f"distributed[stream {name}]", counts)
+            loop = api.svd_stream(iter(batches),
+                                  dataclasses.replace(cfg, window=1),
+                                  device=DEVICE)
+            what = f"distributed[stream {name}]"
+            check(res.plan.backend == "shard_map", f"{what}: backend "
+                  f"{res.plan.backend}")
+            for f in ("u", "s", "v"):
+                check(torch.equal(getattr(res.state, f),
+                                  getattr(loop.state, f)),
+                      f"{what}: windows differ from window=1 in {f}")
+            kernel = "sparse_gram" if name == "sparse" else "blockgram"
+            check(counts[kernel] == len(batches), f"{what}: {kernel} "
+                  f"launched {counts[kernel]} times for {len(batches)} "
+                  f"batches")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single = api.svd_stream(iter(batches), scfg, device=DEVICE)
+            torch.cuda.synchronize()
+            single_secs = time.perf_counter() - t0
+            ds = float((res.s.double() - single.s.double()).abs().max()
+                       / single.s.double()[0])
+            check(ds <= 1e-3, f"{what}: S differs from the single stream by "
+                  f"{ds} of S[0]")
+            states[name] = res.state
+            rows.append(dict(stream=name, batches=len(batches),
+                             ms_per_batch=secs / len(batches) * 1e3,
+                             single_ms_per_batch=single_secs
+                             / len(batches) * 1e3,
+                             host_syncs_per_batch=sum(sites.values())
+                             / len(batches),
+                             dS_vs_single=ds, launches=counts,
+                             counters=[res.state.lonely_rows_seen,
+                                       res.state.repaired_rows_seen]))
+        gen = torch.Generator(DEVICE).manual_seed(20)
+        queries = [torch.randn((32, 16), generator=gen, device=DEVICE)
+                   for _ in range(OBSERVE_WAVES)]
+        serve = api.ServeTopKConfig(batch_size=32, k_top=10)
+        sharded = api.serve_init(states["sparse"], serve)
+        check(sharded.plan.backend == "shard_map", "distributed: the serve "
+              f"plan is {sharded.plan.backend}")
+        single_h = api.serve_init(stream_state.gather_state(
+            states["sparse"]), dataclasses.replace(serve,
+                                                   serve_backend="single"))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        waves = [api.serve_topk(sharded, q) for q in queries]
+        torch.cuda.synchronize()
+        wave_secs = time.perf_counter() - t0
+        counts = read_counts()
+        keep_counts(state, "distributed[waves]", counts)
+        check(counts["topk_score"] == OBSERVE_WAVES * NUM_BLOCKS,
+              f"distributed: topk_score launched {counts['topk_score']} "
+              f"times for {OBSERVE_WAVES} waves of {NUM_BLOCKS} slots")
+        for j, (q, w) in enumerate(zip(queries, waves)):
+            want = api.serve_topk(single_h, q)
+            check(torch.equal(w.scores, want.scores)
+                  and torch.equal(w.indices, want.indices),
+                  f"distributed: sharded wave {j} differs from the "
+                  f"single-device ranker")
+        rows.append(dict(waves=OBSERVE_WAVES, batch=32,
+                         ms_per_wave=wave_secs / OBSERVE_WAVES * 1e3,
+                         launches=counts, equal_to_single=True))
+
+        # Drift, obs on: R5d / R6 / R7 against D times the per-device
+        # forms (the card holds every slot's working set), label "local".
+        obs.enable()
+        obs.reset()
+        try:
+            for batches in (paper_batches(state["coo"]), dense_b):
+                api.svd_stream(iter(batches), cfg, device=DEVICE)
+            for q in queries[:2]:
+                api.serve_topk(sharded, q)
+            drift = obs.drift_ratios()
+        finally:
+            obs.disable()
+            obs.reset()
+    finally:
+        stream_state.set_stream_devices(None)
+    return rows, drift
+
+
+def phase_distributed(state) -> None:
+    """The sharded engine: (a) a LocalMesh of 8 slots on the card (every
+    kernel launches once over the D-stack); (b) 4 ranks over gloo on the
+    one card, each with its own allocator; (c) NCCL at world =
+    ``torch.cuda.device_count()``."""
+    import tempfile
+    from repro_torch.core.collectives import LocalMesh, ProcessGroupMesh
+    from repro_torch.stream.ingest import ingest_shard_map
+
+    t_phase = time.perf_counter()
+    coo = state["coo"]
+    dense = coo.todense()
+    mesh = LocalMesh({"blocks": NUM_BLOCKS}, DEVICE)
+    mesh2 = LocalMesh({"pod": 2, "model": 4}, DEVICE)
+    solves = dist_solves(state, mesh, mesh2, dense)
+    dense_b = [torch.from_numpy(x) for x in paper_batches(coo, dense=True)]
+    streams, drift = dist_streams(state, mesh, dense_b)
+    del dense
+
+    # (b) 4 gloo ranks on the one card, held against a local mesh of 4.
+    cfg4 = api.SolveConfig(backend="shard_map", method="neighbor_random",
+                           use_kernel=True)
+    local4 = api.svd(coo, cfg4, mesh=LocalMesh(DIST_RANKS, DEVICE))
+    factor = obs.gate.drift_factor()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(DIST_RANKS, "gloo", tmp)
+        gloo_s = time.perf_counter() - t0
+    s4 = local4.s.double().cpu()
+    for r in ranks:
+        what = f"distributed[gloo rank {r['rank']}]"
+        ds = float((torch.tensor(r["s"], dtype=torch.float64) - s4).abs()
+                   .max() / s4[0])
+        check(ds <= 1e-5, f"{what}: S differs from the local mesh of "
+              f"{DIST_RANKS} by {ds} of S[0]")
+        check(r["ingest_backend"] == "shard_map", f"{what}: ingest backend "
+              f"{r['ingest_backend']}")
+        ratio = r["drift"].get("R5d/shard_map")
+        check(ratio is not None and ratio <= factor, f"{what}: R5d drift "
+              f"{ratio} (limit {factor})")
+        check(r["launches"]["sparse_gram"] >= 2, f"{what}: sparse_gram "
+              f"launched {r['launches']['sparse_gram']} times")
+
+    # (c) NCCL at world = the visible cards: on one card, world 1 in this
+    # process, a real communicator whose collectives run on the card.
+    world = torch.cuda.device_count()
+    nccl = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        if world == 1:
+            import datetime
+            dist = torch.distributed
+            dist.init_process_group(
+                "nccl", init_method="file://" + os.path.join(tmp, "nccl"),
+                rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+            try:
+                pg = ProcessGroupMesh(1, device=DEVICE)
+                c1 = api.SolveConfig(backend="shard_map",
+                                     method="neighbor_random",
+                                     use_kernel=True)
+                reset_counts()
+                res = api.svd(coo, c1, mesh=pg)
+                counts = read_counts()
+                keep_counts(state, "distributed[nccl solve]", counts)
+                single = api.svd(coo, dataclasses.replace(
+                    c1, backend="single", num_blocks=1), device=DEVICE)
+                ds = float((res.s.double() - single.s.double()).abs().max()
+                           / single.s.double()[0])
+                check(ds <= 1e-5, f"distributed[nccl]: S differs from the "
+                      f"single engine by {ds}")
+                scfg = api.SolveConfig(**dict(OBSERVE_CFG, num_blocks=1))
+                st = api.svd_init(coo.shape[1], scfg, device=DEVICE)
+                batch = paper_batches(coo)[0]
+                plan = api.plan_update(batch, scfg, state=st)
+                reset_counts()
+                sh, _ = ingest_shard_map(
+                    st, batch, scfg, dataclasses.replace(
+                        plan, backend="shard_map"), mesh=pg)
+                counts_i = read_counts()
+                keep_counts(state, "distributed[nccl ingest]", counts_i)
+                one = api.svd_update(st, batch, scfg).state
+                di = float((sh.s.double() - one.s.double()).abs().max()
+                           / one.s.double()[0])
+                check(di <= 1e-4, f"distributed[nccl]: the ingest's S "
+                      f"differs from the single engine by {di}")
+                nccl = dict(world=1, backend=dist.get_backend(),
+                            solve_dS=ds, ingest_dS=di,
+                            launches=dict(solve=counts, ingest=counts_i),
+                            collectives=dict(pg.counts))
+            finally:
+                dist.destroy_process_group()
+        else:
+            got = spawn_ranks(world, "nccl", tmp)
+            nccl = dict(world=world, backend="nccl",
+                        s0=[r["s"][0] for r in got],
+                        drift=[r["drift"] for r in got])
+    seconds = time.perf_counter() - t_phase
+    emit("distributed", solves=solves, streams=streams,
+         drift_local=drift, drift_factor=factor,
+         gloo=dict(ranks=DIST_RANKS, wall_s=gloo_s,
+                   per_rank=[dict(rank=r["rank"], solve_ms=r["solve_ms"],
+                                  r5d=r["drift"].get("R5d/shard_map"),
+                                  r5d_measured_bytes=r["r5d_measured_bytes"],
+                                  r5d_estimated_bytes=r[
+                                      "r5d_estimated_bytes"],
+                                  launches=r["launches"],
+                                  collectives=r["collectives"])
+                             for r in ranks]),
+         nccl=nccl, seconds=seconds,
+         clocks="ms: Diagnostics.wall_time_s (host clock, device "
+                "synchronized at both ends), warm; streams: host clock "
+                "around svd_stream; r5d: each rank's allocator peak over "
+                "the per-device closed form")
+
+
 # (script, arguments, the kernels it must launch on the card)
 EXAMPLES = (
     ("quickstart_torch.py", (), ()),
@@ -3140,11 +3582,13 @@ EXAMPLES = (
     ("serving_topk_torch.py", (), ("topk_score",)),
     ("serving_topk_torch.py", ("--observe",), ("topk_score",)),
     ("serve_lm_torch.py", (), ("flash_attention", "ssd_scan")),
+    ("distributed_svd_torch.py", (), ()),
+    ("distributed_streaming_torch.py", (), ()),
 )
 
 
 def phase_examples(state) -> None:
-    """The four twins, each a process of its own on the card."""
+    """The six twins, each a process of its own on the card."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     runs = []
@@ -3167,6 +3611,12 @@ def phase_examples(state) -> None:
         for kernel in kernels:
             check(launches[kernel] >= 1, f"examples: {name} never launched "
                   f"{kernel}")
+        if "drift" in summary:      # --observe: every rule within the gate
+            factor = obs.gate.drift_factor()
+            check("DriftWarning" not in proc.stderr
+                  and all(r <= factor for r in summary["drift"].values()),
+                  f"examples: {name}: drift {summary['drift']} (limit "
+                  f"{factor}){' with a DriftWarning' if 'DriftWarning' in proc.stderr else ''}")
         if "waves" in summary:      # one launch a wave: live ones + 4 more
             check(launches["topk_score"] == summary["waves"] + 4,
                   f"examples: {name}: topk_score launched "
@@ -3215,7 +3665,8 @@ def main() -> int:
                   phase_solve_scaled, phase_stream_exact, phase_stream_serve,
                   phase_serve_scaled, phase_hierarchical, phase_stream_window,
                   phase_merge_driver_ab, phase_lm_serve, phase_checkpoint,
-                  phase_observe, phase_examples):
+                  phase_observe, phase_drift_stages, phase_distributed,
+                  phase_examples):
         phase(state)
         torch.cuda.synchronize()
 

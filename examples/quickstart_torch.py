@@ -8,8 +8,8 @@ call: ``svd(a, SolveConfig(...)) -> SVDResult``.  The input can be a
 dense array or tensor, a host COO matrix, or a device BlockEll container
 (one adapter normalizes them) and ``backend="auto"`` lets the planner
 pick the strategy (exact gram, randomized sketch, hierarchical) from
-memory estimates.  The result carries the explainable plan and solve
-diagnostics.  Every result is checked against numpy's SVD of the same
+memory estimates; ``backend="shard_map"`` splits the columns over a block
+mesh.  The result carries the explainable plan and solve diagnostics.  Every result is checked against numpy's SVD of the same
 matrix.  Runs on the GPU unless ``--device`` says otherwise.
 """
 import argparse
@@ -19,6 +19,7 @@ import numpy as np
 
 from repro_torch.core import sparse
 from repro_torch.core.api import ASpec, SolveConfig, plan, svd
+from repro_torch.core.collectives import LocalMesh
 from repro_torch.kernels import launch_counts
 
 # Largest |S - S_numpy| accepted, relative to S[0]: the gram path squares
@@ -52,14 +53,14 @@ def main(device=None) -> dict:
     print(res.plan.explain())
     check(f"auto plan, {res.diagnostics.wall_time_s:.2f}s", res.s)
 
-    # The hierarchical tree merge, plus the right vectors (V rows come
-    # back in original column order).  The reference runs this part on
-    # its shard_map backend, one column block per device; the port's
-    # sharded backend waits for ROADMAP.md item 8.
-    res2 = svd(coo, SolveConfig(backend="hierarchical", method="none",
-                                num_blocks=8, want_right=True),
-               device=device)
-    check("hierarchical, right vectors", res2.s)
+    # Explicit shard_map backend: one column block per slot of a block
+    # mesh (one card standing for 8 devices), plus the right vectors (V
+    # rows come back in original column order).
+    mesh = LocalMesh({"blocks": 8}, device)
+    res2 = svd(coo, SolveConfig(backend="shard_map", method="none",
+                                merge_mode="gram", want_right=True),
+               mesh=mesh)
+    check("shard_map, gram, right vectors", res2.s)
     u, s, v = _np(res2.u), _np(res2.s), _np(res2.v)
     recon_s = np.linalg.svd((u * s) @ v.T, compute_uv=False)
     recon = float(np.abs(recon_s[:m] - s).sum())

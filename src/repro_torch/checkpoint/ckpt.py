@@ -48,7 +48,16 @@ Signatures hash numpy dtype names (``float32``, ``int32``, ``bool``,
 ``uint32``), so a port tree and a reference tree of the same shapes and
 counters sign the same and ``expect_signature`` works across the two.
 
-The sharded restore (``shardings=``) waits for ROADMAP.md item 8.
+**Sharded states.**  Files are saved gathered: a state sharded over a
+process group has its ``v`` all-gathered at save (every rank calls
+``save``; rank 0 writes), so the on-disk layout never bakes in a mesh.
+``restore(shardings=)`` places the tree over a block mesh (a
+``core.collectives.BlockMesh``, or a dict of them keyed like the tree):
+a state of as many column blocks as the mesh has slots comes back
+sharded, any other onto the mesh's device gathered; a file saved on 8
+slots restores onto 1, and the other way round.  Without ``shardings``
+a rebuilt state re-shards itself onto the active stream pool when that
+has one slot a block (``StreamingSVDState.reshard_for_restore``).
 """
 from __future__ import annotations
 
@@ -65,7 +74,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import sparse
+from repro_torch.core import collectives, sparse
+from repro_torch.stream import state as stream_state
 from repro_torch.stream.state import StreamingSVDState
 
 # String sentinels for things npz cannot carry natively.  They live in
@@ -104,6 +114,8 @@ class _Twin:
 
 
 def _state_flatten(st: StreamingSVDState):
+    if st.sharded_rows:
+        st = stream_state.gather_state(st)
     return ((st.u, st.s, st.v, _seed_to_key(st.seed)),
             (st.n, st.num_blocks, st.rows_seen, st.batches_seen,
              st.lonely_rows_seen, st.repaired_rows_seen))
@@ -232,8 +244,8 @@ def _rebuild(node, reshard: bool = True):
                          for i in range(n_children))
         obj = unflatten(aux, children)
         # A rebuilt container may opt into re-placing itself for the
-        # current device environment (the reference's sharded state does);
-        # nothing of the port's does yet, so on one device this is a no-op.
+        # current device environment (the streaming state re-shards onto
+        # the active stream pool when that has one slot a block).
         hook = getattr(obj, "reshard_for_restore", None)
         return hook() if reshard and callable(hook) else obj
     return {k: _rebuild(v, reshard) for k, v in node.items()}
@@ -295,7 +307,7 @@ def _process_index() -> int:
 
 
 class Checkpointer:
-    """Async checkpoint writer + restorer (one device)."""
+    """Async checkpoint writer + restorer."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
@@ -319,6 +331,10 @@ class Checkpointer:
             "process_index": _process_index(),
             **(extra_meta or {}),
         }
+
+        if meta["process_index"] != 0:
+            # Every rank took part in the gathers above; one writes.
+            return path
 
         def write():
             tmp = path + ".tmp"
@@ -365,13 +381,13 @@ class Checkpointer:
                 expect_signature: Optional[str] = None,
                 reshard: bool = True, shardings=None):
         """Load a checkpoint (the latest when ``step`` is None) onto
-        ``device`` (``None``: the GPU).  Returns ``(tree, meta)``.
-        ``reshard`` is accepted for the reference's interface (a rebuilt
-        container's own re-placement hook; a no-op on one device)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) places a tree over a device mesh, "
-                "which is not ported yet: ROADMAP.md Queue A item 8")
+        ``device`` (``None``: the mesh's device when ``shardings`` is a
+        mesh, else the GPU).  Returns ``(tree, meta)``.  ``shardings``
+        places the tree over a block mesh (see the module docstring);
+        ``reshard=False`` skips a rebuilt container's own re-placement
+        hook (``reshard_for_restore``)."""
+        if device is None and isinstance(shardings, collectives.BlockMesh):
+            device = shardings.device
         device = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -396,5 +412,33 @@ class Checkpointer:
 
         tree = _unflatten({k: put(v) for k, v in flat.items()})
         # Rebuild the containers LAST, once every array child is placed
-        # (markers are consumed here).
-        return _rebuild(tree, reshard), meta
+        # (markers are consumed here), then place them over the meshes.
+        return _place(_rebuild(tree, reshard), shardings), meta
+
+
+def _place(node, sh):
+    """``node`` placed by ``sh``: a BlockMesh for the whole subtree (a
+    state of as many blocks as it has slots sharded over it, tensors onto
+    its device), a dict of them by key, or None (as restored)."""
+    if sh is None:
+        return node
+    if isinstance(sh, dict):
+        if not isinstance(node, dict):
+            raise ValueError(
+                f"shardings is a dict but the restored node is a "
+                f"{type(node).__name__}")
+        return {k: _place(v, sh.get(k)) for k, v in node.items()}
+    if not isinstance(sh, collectives.BlockMesh):
+        raise TypeError(
+            f"shardings takes BlockMesh leaves (LocalMesh / "
+            f"ProcessGroupMesh) in dicts keyed like the tree; got "
+            f"{type(sh)}")
+    if isinstance(node, StreamingSVDState):
+        if node.num_blocks == sh.size:
+            return stream_state.shard_state(node, sh)
+        return stream_state.gather_state(node, sh.device)
+    if isinstance(node, dict):
+        return {k: _place(v, sh) for k, v in node.items()}
+    if isinstance(node, torch.Tensor):
+        return node.to(sh.device)
+    return node

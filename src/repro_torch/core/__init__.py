@@ -10,7 +10,8 @@ Public surface (``__all__``):
   (``api.serve_init`` / ``api.serve_topk``).  The streaming names,
   ``SolveConfig`` / ``SVDResult`` / ``Plan`` / ``ASpec`` / ``plan`` are
   re-exported here for convenience, as in the reference.
-* ``ranky_svd``: the legacy entry point, a thin shim over the same engine.
+* ``ranky_svd`` / ``distributed_ranky_svd``: the legacy entry points,
+  thin shims over the same engines.
 * ``sparse`` / ``randomized`` / ``planner`` / ``convert``: submodules.
 * ``svd``: NOTE: this name is the *local SVD primitives submodule*
   (``repro_torch.core.svd``), as in the reference; the unified solver
@@ -47,6 +48,7 @@ from repro_torch.core.api import (  # noqa: F401
     svd_update,
 )
 from repro_torch.core.planner import ASpec, Plan, PlanError  # noqa: F401
+from repro_torch.core.distributed import distributed_ranky_svd  # noqa: F401
 
 __all__ = [
     # the unified front door
@@ -54,8 +56,8 @@ __all__ = [
     "ASpec", "Plan", "PlanError", "planner", "DEFAULT_SEED",
     # the streaming front door (repro_torch.stream underneath)
     "svd_init", "svd_update", "svd_stream", "plan_update",
-    # legacy entry point (deprecation shim over the same engine)
-    "ranky_svd",
+    # legacy entry points (deprecation shims over the same engines)
+    "ranky_svd", "distributed_ranky_svd",
     # submodules
     "sparse", "randomized", "svd", "convert",
     # checker primitives and their random inputs

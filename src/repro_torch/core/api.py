@@ -30,10 +30,11 @@ current CUDA device and RAISES when there is none; pass ``device="cpu"``
 to run on the host (the tests do).  A ``BlockEll`` or tensor input that
 already lies on a device is moved to the resolved one.
 
-The backends ``single`` and ``hierarchical`` run in this package so far:
-a plan whose backend is ``shard_map`` (one-shot, streaming or serving)
-raises ``NotImplementedError`` (never a silent single-host solve in its
-place).
+Backends: ``single``, ``hierarchical`` and ``shard_map`` (one column
+block a slot of a ``core.collectives.BlockMesh``: ``mesh=`` names it, else
+the active stream pool's, ``stream.state.set_stream_devices``).  The
+planner's backend gates count the pool's slots
+(``stream.state.stream_device_count()``), not the visible CUDA devices.
 
 Determinism: ``key=None`` everywhere resolves to the ONE documented
 default seed ``ranky.DEFAULT_SEED``, so repeated solves of the same input
@@ -74,11 +75,6 @@ MERGE_MODES = ("proxy", "gram")
 # skipped (it needs the O(M^2) row adjacency); the count is exact and
 # O(M) for the other methods at any scale.
 _REPAIR_DIAG_MAX_M = 4096
-
-# Where the backends that are not ported yet stand in ROADMAP.md.
-_UNPORTED_BACKENDS = {
-    "shard_map": "Queue A item 8 (core/distributed.py)",
-}
 
 MatrixInput = Union[np.ndarray, torch.Tensor, "sparse.COOMatrix",
                     "sparse.BlockEll"]
@@ -468,19 +464,35 @@ def as_block_input(a: MatrixInput, num_blocks: int, *,
 
 
 def _device_count(device: torch.device) -> int:
-    """Devices a distributed solve could use from here: the visible CUDA
-    devices when running on the GPU, 1 on the CPU."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+    """Block slots a distributed solve could use from here: the stream
+    pool's (``stream.state.stream_device_count()``: a set pool, the ranks
+    of a process group, else the visible GPUs), and 1 for a solve on the
+    CPU with neither a pool nor a process group."""
+    from repro_torch.stream import state as stream_state
+
+    if device.type == "cuda" or stream_state.explicit_pool():
+        return stream_state.stream_device_count()
+    return 1
+
+
+def _device_env(mesh, block_axes, device) -> Tuple[int, bool]:
+    if mesh is None:
+        return _device_count(device), False
+    return mesh.axis_size(block_axes), True
 
 
 def _resolve_num_blocks(a: MatrixInput, config: "SolveConfig",
-                        device: torch.device) -> Tuple[int, Optional[str]]:
-    """Resolution order: explicit config > BlockEll's D > device count
-    (>1) > DEFAULT_NUM_BLOCKS.  Returns (D, note)."""
+                        device: torch.device, mesh=None, block_axes=None
+                        ) -> Tuple[int, Optional[str]]:
+    """Resolution order: explicit config > BlockEll's D > mesh block
+    axes > device count (>1) > DEFAULT_NUM_BLOCKS.  Returns (D, note)."""
     if config.num_blocks is not None:
         return config.num_blocks, None
     if isinstance(a, sparse.BlockEll):
         return a.num_blocks, None
+    if mesh is not None:
+        d = mesh.axis_size(block_axes)
+        return d, f"num_blocks={d} derived from the mesh block axes"
     dev = _device_count(device)
     if dev > 1:
         return dev, f"num_blocks={dev} defaulted to the device count"
@@ -500,6 +512,17 @@ def _run_single(a, config: SolveConfig, *, draws=None, omega=None):
         oversample=config.oversample, power_iters=config.power_iters,
         want_right=config.want_right, use_kernel=config.use_kernel,
         key=config.resolved_key(), draws=draws, omega=omega)
+
+
+def _run_shard_map(a, mesh, config: SolveConfig, *, block_axes=None,
+                   draws=None, omega=None):
+    from repro_torch.core import distributed
+
+    if block_axes is None:
+        block_axes = mesh.axis_names
+    return distributed.solve_shard_map(a, mesh, block_axes=tuple(block_axes),
+                                       config=config, draws=draws,
+                                       omega=omega)
 
 
 def _run_hierarchical(a, config: SolveConfig, *, sketch_override=...,
@@ -542,7 +565,7 @@ def _repaired_rows(a_norm, num_blocks: int, method: str, key: Key,
 # ---------------------------------------------------------------------------
 
 def plan(a: Union[MatrixInput, ASpec], config: Optional[SolveConfig] = None,
-         *, device=None, **overrides) -> Plan:
+         *, mesh=None, block_axes=None, device=None, **overrides) -> Plan:
     """What would :func:`svd` do for this input, and why.
 
     ``a`` may be an actual matrix (any accepted representation) or an
@@ -550,16 +573,17 @@ def plan(a: Union[MatrixInput, ASpec], config: Optional[SolveConfig] = None,
     no data, only shapes.
     """
     config = _reject_stream_knobs(_coerce_config(config, overrides), "plan")
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     if isinstance(a, ASpec):
         spec = (a if config.num_blocks in (None, a.num_blocks)
                 else dataclasses.replace(a, num_blocks=config.num_blocks))
         note = None
     else:
-        d, note = _resolve_num_blocks(a, config, device)
+        d, note = _resolve_num_blocks(a, config, device, mesh, block_axes)
         spec = describe(a, d)
-    p = planner.make_plan(spec, config, device_count=_device_count(device),
-                          mesh_provided=False)
+    device_count, mesh_provided = _device_env(mesh, block_axes, device)
+    p = planner.make_plan(spec, config, device_count=device_count,
+                          mesh_provided=mesh_provided)
     if note:
         p = dataclasses.replace(p, reasons=p.reasons + (note,))
     return p
@@ -628,7 +652,8 @@ class _CallTimer:
 
 
 def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
-        device=None, draws: Optional[RepairDraws] = None,
+        mesh=None, block_axes=None, device=None,
+        draws: Optional[RepairDraws] = None,
         omega: Optional[torch.Tensor] = None, **overrides) -> SVDResult:
     """Distributed Ranky SVD of ``a``: the one public entry point.
 
@@ -639,6 +664,12 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         sparse-natively.
       config: a :class:`SolveConfig`; keyword ``overrides`` are applied
         on top (``svd(a, rank=16)`` works without building one).
+      mesh / block_axes: only for the shard_map backend: the block mesh
+        (``core.collectives.LocalMesh`` / ``ProcessGroupMesh``) and which
+        of its axes the column blocks split over (default: all of them, in
+        mesh order).  Passing a mesh makes ``backend="auto"`` prefer
+        shard_map, and the solve runs on ``mesh.device``.  Without one a
+        shard_map plan runs on the stream pool's mesh.
       device: where the solve runs.  ``None`` is the current CUDA device
         (an error when there is none); ``"cpu"`` runs on the host.
       draws / omega: inject the random inputs of the repair and of the
@@ -646,30 +677,39 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         by default they are drawn from ``config.key``.
 
     Returns an :class:`SVDResult`: U (M, r), S (r,), V (N, r) when
-    ``want_right`` (rows in original column order), the explainable
+    ``want_right`` (rows in original column order; on a rank of a process
+    group, the rows of this rank's column block), the explainable
     :class:`~repro_torch.core.planner.Plan`, and :class:`Diagnostics`.
     """
     config = _reject_stream_knobs(_coerce_config(config, overrides), "svd")
-    device = resolve_device(device)
+    if mesh is not None and config.backend not in ("shard_map", "auto"):
+        raise ValueError(
+            f"mesh= was provided but config.backend={config.backend!r}; a "
+            f"mesh only applies to backend='shard_map' (or 'auto')")
+    device = mesh.device if mesh is not None else resolve_device(device)
 
     timer = _CallTimer(config, device)
     with obs.span("describe_and_plan"):
-        d, note = _resolve_num_blocks(a, config, device)
+        d, note = _resolve_num_blocks(a, config, device, mesh, block_axes)
         spec = describe(a, d)
         if config.rank is not None and config.rank > spec.m:
             raise ValueError(
                 f"rank={config.rank} must be in [1, M={spec.m}]")
-        p = planner.make_plan(spec, config,
-                              device_count=_device_count(device),
-                              mesh_provided=False)
+        device_count, mesh_provided = _device_env(mesh, block_axes, device)
+        p = planner.make_plan(spec, config, device_count=device_count,
+                              mesh_provided=mesh_provided)
     if note:
         p = dataclasses.replace(p, reasons=p.reasons + (note,))
-    if p.backend in _UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"the plan's backend is {p.backend!r}, which is not ported "
-            f"yet: ROADMAP.md {_UNPORTED_BACKENDS[p.backend]}; only "
-            f"backend='single' or 'hierarchical' runs (plan: "
-            f"{'; '.join(p.reasons)})")
+    if p.backend == "shard_map" and mesh is None:
+        from repro_torch.stream import state as stream_state
+
+        if device_count != d:
+            raise ValueError(
+                f"backend='shard_map' with no mesh= needs one device per "
+                f"block: num_blocks={d} but device_count={device_count}")
+        mesh = stream_state.stream_mesh(d)
+        block_axes = (stream_state.STREAM_AXIS,)
+        device = mesh.device
 
     # local_mode is only consumed by the exact proxy merge; under the
     # gram merge (or the randomized path) a local_mode='svd' config
@@ -696,6 +736,10 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
             out = _run_hierarchical(a_norm, run_cfg,
                                     sketch_override=p.sketch_leaves,
                                     draws=draws, omega=omega)
+        elif p.backend == "shard_map":
+            out = _run_shard_map(a_norm, mesh, run_cfg,
+                                 block_axes=block_axes, draws=draws,
+                                 omega=omega)
         else:
             out = _run_single(a_norm, run_cfg, draws=draws, omega=omega)
 
@@ -705,7 +749,11 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         k = p.truncate_to
         u, s = u[:, :k], s[:k]
         v = v[:, :k] if v is not None else None
-    if v is not None:
+    if v is not None and p.backend == "shard_map" and mesh.n_local < d:
+        # A rank holds its block's rows: trim those past the last column.
+        first = mesh.local_slots[0] * (v.shape[0] // mesh.n_local)
+        v = v[:max(0, min(v.shape[0], spec.n - first))]
+    elif v is not None:
         v = v[:spec.n]  # trim the adapter's zero-column padding back off
     timing = timer.finish()
 
@@ -897,11 +945,6 @@ def svd_update(state, delta, config: Optional[SolveConfig] = None, *,
     timer = _CallTimer(config, device)
     with obs.span("describe_and_plan"):
         p = plan_update(delta, config, state=state)
-    if p.backend != "single":
-        raise NotImplementedError(
-            f"the stream plan's backend is {p.backend!r}, which is not "
-            f"ported yet: ROADMAP.md {_UNPORTED_BACKENDS[p.backend]}; set "
-            f"stream_backend='single' (plan: {'; '.join(p.reasons)})")
     new_state, info = streaming.ingest(state, delta, config, p,
                                        draws=draws, omega=omega)
     timing = timer.finish()
@@ -1094,9 +1137,8 @@ class ServeTopKConfig:
       that materializes the (B, N) score matrix (planner rule R7 prices
       both; results are bit-identical either way).
     * ``serve_backend`` — ``"single"``, ``"shard_map"`` (one column
-      block per device; degrades honestly to single when the device
-      count does not match; the sharded ranker itself is not ported
-      yet) or ``"auto"``.
+      block per slot of the stream pool; degrades honestly to single
+      when the slot count does not match) or ``"auto"``.
     * ``num_blocks`` — column-block count; ``None`` takes the state's.
     * ``memory_budget_bytes`` — R7 budget (default 4 GiB).
     """
@@ -1168,12 +1210,20 @@ class ServeHandle:
         return self.buffer.version
 
     def commit(self, state):
-        """Publish a new state to readers (between request waves)."""
+        """Publish a new state to readers (between request waves), in the
+        layout the plan's ranker reads (sharded over the stream mesh for
+        ``shard_map``)."""
+        from repro_torch.stream import state as stream_state
+
         if state.n != self.buffer.read().n:
             raise ValueError(
                 f"state.n={state.n} does not match the serving "
                 f"universe n={self.buffer.read().n}; serve_init a new "
                 f"handle to change universes")
+        if self.plan.backend == "shard_map":
+            state = stream_state.shard_state(state, state.mesh)
+        elif state.sharded_rows:
+            state = stream_state.gather_state(state)
         return self.buffer.commit(state)
 
     def metrics(self) -> Dict[str, Any]:
@@ -1237,14 +1287,15 @@ def serve_init(state, config: Optional[ServeTopKConfig] = None,
     resolved = (config if config.num_blocks is not None
                 else dataclasses.replace(config,
                                          num_blocks=state.num_blocks))
+    from repro_torch.stream import state as stream_state
+
     plan = planner.make_serve_plan(
         state.n, state.rank, resolved,
         device_count=_device_count(state.device))
-    if plan.backend != "single":
-        raise NotImplementedError(
-            f"the serve plan's backend is {plan.backend!r}, which is not "
-            f"ported yet: ROADMAP.md {_UNPORTED_BACKENDS[plan.backend]}; "
-            f"set serve_backend='single'")
+    if plan.backend == "shard_map":
+        state = stream_state.shard_state(state, state.mesh)
+    elif state.sharded_rows:
+        state = stream_state.gather_state(state)
     snap = snapshot_mod.ServingSnapshot.from_state(
         state, quantize=resolved.quantize, keep_u=resolved.keep_u)
     return ServeHandle(buffer=snapshot_mod.SnapshotBuffer(snap),
@@ -1278,7 +1329,9 @@ def serve_topk(handle: ServeHandle, queries,
         return ranker_mod.score_topk(
             handle.read(), queries,
             cfg.k_top if k_top is None else k_top,
-            block_n=cfg.block_n, use_kernel=cfg.use_kernel)
+            block_n=cfg.block_n,
+            sharded=handle.plan.backend == "shard_map",
+            use_kernel=cfg.use_kernel)
     snap = handle.read()
     with obs.span("serve.topk", batch=int(queries.shape[0]),
                   version=snap.version) as sp:
@@ -1287,7 +1340,9 @@ def serve_topk(handle: ServeHandle, queries,
         sp.then(_observe_latency)
         res = ranker_mod.score_topk(
             snap, queries, cfg.k_top if k_top is None else k_top,
-            block_n=cfg.block_n, use_kernel=cfg.use_kernel,
+            block_n=cfg.block_n,
+            sharded=handle.plan.backend == "shard_map",
+            use_kernel=cfg.use_kernel,
             plan_bytes=handle.plan.estimated_peak_bytes)
     obs.counter_add("serve_requests_total")
     obs.counter_add("serve_queries_total", float(queries.shape[0]))

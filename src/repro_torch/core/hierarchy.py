@@ -15,7 +15,8 @@ streaming merge-and-truncate engine (``repro_torch.stream.ingest``) and
 the scan-window driver (``repro_torch.stream.window``) all call it.
 :func:`solve_hierarchical` is the host-orchestrated tree (a Python loop
 over levels, every level's groups in one batched SVD); the two-level
-device-scheduled variant belongs to the distributed slice.
+variant scheduled over a mesh is ``core/distributed.py``'s
+``two_level`` merge.
 """
 from __future__ import annotations
 
@@ -35,6 +36,70 @@ from repro_torch.core import ranky, sparse
 # (``hierarchical``) at 2.8e-4 with ``gesvdj`` on its wide panels and
 # 4.3e-6 with ``gesvd`` through their transpose, 4x as long.
 CUDA_SVD_DRIVER: Optional[str] = "gesvd"
+
+
+# Below this many bytes a tall merge panel is reduced by the port's own
+# Householder QR instead of cuSOLVER's geqrf (``torch.linalg.qr``), whose
+# device workspace is a fixed 3 MiB (3,146,752 B above its outputs at
+# every panel of 4,096 rows and 16 to 80 columns on an H100,
+# ``scripts/drift_stages_torch.py``): more than such a panel itself, and
+# more than rule R5's closed form prices a small batch's whole merge at.
+# Above it geqrf's workspace grows with the panel at a fraction of it.
+SMALL_PANEL_BYTES = 3 << 20
+
+
+def householder_qr(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unblocked Householder QR of a tall (..., m, n) panel, m > n (the
+    column-by-column form of LAPACK's ``geqr2``): ``(a, tau)`` with R in
+    the upper triangle of ``a`` and the reflectors' tails below it,
+    ``H_j = I - tau_j v_j v_j^T``, ``v_j = [1; a[j+1:, j]]``.  It works on
+    one copy of the panel and needs no workspace beyond it (one rank-1
+    update a column, in place), and nothing waits for the device."""
+    a = p.clone()
+    *lead, m, n = a.shape
+    tau = a.new_zeros((*lead, n))
+    for j in range(n):
+        x = a[..., j:, j]                                  # (..., m - j)
+        alpha = x[..., 0].clone()
+        norm = torch.linalg.vector_norm(x, dim=-1)
+        live = norm > 0
+        beta = torch.where(alpha >= 0, -norm, norm)
+        one = torch.ones_like(norm)
+        tau[..., j] = torch.where(live, (beta - alpha)
+                                  / torch.where(live, beta, one), 0.0)
+        x /= torch.where(live, alpha - beta, one)[..., None]
+        x[..., 0] = 1.0                                    # v_j, in place
+        if j + 1 < n:
+            t = a[..., j:, j + 1:]
+            w = x.unsqueeze(-2) @ t                        # v^T T: (.., 1, *)
+            vt = (x * tau[..., j, None]).unsqueeze(-1)
+            if t.dim() == 2:
+                t.addmm_(vt, w, alpha=-1.0)
+            else:
+                t.sub_(vt * w)
+        x[..., 0] = torch.where(live, beta, alpha)         # R[j, j]
+    return a, tau
+
+
+def householder_apply(a: torch.Tensor, tau: torch.Tensor, c: torch.Tensor
+                      ) -> torch.Tensor:
+    """``Q @ [c; 0]`` for the Q of :func:`householder_qr` and an (..., n,
+    r) ``c``: the reflectors applied last to first to an (..., m, r)
+    buffer, in place."""
+    *lead, m, n = a.shape
+    out = c.new_zeros((*lead, m, c.shape[-1]))
+    out[..., :n, :] = c
+    for j in reversed(range(n)):
+        v = a[..., j:, j].clone()
+        v[..., 0] = 1.0
+        o = out[..., j:, :]
+        w = v.unsqueeze(-2) @ o
+        vt = (v * tau[..., j, None]).unsqueeze(-1)
+        if o.dim() == 2:
+            o.addmm_(vt, w, alpha=-1.0)
+        else:
+            o.sub_(vt * w)
+    return out
 
 
 def svd_through_transpose(p: torch.Tensor, driver: Optional[str]
@@ -67,16 +132,30 @@ def merge_svd(p: torch.Tensor, rank: int
     is factored (``U = Q U_R``): cuSOLVER's ``gesvd`` of the panel itself
     takes a workspace several times the panel, which put a scan window of
     the paper's rows over rule R6's closed form on an H100 (PERF.md),
-    where the QR needs one panel-sized Q.
+    where the QR needs one panel-sized Q.  A panel below
+    ``SMALL_PANEL_BYTES`` is reduced by :func:`householder_qr` instead:
+    geqrf's fixed workspace is larger than such a panel.
     """
     m, rtot = p.shape[-2:]
     driver = CUDA_SVD_DRIVER if p.is_cuda else None
     with obs.span("merge.svd", m=m, r_tot=rtot, rank=rank):
-        if m > rtot:
+        if m > rtot and p.numel() * p.element_size() < SMALL_PANEL_BYTES:
+            # A small tall panel: the port's Householder QR, whose only
+            # buffer is one copy of the panel (see SMALL_PANEL_BYTES).
+            a, tau = householder_qr(p)
+            r = a[..., :rtot, :].triu()
+            u_r, s, wt = torch.linalg.svd(r, full_matrices=False,
+                                          driver=driver)
+            u = householder_apply(a, tau, u_r[..., :rank])
+            del a
+        elif m > rtot:
+            # Only the kept columns of U = Q U_R are formed, and Q is freed
+            # before the caller's next buffer.
             q, r = torch.linalg.qr(p)
             u_r, s, wt = torch.linalg.svd(r, full_matrices=False,
                                           driver=driver)
-            u = q @ u_r
+            del r
+            u = q @ u_r[..., :rank]
             del q
         elif driver == "gesvd" and m < rtot:
             u, s, wt = svd_through_transpose(p, driver)

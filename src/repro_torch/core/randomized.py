@@ -35,8 +35,9 @@ prologue): a rank-deficient block leaves lonely rows with no weight in
 the sketch, so the components repair would have created are truncated
 away unrecoverably.
 
-``randomized_tail_over`` (the same loop with collectives over a mesh)
-belongs to the distributed slice and is not here yet.
+:func:`randomized_tail_over` is the same loop with collectives over a
+``core.collectives.BlockMesh``: the (L, M) pullback and the (L, L) sketch
+gram are the only sums across blocks.
 """
 from __future__ import annotations
 
@@ -363,3 +364,53 @@ def block_truncated_panels(
     with obs.span("truncate_sketch"):
         u, s, _ = truncate_sketch(t, g @ g.mT, rank)
     return u * s[..., None, :]
+
+
+# ---------------------------------------------------------------------------
+# Distributed tail (the shard functions of core/distributed.py and the
+# sharded stream engines)
+# ---------------------------------------------------------------------------
+
+def randomized_tail_over(
+    sketch: Callable[[torch.Tensor], torch.Tensor],
+    pullback_local: Callable[[torch.Tensor], torch.Tensor],
+    mesh,
+    m: int,
+    *,
+    rank: int,
+    oversample: int,
+    power_iters: int,
+    key: Key = None,
+    want_right: bool,
+    omega: Optional[torch.Tensor] = None,
+    axes=None,
+):
+    """The sketch loop on a mesh.  ``sketch`` maps an (L, M) Omega to the
+    process's (n_local, L, W) sketch stack; ``pullback_local`` maps that
+    stack to the (n_local, L, M) stack of each local block's own pullback
+    (``_stack_ops(blocks, summed=False)`` of the local blocks).  The
+    pullback and the (L, L) sketch gram are psummed over ``axes`` (the
+    whole mesh by default); Omega, the QRs and the tail eigh / SVD are the
+    same on every slot, computed once a process.  Omega is drawn from the
+    solve's key (not a per-block one), so it is replicated; ``omega``
+    injects it.  Returns (U, S), plus the local blocks' V stack
+    (n_local, W, k) when ``want_right``."""
+    l = sketch_width(rank, oversample, m)
+    if omega is None:
+        omega = draw_omega(key, l, m, device=mesh.device)
+    elif tuple(omega.shape) != (l, m):
+        raise ValueError(
+            f"omega has shape {tuple(omega.shape)}, want (L, M) = ({l}, {m})")
+
+    def pullback(g):
+        return mesh.psum(pullback_local(g), axes)[0]
+
+    g, t = _range_finder(sketch, pullback, omega, power_iters)
+    with obs.span("sketch_gram"):
+        h = mesh.psum(g @ g.mT, axes)[0]
+    with obs.span("truncate_sketch"):
+        u, s, vproj = truncate_sketch(t, h, rank)
+    if not want_right:
+        return u, s
+    with obs.span("right_vectors"):
+        return u, s, g.mT @ vproj

@@ -108,14 +108,16 @@ def _block_seeds(seed: int, method: str, d: int) -> Tuple[int, int]:
 
 
 def draw_random_cols(seed: int, method: str, num_blocks: int, m: int,
-                     width: int, device) -> torch.Tensor:
-    """(D, M) int32 uniform columns in [0, W).  Drawn on the host (it is
-    small), so the same key repairs the same columns on every device and
-    for the dense and the sparse representation alike."""
-    out = torch.empty((num_blocks, m), dtype=torch.int32)
-    for d in range(num_blocks):
+                     width: int, device, *, slots=None) -> torch.Tensor:
+    """(D, M) int32 uniform columns in [0, W), or with ``slots`` the rows
+    of those blocks only.  Drawn on the host (it is small), so the same key
+    repairs the same columns on every device, for the dense and the sparse
+    representation alike, and for block d wherever it is repaired."""
+    slots = range(num_blocks) if slots is None else slots
+    out = torch.empty((len(slots), m), dtype=torch.int32)
+    for i, d in enumerate(slots):
         _, s_rand = _block_seeds(seed, method, d)
-        out[d] = torch.randint(0, width, (m,), generator=_generator(s_rand),
+        out[i] = torch.randint(0, width, (m,), generator=_generator(s_rand),
                                dtype=torch.int32)
     return out.to(device)
 
@@ -432,6 +434,70 @@ def ref_neighbor_candidates(
 BlockInput = Union[torch.Tensor, "sparse.BlockEll"]
 
 
+def repair_blocks(
+    blocks,
+    slots,
+    method: str,
+    seed: int,
+    *,
+    m: int,
+    width: int,
+    row_adj: Optional[torch.Tensor] = None,
+    draws: Optional[RepairDraws] = None,
+):
+    """Repair the blocks ``slots`` of a column-split input, given the
+    global row adjacency (methods neighbor / neighbor_random).
+
+    ``blocks`` is the (n, M, W) dense stack of those blocks, or a
+    ``BlockEll`` of n blocks; block i is global block ``slots[i]`` and
+    consumes that block's draws: the rows ``slots`` of injected ``draws``
+    (which cover every block), or its own generators seeded from ``seed``
+    and its global index.  So a block is repaired the same, bit for bit,
+    in a single-host solve and on whichever slot of a mesh holds it.
+    Returns the repaired dense stack, or ``(repair_cols, repair_mask)``
+    (n, M) for an ELL input."""
+    needs_adj = method in ("neighbor", "neighbor_random")
+    needs_rand = method in ("random", "neighbor_random")
+    is_sparse = isinstance(blocks, sparse.BlockEll)
+    dev = blocks.device
+    slots = [int(d) for d in slots]
+    rand = draws.random_cols if draws is not None else None
+    if needs_rand:
+        rand = (draw_random_cols(seed, method, None, m, width, dev,
+                                 slots=slots)
+                if rand is None else rand[slots])
+    given_scores = draws.neighbor_scores if draws is not None else None
+
+    def block_draws(i, d, score_shape):
+        sc = None
+        if needs_adj:
+            sc = (given_scores[d] if given_scores is not None else
+                  draw_neighbor_scores(seed, method, d, score_shape, dev))
+        return dict(random_cols=rand[i] if needs_rand else None, scores=sc)
+
+    if is_sparse:
+        rc = torch.empty((len(slots), m), dtype=torch.int32, device=dev)
+        rm = torch.empty((len(slots), m), dtype=torch.bool, device=dev)
+        for i, d in enumerate(slots):
+            rc[i], rm[i] = repair_block_sparse(
+                blocks.col_ids[i], blocks.col_rows[i], blocks.col_vals[i],
+                method, m=m, row_adj=row_adj,
+                **block_draws(i, d, (m, blocks.capacity[0])))
+        return rc, rm
+    out = torch.empty((len(slots), m, width), dtype=blocks.dtype, device=dev)
+    for i, d in enumerate(slots):
+        out[i] = repair_block(blocks[i], method, row_adj=row_adj,
+                              **block_draws(i, d, (m, width)))
+    return out
+
+
+def dense_block_stack(a: torch.Tensor, num_blocks: int) -> torch.Tensor:
+    """The (D, M, W) block view of a dense (M, D*W) matrix: block d is
+    ``a[:, d*W:(d+1)*W]``."""
+    m, n = a.shape
+    return a.reshape(m, num_blocks, n // num_blocks).permute(1, 0, 2)
+
+
 def split_and_repair(
     a: BlockInput,
     num_blocks: int,
@@ -449,42 +515,21 @@ def split_and_repair(
 
     ``draws`` injects the random inputs (see :class:`RepairDraws`);
     without it they come from generators seeded from ``key`` and the block
-    index.  Blocks are repaired one after the other: the candidate mask
-    and the score draw of a block are (M, C) (sparse) or (M, W) (dense),
-    and a batch over D of those is the largest thing this function could
-    allocate.
+    index.  Blocks are repaired one after the other (:func:`repair_blocks`):
+    the candidate mask and the score draw of a block are (M, C) (sparse) or
+    (M, W) (dense), and a batch over D of those is the largest thing this
+    function could allocate.
     """
     if method not in METHODS:
         raise ValueError(f"unknown Ranky method {method!r}; want one of {METHODS}")
     seed = seed_of(key)
     needs_adj = method in ("neighbor", "neighbor_random")
-    needs_rand = method in ("random", "neighbor_random")
-    is_sparse = isinstance(a, sparse.BlockEll)
 
-    if is_sparse:
+    if isinstance(a, sparse.BlockEll):
         if a.num_blocks != num_blocks:
             raise ValueError(
                 f"BlockEll has {a.num_blocks} blocks, got num_blocks={num_blocks}")
-        m, width, dev = a.m, a.width, a.device
-    else:
-        m, n = a.shape
-        if n % num_blocks:
-            raise ValueError("pad columns so N % num_blocks == 0")
-        width, dev = n // num_blocks, a.device
-
-    rand = draws.random_cols if draws is not None else None
-    if needs_rand and rand is None:
-        rand = draw_random_cols(seed, method, num_blocks, m, width, dev)
-    given_scores = draws.neighbor_scores if draws is not None else None
-
-    def block_draws(d, score_shape):
-        sc = None
-        if needs_adj:
-            sc = (given_scores[d] if given_scores is not None else
-                  draw_neighbor_scores(seed, method, d, score_shape, dev))
-        return dict(random_cols=rand[d] if needs_rand else None, scores=sc)
-
-    if is_sparse:
+        m, dev = a.m, a.device
         adj = None
         if needs_adj:
             # Only lonely rows consult the adjacency: when no block has one
@@ -494,41 +539,46 @@ def split_and_repair(
                 adj = row_adjacency_sparse(a)
             else:
                 adj = torch.zeros((m, m), dtype=torch.bool, device=dev)
-        rc = torch.empty((num_blocks, m), dtype=torch.int32, device=dev)
-        rm = torch.empty((num_blocks, m), dtype=torch.bool, device=dev)
-        for d in range(num_blocks):
-            rc[d], rm[d] = repair_block_sparse(
-                a.col_ids[d], a.col_rows[d], a.col_vals[d], method, m=m,
-                row_adj=adj, **block_draws(d, (m, a.capacity[0])))
+        rc, rm = repair_blocks(a, range(num_blocks), method, seed, m=m,
+                               width=a.width, row_adj=adj, draws=draws)
         return sparse.RepairedSparseBlocks(a, rc, rm)
 
+    m, n = a.shape
+    if n % num_blocks:
+        raise ValueError("pad columns so N % num_blocks == 0")
     adj = row_adjacency(a) if needs_adj else None
-    out = torch.empty((num_blocks, m, width), dtype=a.dtype, device=dev)
-    for d in range(num_blocks):
-        out[d] = repair_block(a[:, d * width:(d + 1) * width], method,
-                              row_adj=adj, **block_draws(d, (m, width)))
-    return out
+    return repair_blocks(dense_block_stack(a, num_blocks), range(num_blocks),
+                         method, seed, m=m, width=n // num_blocks,
+                         row_adj=adj, draws=draws)
 
 
-def right_vectors_stack(blocks, u: torch.Tensor, s: torch.Tensor
-                        ) -> torch.Tensor:
+def right_vectors_stack(blocks, u: torch.Tensor, s: torch.Tensor, *,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Right vectors of the REPAIRED matrix from a repaired block stack:
     per block ``V_blk = A_blk^T U diag(1/S)``, stacked to (D*W, r) in
-    padded column order."""
+    padded column order.  ``out`` (D*W, r), which may be a column slice of
+    a wider panel, receives the result in place of a new tensor (the
+    streaming merge writes the batch's part of its panel this way)."""
     from repro_torch.core import svd as lsvd
 
     if isinstance(blocks, sparse.RepairedSparseBlocks):
         ell = blocks.ell
-        v = torch.stack([
+        d, w, r = ell.num_blocks, ell.width, u.shape[1]
+        if out is None:
+            out = torch.empty((d * w, r), dtype=u.dtype, device=u.device)
+        view = out.view(d, w, r)
+        for i in range(d):
             lsvd.sparse_right_vectors(
-                ell.col_ids[d], ell.col_rows[d], ell.col_vals[d],
-                blocks.repair_cols[d], blocks.repair_mask[d], ell.width, u, s)
-            for d in range(ell.num_blocks)])              # (D, W, r)
-        return v.reshape(ell.num_blocks * ell.width, -1)
+                ell.col_ids[i], ell.col_rows[i], ell.col_vals[i],
+                blocks.repair_cols[i], blocks.repair_mask[i], w, u, s,
+                out=view[i])
+        return out
     d, _, w = blocks.shape
     inv = lsvd.masked_inverse(s)
-    v = (blocks.mT @ u) * inv[None, None, :]              # (D, W, r)
-    return v.reshape(d * w, -1)
+    if out is None:
+        return ((blocks.mT @ u) * inv[None, None, :]).reshape(d * w, -1)
+    torch.mul(blocks.mT @ u, inv[None, None, :], out=out.view(d, w, -1))
+    return out
 
 
 def solve_single(

@@ -260,11 +260,13 @@ def sparse_right_vectors(
     s: torch.Tensor,
     *,
     rcond: float = 1e-7,
+    out: torch.Tensor = None,
 ) -> torch.Tensor:
     """Sparse-native right_vectors: V_blk (W, r) for one repaired sparse
     block.  A_blk^T @ U reduces to one (C, M) x (M, r) product over stored
     columns scattered to their local ids, plus the repair rows of U.
-    U may be square (exact paths) or truncated (M, r).
+    U may be square (exact paths) or truncated (M, r).  ``out`` (W, r),
+    which may be a strided slice of a wider panel, receives the result.
 
     Both adds give the same bits on every call: the live stored columns'
     ids are distinct and padding columns add exact zeros, and the repair
@@ -272,9 +274,13 @@ def sparse_right_vectors(
     (``sparse.segment_sum``), not by float atomics."""
     m = u.shape[0]
     panel = sparse.stored_col_panel(col_rows, col_vals, m)   # (C, M)
-    atu = torch.zeros((width, u.shape[1]), dtype=u.dtype, device=u.device)
+    if out is None:
+        out = torch.empty((width, u.shape[1]), dtype=u.dtype,
+                          device=u.device)
+    atu = out.zero_()
     atu.index_add_(0, col_ids.long(), panel @ u)
+    del panel
     order, offsets = sparse.sorted_segments(
         torch.where(repair_mask, repair_cols.long(), width), width)
     atu += sparse.segment_sum(u[order], offsets)
-    return atu * masked_inverse(s, rcond=rcond)[None, :]
+    return atu.mul_(masked_inverse(s, rcond=rcond)[None, :])

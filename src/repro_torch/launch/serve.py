@@ -5,8 +5,8 @@
 
 Runs on the GPU unless ``--device`` says otherwise.  The port runs the
 ``hybrid`` family (zamba2-2.7b); other architectures raise
-``NotImplementedError``, as does ``--model-parallel`` above 1 (the port has
-no mesh yet: ROADMAP.md item 8).
+``NotImplementedError``, as does ``--model-parallel`` above 1 (the LM's
+model mesh is ROADMAP.md item 16).
 """
 from __future__ import annotations
 
@@ -35,8 +35,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1: the port has no mesh yet (ROADMAP.md "
-            "item 8)")
+            "--model-parallel > 1: the LM's model mesh is not ported yet "
+            "(ROADMAP.md item 16)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)

@@ -176,6 +176,15 @@ class DriftMonitor:
         with self._lock:
             return dict(self._ratios)
 
+    def records(self) -> list:
+        """Every measured call so far: one dict per (rule, label,
+        component, shape key) with its measured and estimated bytes."""
+        with self._lock:
+            return [dict(rule=k[0], label=k[1], component=k[2],
+                         shapes=[list(x) for x in k[3]], measured=m,
+                         estimated=e, ratio=r)
+                    for k, (m, e, r) in self._cache.items()]
+
     def reset(self) -> None:
         with self._lock:
             self._cache.clear()

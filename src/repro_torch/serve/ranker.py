@@ -11,9 +11,12 @@ scale folds into the contraction, no dequantized factor matrix is ever
 resident.  Raw interaction rows project into factor space through
 ``V diag(1/s)`` (:func:`project_rows`).
 
-The sharded ranker (``v`` column-block-sharded over devices, a
-device-major candidate gather and a final stable merge) is not ported
-yet: ROADMAP Queue A item 8.
+The sharded ranker (``sharded=True``, a snapshot of a state sharded over
+the stream mesh): each slot scores its (W, k) slice of ``v`` with its
+global column offset (``index_offset = d * W``, ``valid_n`` its columns
+below n), one kernel launch a slot; the (B, k_top) winners are gathered
+slot-major and merged with one stable sort, so ties still go to the
+lowest global index and the answer is bit-identical to the dense path's.
 """
 from __future__ import annotations
 
@@ -106,6 +109,33 @@ def _local_topk(qs, v, k_top, *, scale, valid_n, index_offset, block_n,
                            index_offset=index_offset, block_n=block_n)
 
 
+def _sharded_topk(snapshot: ServingSnapshot, qs, factors, scale, k_top, *,
+                  block_n, use_kernel):
+    """Each local slot's fused top-k over its (W, k) slice, with its
+    global offset and valid columns; the (B, k_top) winners all-gathered
+    slot-major, then one stable merge: ties to the lowest global index."""
+    mesh, w, n = snapshot.mesh, snapshot.width, snapshot.n
+    vals, idx = [], []
+    for i, d in enumerate(mesh.local_slots):
+        off = d * w
+        rows = slice(i * w, (i + 1) * w)
+        v_i, i_i = _local_topk(
+            qs, factors[rows], k_top,
+            scale=None if scale is None else scale[rows],
+            valid_n=max(0, min(w, n - off)), index_offset=off,
+            block_n=block_n, use_kernel=use_kernel)
+        vals.append(v_i)
+        idx.append(i_i)
+    b = qs.shape[0]
+    cand_v = mesh.all_gather(torch.stack(vals))[0]        # (D, B, k_top)
+    cand_i = mesh.all_gather(torch.stack(idx))[0]
+    cand_v = cand_v.transpose(0, 1).reshape(b, -1)
+    cand_i = cand_i.transpose(0, 1).reshape(b, -1)
+    fv, pos = torch.sort(cand_v, dim=1, descending=True, stable=True)
+    return (fv[:, :k_top].contiguous(),
+            torch.gather(cand_i, 1, pos[:, :k_top]))
+
+
 def score_topk(
     snapshot: ServingSnapshot,
     queries: torch.Tensor,
@@ -128,10 +158,10 @@ def score_topk(
     plus the resident snapshot factors and folded queries) and recorded
     as the ``drift_ratio{rule="R7"}`` gauge.
     """
-    if sharded:
-        raise NotImplementedError(
-            "the sharded ranker is not ported yet: ROADMAP.md Queue A "
-            "item 8 (serve the single-device snapshot)")
+    if sharded and snapshot.mesh is None:
+        raise ValueError(
+            "sharded=True needs a snapshot of a sharded state (serve_init "
+            "with serve_backend='shard_map' over the stream mesh)")
     queries = torch.as_tensor(queries).to(snapshot.device)
     if queries.dim() != 2 or queries.shape[1] != snapshot.rank:
         raise ValueError(
@@ -151,15 +181,23 @@ def score_topk(
             if t is not None:
                 t.record_stream(stream)
     def wave():
+        if sharded:
+            return _sharded_topk(snapshot, qs, factors, scale, k_top,
+                                 block_n=block_n, use_kernel=use_kernel)
         return _local_topk(
             qs, factors, k_top,
             scale=scale, valid_n=snapshot.n, index_offset=0,
             block_n=block_n, use_kernel=use_kernel)
 
     if plan_bytes is not None and obs.enabled():
+        # A sharded wave is priced per device: each rank against the form,
+        # a local mesh (its D slots on one card) against D times it.
+        n_local = snapshot.mesh.n_local if sharded else 1
+        label = ("local" if n_local > 1 else "shard_map") if sharded \
+            else "dense"
         vals, idx = obs.observe_call(
-            "R7", wave, plan_bytes, device=factors.device,
-            component="total", label="dense",
+            "R7", wave, plan_bytes * n_local, device=factors.device,
+            component="total", label=label,
             shape_key=obs.drift.shape_key(qs, factors, scale),
             resident=(qs, factors, scale, snapshot.s))
     else:

@@ -45,7 +45,10 @@ class ServingSnapshot:
     scales, folded into the score contraction by the ranker) and replace
     ``v`` when ``quantize=True`` so the f32 factors are not resident
     twice.  ``u_rows`` optionally carries the row factors for user-id
-    lookups.  ``version`` is the publish counter.
+    lookups.  ``version`` is the publish counter.  A snapshot of a
+    sharded state keeps its ``mesh``: ``v`` / ``v_q`` / ``v_scale`` then
+    hold the rows of the process's slots (the sharded ranker scores each
+    slot's (W, k) slice).
     """
 
     s: torch.Tensor
@@ -56,6 +59,7 @@ class ServingSnapshot:
     n: int
     num_blocks: int
     version: int
+    mesh: Optional[object] = dataclasses.field(default=None, compare=False)
 
     @property
     def rank(self) -> int:
@@ -68,6 +72,11 @@ class ServingSnapshot:
     @property
     def device(self) -> torch.device:
         return self.s.device
+
+    @property
+    def width(self) -> int:
+        """Column-block width W = ceil(n / num_blocks)."""
+        return -(-self.n // self.num_blocks)
 
     @classmethod
     def from_state(
@@ -107,6 +116,7 @@ class ServingSnapshot:
             n=state.n,
             num_blocks=state.num_blocks,
             version=version,
+            mesh=state.mesh,
         )
 
 

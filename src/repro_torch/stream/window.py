@@ -52,8 +52,11 @@ one sequence of steps with nothing read back until it ends:
   static ``k + oversample``; widths are quantized so a drift in the tail
   re-buckets rarely.
 
-The sharded window (``shard_map``, rule R6's per-device form) belongs to
-the distributed slice and raises ``NotImplementedError``.
+* **The sharded window** (``plan.backend == "shard_map"``, rule R6's
+  per-device form): the same steps over the stream mesh, each one
+  ``ingest.shard_step`` (the sharded ingest's collectives exactly), with
+  ``v`` kept sharded across the window; each slot's inputs are its own
+  column blocks of the stacked window, cut on the host before the copy.
 """
 from __future__ import annotations
 
@@ -66,7 +69,8 @@ from repro_torch import obs
 from repro_torch.core import hierarchy, planner, randomized, ranky, sparse
 from repro_torch.core import svd as lsvd
 from repro_torch.stream import state as stream_state
-from repro_torch.stream.ingest import IngestInfo, _fire_seam
+from repro_torch.stream.ingest import (IngestInfo, _fire_seam,
+                                       merge_panel, shard_step)
 from repro_torch.stream.state import StreamingSVDState
 
 # Smallest row bucket: padding everything below 8 rows to one shape costs
@@ -175,13 +179,17 @@ def _pad_ell(e: sparse.BlockEll, ids: torch.Tensor, rows: torch.Tensor,
     vals[:, :c, :k] = e.col_vals
 
 
-def build_window(norm_deltas: Sequence, sig: Tuple, *, device) -> Tuple:
+def build_window(norm_deltas: Sequence, sig: Tuple, *, device,
+                 slots: Optional[Sequence[int]] = None,
+                 num_blocks: Optional[int] = None) -> Tuple:
     """Stack a group of same-bucket deltas, normalized on the host, into
     the window's inputs on ``device``: each delta written once into a
     zeroed host stack (pinned when the device is a GPU, so the copy runs at
     the bus's rate), then ONE copy per stacked array.  Dense: ``(a (T,
     m_pad, n_pad),)``; ell: ``(ids (T, D, C), rows (T, D, C, K), vals (T,
-    D, C, K))``."""
+    D, C, K))``.  ``slots`` keeps those column blocks only (a rank's
+    share of a sharded window, of ``num_blocks``), cut on the host before
+    the copy."""
     t = len(norm_deltas)
     pin = torch.device(device).type == "cuda"
 
@@ -192,6 +200,11 @@ def build_window(norm_deltas: Sequence, sig: Tuple, *, device) -> Tuple:
         a = stack((sig[1], norm_deltas[0].shape[1]), torch.float32)
         for i, x in enumerate(norm_deltas):
             _pad_dense(x, a[i])
+        if slots is not None and len(slots) < num_blocks:
+            t_, m_pad, n_pad = a.shape
+            w = n_pad // num_blocks
+            a = a.view(t_, m_pad, num_blocks, w)[:, :, list(slots)].reshape(
+                t_, m_pad, len(slots) * w)
         return (a.to(device),)
     _, _, c_pad, k_pad = sig
     d = norm_deltas[0].num_blocks
@@ -200,6 +213,8 @@ def build_window(norm_deltas: Sequence, sig: Tuple, *, device) -> Tuple:
     vals = stack((d, c_pad, k_pad), torch.float32)
     for i, e in enumerate(norm_deltas):
         _pad_ell(e, ids[i], rows[i], vals[i])
+    if slots is not None and len(slots) < d:
+        ids, rows, vals = (x[:, list(slots)] for x in (ids, rows, vals))
     return tuple(x.to(device) for x in (ids, rows, vals))
 
 
@@ -238,11 +253,13 @@ def adaptive_oversample(s, rank: int, base: int) -> int:
 def _factor(kind: str, d: int, m_pad: int, width: int, n_univ: int,
             r_b: int, sk_rank: Optional[int], config, seed_b: int,
             true_m: int, x: Tuple, draws: Optional[ranky.RepairDraws],
-            omega: Optional[torch.Tensor]):
-    """Repair, mask and factor one padded batch: ``(U_b, P_b = B^T U_b,
-    lonely rows per block (D,), repaired rows)``, the counts as device
-    tensors.  The repaired blocks are this function's own, freed before
-    the merge."""
+            omega: Optional[torch.Tensor], v: torch.Tensor,
+            s_dec: torch.Tensor):
+    """Repair, mask and factor one padded batch: ``(U_b, p, lonely rows
+    per block (D,), repaired rows)``, the counts as device tensors and
+    ``p`` the merge panel ``[V diag(s_dec) | B^T U_b]``
+    (``ingest.merge_panel``).  The repaired blocks are this function's
+    own, freed before the merge."""
     dev = x[0].device
     valid = torch.arange(m_pad, device=dev) < true_m        # (m_pad,) rows
     with obs.span("split_and_repair"):
@@ -277,29 +294,66 @@ def _factor(kind: str, d: int, m_pad: int, width: int, n_univ: int,
         with obs.span("merge_grams_eigh"):
             u_b, _ = lsvd.merge_grams_eigh(grams)
         u_b = u_b[:, :r_b]
+        del grams
+        p = merge_panel(v, s_dec, r_b)
         with obs.span("right_vectors_stack"):
-            panel_b = ranky.right_vectors_stack(
+            ranky.right_vectors_stack(
                 blocks, u_b, torch.ones((r_b,), dtype=torch.float32,
-                                        device=dev))
+                                        device=dev), out=p[:, v.shape[1]:])
     else:
         u_b, s_b, v_b = randomized.randomized_svd_blocks(
             blocks, rank=sk_rank, oversample=config.oversample,
             power_iters=config.power_iters, key=seed_b, want_right=True,
             omega=omega)
-        panel_b = v_b * s_b[None, :]
-    return u_b, panel_b, lonely.sum(dim=1), repaired
+        p = merge_panel(v, s_dec, v_b.shape[1])
+        torch.mul(v_b, s_b[None, :], out=p[:, v.shape[1]:])
+    return u_b, p, lonely.sum(dim=1), repaired
 
 
 def _step(factor_args: Tuple, k_state: int, decay: float, s: torch.Tensor,
           v: torch.Tensor):
     """One batch folded into ``(s, v)``: :func:`_factor`, then the merge
-    of ``[V diag(decay s) | P_b]``.  Returns ``(s', v', uk, u_b, lonely per
-    block, repaired)``."""
-    u_b, panel_b, lonely_pb, repaired = _factor(*factor_args)
-    p = torch.cat([v * (s * decay)[None, :], panel_b], dim=1)
-    del panel_b
+    of ``[V diag(decay s) | P_b]``, one panel that the batch writes its
+    part into.  Returns ``(s', v', uk, u_b, lonely per block,
+    repaired)``."""
+    u_b, p, lonely_pb, repaired = _factor(*factor_args, v, s * decay)
     v_new, s_new, uk = hierarchy.merge_svd(p, k_state)
     return s_new, v_new, uk, u_b, lonely_pb, repaired
+
+
+def _sharded_steps(state, xs, kind: str, m_pad: int, true_m, r_b: int,
+                   config, plan, draws, omegas):
+    """The window's steps over the stream mesh (``state`` sharded): each
+    step ``ingest.shard_step`` on the local slots' blocks, ``v`` sharded
+    throughout.  Returns ``(s, v, uks, ubs, lonely per block (T, D),
+    repaired)``."""
+    mesh, w, k = state.mesh, state.width, state.rank
+    s, v_d = state.s, state.v.view(mesh.n_local, w, k)
+    uks, ubs, lonely = [], [], []
+    repaired = torch.zeros((), dtype=torch.int64, device=state.device)
+    decay = float(config.history_decay)
+    for t in range(len(true_m)):
+        b = state.batches_seen + t
+        valid = torch.arange(m_pad, device=state.device) < true_m[t]
+        if kind == "dense":
+            local = ranky.dense_block_stack(xs[0][t], mesh.n_local)
+        else:
+            local = sparse.BlockEll(xs[0][t], xs[1][t], xs[2][t], m=m_pad,
+                                    width=w, n=state.n)
+        u_b, s, uk, v_d, lon, rep = shard_step(
+            kind, local, mesh, m=m_pad, width=w, config=config, r_b=r_b,
+            k_new=k, sk_rank=plan.rank,
+            seed=ranky.derive_seed(state.seed, b), v_d=v_d,
+            s_dec=s * decay, valid=valid, draws=_pick(draws, t, b),
+            omega=_pick(omegas, t, b))
+        uks.append(uk)
+        ubs.append(u_b)
+        lonely.append(lon)
+        repaired = repaired + rep
+    # Per-block lonely counts of every step, gathered slot-major: (T, D).
+    lonely_all = mesh.all_gather(torch.stack(lonely, dim=1))[0].mT
+    return (s, v_d.reshape(mesh.n_local * w, k), uks, ubs,
+            list(lonely_all), repaired)
 
 
 # ---------------------------------------------------------------------------
@@ -358,11 +412,13 @@ def ingest_window(
     t_len = len(deltas)
     if t_len < 1:
         raise ValueError("ingest_window needs at least one delta")
-    if plan.backend == "shard_map":
-        raise NotImplementedError(
-            "the sharded scan window (plan.backend='shard_map', rule R6's "
-            "per-device form) is not ported yet: ROADMAP.md Queue A item 8 "
-            "(core/distributed.py); use stream_backend='single'")
+    sharded = plan.backend == "shard_map"
+    if sharded:
+        state = stream_state.shard_state(
+            state, state.mesh if state.mesh is not None
+            else stream_state.stream_mesh(d))
+    elif state.mesh is not None:
+        state = stream_state.gather_state(state)
 
     with obs.span("window.prologue"):
         norm = [stream_state.as_delta(x, state, device="cpu")
@@ -378,8 +434,10 @@ def ingest_window(
         width, n_univ = state.width, state.n
         r_b = (min(m_pad, k + config.oversample)
                if plan.rank is None else plan.rank)
-        xs = build_window(norm, sig, device=state.device)
-    step_key = ("single", kind, d, m_pad, width, n_univ, r_b, k, plan.rank,
+        xs = build_window(norm, sig, device=state.device,
+                          slots=state.mesh.local_slots if sharded else None,
+                          num_blocks=d)
+    step_key = (plan.backend, kind, d, m_pad, width, n_univ, r_b, k, plan.rank,
                 config.oversample, config.power_iters, config.method,
                 config.use_kernel, float(config.history_decay))
     traces_before = len(_TRACES)
@@ -390,6 +448,9 @@ def ingest_window(
     _fire_seam("ingest.merge")
 
     def steps():
+        if sharded:
+            return _sharded_steps(state, xs, kind, m_pad, true_m, r_b,
+                                  config, plan, draws, omegas)
         s, v = state.s, state.v
         uks, ubs, lonely_pb = [], [], []
         repaired = torch.zeros((), dtype=torch.int64, device=state.device)
@@ -425,10 +486,16 @@ def ingest_window(
                 num_blocks=d, kind="stream")
             est = planner.window_bytes(
                 spec, k, config.oversample, exact=plan.rank is None,
-                window=t_len, batch_rank=plan.rank, nnz_slots=nnz_slots)
+                window=t_len, batch_rank=plan.rank, nnz_slots=nnz_slots,
+                per_device=sharded)
+            # A sharded window is held to the per-device form on each
+            # rank, to D times it on a local mesh (its D slots' working
+            # sets share the card), labelled "local".
+            local_mesh = sharded and state.mesh.n_local > 1
             s, v, uks, ubs, lonely_pb, repaired = obs.observe_call(
-                "R6", steps, est, device=state.device, component="total",
-                label=plan.backend,
+                "R6", steps, est * (state.mesh.n_local if sharded else 1),
+                device=state.device, component="total",
+                label="local" if local_mesh else plan.backend,
                 shape_key=obs.drift.shape_key(xs, state.s, state.v),
                 resident=(state.s, state.v, *xs))
         else:
@@ -465,7 +532,8 @@ def ingest_window(
         rows_seen=state.rows_seen + int(sum(true_m)),
         batches_seen=state.batches_seen + t_len,
         lonely_rows_seen=state.lonely_rows_seen + int(lonely_total),
-        repaired_rows_seen=state.repaired_rows_seen + int(repaired_total))
+        repaired_rows_seen=state.repaired_rows_seen + int(repaired_total),
+        mesh=state.mesh if sharded else None)
     info = IngestInfo(
         batch_rows=int(sum(true_m)),
         lonely_rows_per_block=tuple(int(x) for x in last_pb),

@@ -22,6 +22,7 @@ from repro.core import sparse as jsparse
 
 import repro_torch.core as tcore
 from repro_torch.core import api as tapi
+from repro_torch.core import collectives as tcollectives
 from repro_torch.core import planner as tplanner
 from repro_torch.core import sparse as tsparse
 
@@ -370,15 +371,71 @@ def test_svd_own_draws_are_reproducible_and_keyed():
                                 device="cpu").s)
 
 
-@pytest.mark.parametrize("backend,queue", [("shard_map", "item 8")])
-def test_unported_backends_raise_not_implemented(backend, queue):
+@pytest.mark.parametrize("backend", ["shard_map"])
+def test_shard_map_backend_runs_on_a_local_mesh(backend):
+    """The shard_map plan runs (one card or the CPU standing for the 8
+    slots) and agrees with the single-host engine for the same key; the
+    plan is explainable and names the mesh's block axes."""
     _, tcoo = _three_inputs()["coo"]
-    with pytest.raises(NotImplementedError, match=queue) as err:
+    mesh = tcollectives.LocalMesh({"model": 8}, "cpu")
+    res = tapi.svd(tcoo, backend=backend, mesh=mesh)
+    single = tapi.svd(tcoo, backend="single", num_blocks=8, device="cpu")
+    assert res.plan.backend == backend
+    assert any("mesh block axes" in r for r in res.plan.reasons)
+    np.testing.assert_allclose(res.s.numpy(), single.s.numpy(), rtol=0,
+                               atol=1e-5 * float(single.s[0]))
+    assert tapi.plan(tcoo, backend=backend, mesh=mesh).backend == backend
+    # Without a mesh the stream pool's is used: one slot here, so a plan
+    # for 8 blocks on it is refused, not run single-host.
+    with pytest.raises(ValueError, match="one device per block"):
         tapi.svd(tcoo, backend=backend, num_blocks=8, device="cpu")
-    assert "ROADMAP.md" in str(err.value) and backend in str(err.value)
-    # the plan itself is still explainable
-    assert tapi.plan(tcoo, backend=backend, num_blocks=8,
-                     device="cpu").backend == backend
+
+
+def test_parity_shard_map_backend_8_slots():
+    """Twin of the reference's 8-device parity: api.svd on the mesh is
+    bit-identical to the legacy shim (dense, ELL, and COO into the ELL
+    path), trims V back to N, and auto with a small rank on a mesh runs
+    the EXACT shard_map engine and slices the top k."""
+    from repro_torch.core import distributed as tdist
+
+    jcoo, tcoo = paper_like_coo(m=16, n=2048, density=0.004, seed=3)
+    a = tsparse.pad_to_block_multiple(tcoo.todense(), 8)
+    ell = tsparse.block_ell_from_coo(tcoo, 8, device="cpu")
+    mesh = tcollectives.LocalMesh({"model": 8}, "cpu")
+    kw = dict(method="neighbor_random", merge_mode="gram", want_right=True,
+              key=11)
+    cfg = tapi.SolveConfig(backend="shard_map", **kw)
+    for legacy_in, api_in in ((torch.from_numpy(a), a), (ell, ell),
+                              (ell, tcoo)):
+        with pytest.warns(DeprecationWarning):
+            u0, s0, v0 = tdist.distributed_ranky_svd(
+                legacy_in, mesh, block_axes=("model",), **kw)
+        res = tapi.svd(api_in, cfg, mesh=mesh, block_axes=("model",))
+        assert torch.equal(res.u, u0) and torch.equal(res.s, s0)
+        assert torch.equal(res.v, v0[:tcoo.shape[1]])
+        assert res.plan.backend == "shard_map"
+    res = tapi.svd(ell, tapi.SolveConfig(method="none", merge_mode="gram",
+                                         rank=6, key=11), mesh=mesh)
+    assert res.plan.backend == "shard_map"
+    assert res.plan.truncate_to == 6 and res.plan.rank is None
+    with pytest.warns(DeprecationWarning):
+        u0, s0 = tdist.distributed_ranky_svd(ell, mesh, method="none",
+                                             merge_mode="gram", key=11)
+    assert torch.equal(res.s, s0[:6])
+
+
+def test_plan_peak_bytes_is_per_device_for_shard_map():
+    """Rule R4 on 8 slots prices the per-device psum buffer, as the
+    reference's planner does, byte for byte."""
+    spec = tplanner.ASpec(m=16_384, n=65_536, nnz=100_000, num_blocks=8)
+    jspec = jplanner.ASpec(m=16_384, n=65_536, nnz=100_000, num_blocks=8)
+    p = tplanner.make_plan(spec, tapi.SolveConfig(), device_count=8)
+    jp = jplanner.make_plan(jspec, japi.SolveConfig(), device_count=8)
+    assert p.backend == jp.backend == "shard_map"
+    assert p.estimated_peak_bytes == jp.estimated_peak_bytes \
+        == 4 * 16_384 * 16_384
+    assert p.estimated_peak_bytes <= p.budget
+    assert p.reasons == jp.reasons
 
 
 def test_front_door_errors_carry_the_references_messages():

@@ -220,8 +220,12 @@ def test_checkpoint_refuses_what_it_cannot_hold(tmp_path):
         ck.save(0, {"w": {"bf": torch.ones(2, dtype=torch.bfloat16)}},
                 blocking=True)
     ck.save(0, {"x": torch.zeros(2)}, blocking=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ck.restore(0, device=CPU, shardings={"x": None})
+    # shardings takes block meshes (in dicts keyed like the tree); None
+    # leaves a subtree as restored.
+    back, _ = ck.restore(0, device=CPU, shardings={"x": None})
+    assert torch.equal(back["x"], torch.zeros(2))
+    with pytest.raises(TypeError, match="BlockMesh"):
+        ck.restore(0, device=CPU, shardings={"x": "cpu"})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ck.restore(0)
@@ -368,3 +372,105 @@ except TypeError as e:
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "OK"
+
+
+# ---------------------------------------------------------------------------
+# Sharded states: saves are gathered, restores re-shard onto the CURRENT
+# slots (twins of the reference's 8-device checkpoint tests)
+# ---------------------------------------------------------------------------
+
+def _sharded_pair():
+    from repro_torch.core.collectives import LocalMesh
+
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((48, 128)).astype(np.float32)
+    kw = dict(method="random", truncate_rank=12, num_blocks=8)
+    return (a, LocalMesh(8, CPU),
+            tapi.SolveConfig(stream_backend="shard_map", **kw),
+            tapi.SolveConfig(stream_backend="single", **kw))
+
+
+def test_checkpoint_portability_sharded_roundtrip(tmp_path):
+    """Save a SHARDED state, restore it sharded (the pool has one slot a
+    block), continue sharded and gathered single-host: bit-identical to
+    continuing the never-checkpointed state the same way.  And a
+    single-host stream's checkpoint feeds the sharded engine."""
+    from repro_torch.stream import state as tstate
+
+    a, mesh, cfg_sh, cfg_si = _sharded_pair()
+    tstate.set_stream_devices(mesh)
+    try:
+        state = tapi.svd_init(128, cfg_sh, device=CPU)
+        for i in range(3):
+            state = tapi.svd_update(state, a[i * 12:(i + 1) * 12],
+                                    cfg_sh).state
+        assert state.mesh is mesh
+        ck = Checkpointer(str(tmp_path))
+        ck.save(3, state, blocking=True)
+        restored, _ = ck.restore(3, device=CPU)
+        assert isinstance(restored, StreamingSVDState)
+        assert restored.mesh is not None and restored.mesh.size == 8
+        for f in ("u", "s", "v", "seed", "rows_seen", "batches_seen"):
+            got, want = getattr(restored, f), getattr(state, f)
+            assert (torch.equal(got, want) if isinstance(got, torch.Tensor)
+                    else got == want), f
+        n1 = tapi.svd_update(state, a[36:48], cfg_sh).state
+        n2 = tapi.svd_update(restored, a[36:48], cfg_sh).state
+        g1 = tapi.svd_update(tstate.gather_state(state), a[36:48],
+                             cfg_si).state
+        g2 = tapi.svd_update(tstate.gather_state(restored), a[36:48],
+                             cfg_si).state
+        st1 = tapi.svd_init(128, cfg_si, device=CPU)
+        for i in range(2):
+            st1 = tapi.svd_update(st1, a[i * 12:(i + 1) * 12], cfg_si).state
+        ck.save(10, st1, blocking=True)
+        rest1, _ = ck.restore(10, device=CPU, reshard=False)
+        m1 = tapi.svd_update(st1, a[24:36], cfg_sh).state
+        m2 = tapi.svd_update(rest1, a[24:36], cfg_sh).state
+    finally:
+        tstate.set_stream_devices(None)
+    for x, y in ((n1, n2), (g1, g2), (m1, m2)):
+        for f in ("u", "s", "v"):
+            assert torch.equal(getattr(x, f), getattr(y, f)), f
+
+
+def test_checkpoint_saved_on_8_slots_restores_on_1(tmp_path):
+    """A file of a state sharded over 8 slots restores onto one (no pool:
+    gathered; ``shardings`` a one-slot mesh: gathered too) and continues
+    single-host bit for bit; a single-host file restores onto 8 slots
+    through ``shardings=`` and continues sharded bit for bit."""
+    from repro_torch.core.collectives import LocalMesh
+    from repro_torch.stream import state as tstate
+
+    a, mesh, cfg_sh, cfg_si = _sharded_pair()
+    state = tapi.svd_init(128, cfg_sh, device=CPU)
+    tstate.set_stream_devices(mesh)
+    try:
+        for i in range(3):
+            state = tapi.svd_update(state, a[i * 12:(i + 1) * 12],
+                                    cfg_sh).state
+    finally:
+        tstate.set_stream_devices(None)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(3, {"state": state}, blocking=True)
+    on1, _ = ck.restore(3, device=CPU)
+    one_slot, _ = ck.restore(3, shardings=LocalMesh(1, CPU))
+    assert on1["state"].mesh is None and one_slot["state"].mesh is None
+    want = tapi.svd_update(tstate.gather_state(state), a[36:48],
+                           cfg_si).state
+    for back in (on1, one_slot):
+        got = tapi.svd_update(back["state"], a[36:48], cfg_si).state
+        for f in ("u", "s", "v"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    ck.save(4, {"state": want}, blocking=True)
+    on8, _ = ck.restore(4, device=CPU, shardings={"state": mesh})
+    assert on8["state"].mesh is mesh
+    tstate.set_stream_devices(mesh)
+    try:
+        x = tapi.svd_update(on8["state"], a[:12], cfg_sh)
+        y = tapi.svd_update(tstate.shard_state(want, mesh), a[:12], cfg_sh)
+    finally:
+        tstate.set_stream_devices(None)
+    assert x.plan.backend == "shard_map"
+    for f in ("u", "s", "v"):
+        assert torch.equal(getattr(x.state, f), getattr(y.state, f)), f

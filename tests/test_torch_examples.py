@@ -39,6 +39,8 @@ CASES = [
     ("serving_topk_torch", {"observe": False}),
     ("serving_topk_torch", {"observe": True}),
     ("serve_lm_torch", {}),
+    ("distributed_svd_torch", {}),
+    ("distributed_streaming_torch", {}),
 ]
 
 

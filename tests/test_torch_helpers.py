@@ -31,12 +31,16 @@ def port_ell(jell) -> tsparse.BlockEll:
         nnz=jell.nnz, device="cpu")
 
 
-def reference_draws(key, method, num_blocks, m, width, score_cols):
+def reference_draws(key, method, num_blocks, m, width, score_cols, *,
+                    keys=None):
     """The draws the reference's ``split_and_repair`` makes from ``key``, in
     the port's ``RepairDraws`` layout: the per-block key split, the
     ``k_nb, k_rand`` split of neighbor_random, ``ranky._random_cols`` and
-    ``jax.random.uniform`` over the (M, score_cols) candidate mask."""
-    keys = jax.random.split(key, num_blocks)
+    ``jax.random.uniform`` over the (M, score_cols) candidate mask.
+    ``keys`` gives the per-block keys instead (the reference's one-shot
+    ``shard_map`` engine folds the device index into ``key``)."""
+    if keys is None:
+        keys = jax.random.split(key, num_blocks)
     rand, scores = [], []
     for k_d in keys:
         if method == "random":
@@ -50,6 +54,90 @@ def reference_draws(key, method, num_blocks, m, width, score_cols):
     return convert.draws_from_numpy(
         np.stack(rand) if rand else None,
         np.stack(scores) if scores else None, device="cpu")
+
+
+def shard_map_draws(key, method, num_blocks, m, width, score_cols):
+    """The draws of the reference's one-shot ``shard_map`` engine: block d
+    repairs with ``fold_in(key, d)`` (``distributed._local_repair``)."""
+    keys = [jax.random.fold_in(key, d) for d in range(num_blocks)]
+    return reference_draws(None, method, num_blocks, m, width, score_cols,
+                           keys=keys)
+
+
+GLOO_PRELUDE = """
+import datetime, os, sys, pickle, traceback
+import torch, torch.distributed as dist
+rank, world, init, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
+                              sys.argv[3], sys.argv[4])
+dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
+                        world_size=world,
+                        timeout=datetime.timedelta(seconds=45))
+"""
+
+GLOO_EPILOGUE = """
+try:
+    result = main(rank, world)
+    err = None
+except BaseException:
+    result, err = None, traceback.format_exc()
+with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+    pickle.dump({"result": result, "error": err}, f)
+dist.destroy_process_group()
+"""
+
+
+def spawn_gloo(body: str, world: int, tmp_path, *, timeout: float = 60.0):
+    """Run ``body`` (which defines ``main(rank, world)``; ``torch`` and
+    ``dist`` are imported, the gloo group of ``world`` ranks initialized
+    through a ``file://`` store in ``tmp_path``) in ``world`` processes on
+    the CPU.  Returns each rank's ``main`` result, in rank order.  A rank
+    that raises, or a group that has not finished within ``timeout``
+    seconds (every rank is then killed), fails the calling test."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    import textwrap
+    import time
+
+    import pytest
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = GLOO_PRELUDE + textwrap.dedent(body) + GLOO_EPILOGUE
+    init = str(tmp_path / "gloo_init")
+    env = dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(world), init,
+         str(tmp_path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            left = max(0.1, deadline - time.monotonic())
+            try:
+                logs.append(p.communicate(timeout=left))
+            except subprocess.TimeoutExpired:
+                pytest.fail(f"gloo group of {world} ranks did not finish "
+                            f"within {timeout}s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, p in enumerate(procs):
+        path = tmp_path / f"rank{r}.pkl"
+        if not path.exists():
+            pytest.fail(f"rank {r} exited {p.returncode} without a result:"
+                        f"\n{logs[r][1][-3000:]}")
+        with open(path, "rb") as f:
+            got = pickle.load(f)
+        if got["error"] is not None:
+            pytest.fail(f"rank {r} raised:\n{got['error']}")
+        results.append(got["result"])
+    return results
 
 
 def reference_omega(key, l, m) -> torch.Tensor:

@@ -176,10 +176,18 @@ def test_exact_tree_with_the_kernels_plain_versions(kind, use_kernel):
     assert tres.diagnostics.lonely_rows == jres.diagnostics.lonely_rows
 
 
-def test_shard_map_backend_still_raises():
+def test_shard_map_backend_runs_beside_the_tree():
+    """The tree and the sharded engine factor the same matrix: the
+    shard_map backend on a local mesh of 8 slots against the tree."""
+    from repro_torch.core.collectives import LocalMesh
+
     _, tcoo = _inputs(_coo(), 8)["coo"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.svd(tcoo, backend="shard_map", num_blocks=8, device="cpu")
+    tree = tapi.svd(tcoo, backend="hierarchical", num_blocks=8, device="cpu")
+    sharded = tapi.svd(tcoo, backend="shard_map", mesh=LocalMesh(8, "cpu"))
+    assert sharded.plan.backend == "shard_map"
+    s = tree.s.numpy()
+    np.testing.assert_allclose(sharded.s.numpy()[:s.shape[0]], s, rtol=0,
+                               atol=1e-4 * s[0])
 
 
 # ---------------------------------------------------------------------------
@@ -379,3 +387,47 @@ def test_per_block_omega_in_the_sketch_panel_plain_version():
             om[d], rows[d:d + 1], vals[d:d + 1])[0])
     with pytest.raises(ValueError, match="stack"):
         tsp.sketch_panel_ref(om[:2], rows, vals)
+
+
+# ---------------------------------------------------------------------------
+# The merge's own Householder QR (small tall panels)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4096, 16), (600, 80), (3, 500, 20),
+                                   (100, 7)])
+def test_householder_qr_factors_the_panel(shape):
+    """Q R = P and Q^T Q = I to float32 rounding, R upper triangular, a
+    zero column (a rank-deficient panel) included; R equals LAPACK's up to
+    the signs of its rows."""
+    rng = np.random.default_rng(0)
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    p[..., 3] = 0.0
+    a, tau = thier.householder_qr(p)
+    n = shape[-1]
+    r = a[..., :n, :].triu()
+    q = thier.householder_apply(a, tau, torch.eye(n).expand(
+        *shape[:-2], n, n))
+    assert float((q @ r - p).abs().max()) <= 1e-5 * float(p.abs().max()) * n
+    assert float((q.mT @ q - torch.eye(n)).abs().max()) <= 1e-5
+    _, r_ref = torch.linalg.qr(p)
+    np.testing.assert_allclose(r.abs().numpy(), r_ref.abs().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_small_and_large_panels_merge_to_the_same_factors():
+    """merge_svd's two tall paths (the Householder QR below
+    ``SMALL_PANEL_BYTES``, LAPACK's QR above) agree to float32 rounding
+    on the same panel."""
+    rng = np.random.default_rng(1)
+    p = torch.from_numpy(rng.standard_normal((2048, 40)).astype(np.float32))
+    small = thier.merge_svd(p, 24)
+    limit = thier.SMALL_PANEL_BYTES
+    try:
+        thier.SMALL_PANEL_BYTES = 0
+        large = thier.merge_svd(p, 24)
+    finally:
+        thier.SMALL_PANEL_BYTES = limit
+    np.testing.assert_allclose(small[1].numpy(), large[1].numpy(),
+                               rtol=1e-5)
+    assert projector_gap(small[0].numpy()[:, :8], large[0].numpy()[:, :8]) \
+        < 1e-4

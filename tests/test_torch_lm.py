@@ -458,7 +458,7 @@ def test_launcher_serves_the_smoke_config_on_the_cpu(capsys):
     tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                   "--requests", "2", "--tokens", "3"])
     assert "2 requests x 3 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                       "--model-parallel", "2"])
 

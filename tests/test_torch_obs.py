@@ -589,8 +589,16 @@ def test_snapshot_keeps_contiguous_factors_for_the_wave(obs_off):
     the state's v is a strided column slice of the merge's output, and
     the kernel's wrapper copied it at every wave.  The snapshot now holds
     the contiguous copy (same values), made once a commit."""
+    import dataclasses
+
     from repro_torch.serve import ServingSnapshot
     state = api.svd_stream(iter(_batches(3, seed=7)), CFG, device=CPU).state
+    # The tall merge now forms only the kept columns of U = Q U_R, so the
+    # stream's v is contiguous; a strided v (the wide merge's, through the
+    # transpose) is what the snapshot must copy.
+    assert state.v.is_contiguous()
+    wide = torch.cat([state.v, state.v], dim=1)
+    state = dataclasses.replace(state, v=wide[:, :state.rank])
     assert not state.v.is_contiguous()
     snap = ServingSnapshot.from_state(state)
     assert snap.v.is_contiguous() and torch.equal(snap.v, state.v)

@@ -36,6 +36,8 @@ from repro_torch.core import planner as tplanner
 from repro_torch.kernels import topk_score as ttk
 from repro_torch.serve import ServingSnapshot, SnapshotBuffer, kvquant, ranker
 from repro_torch.stream import decay_from_timestamps, init_state
+from repro_torch.core.collectives import LocalMesh
+from repro_torch.stream.state import set_stream_devices, shard_state
 
 KEY = jax.random.PRNGKey(11)
 N, D, K = 96, 4, 8
@@ -145,8 +147,10 @@ def test_snapshot_is_a_frozen_dataclass():
     snap = ServingSnapshot.from_state(STATES[0])
     with pytest.raises(dataclasses.FrozenInstanceError):
         snap.version = 3
+    # ... plus the mesh of a sharded state's snapshot (a tensor carries no
+    # sharding of its own).
     assert [f.name for f in dataclasses.fields(ServingSnapshot)] == \
-        [f.name for f in dataclasses.fields(JSnapshot)]
+        [f.name for f in dataclasses.fields(JSnapshot)] + ["mesh"]
 
 
 def test_buffer_stage_is_invisible_until_publish():
@@ -314,10 +318,52 @@ def test_score_topk_validates_inputs(call, match):
         call(ServingSnapshot.from_state(STATES[0]))
 
 
-def test_sharded_ranker_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_sharded_ranker_needs_a_sharded_snapshot():
+    """``sharded=True`` on a snapshot of a single-device state is refused
+    (there is no mesh to score over); on a sharded one it answers."""
+    with pytest.raises(ValueError, match="sharded state"):
         ranker.score_topk(ServingSnapshot.from_state(STATES[0]),
                           _queries(2), 3, sharded=True)
+    sharded = shard_state(STATES[0], LocalMesh(D, CPU))
+    res = ranker.score_topk(ServingSnapshot.from_state(sharded),
+                            _queries(2), 3, sharded=True)
+    dense = ranker.score_topk(ServingSnapshot.from_state(STATES[0]),
+                              _queries(2), 3)
+    assert torch.equal(res.scores, dense.scores)
+    assert torch.equal(res.indices, dense.indices)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["f32", "int8"])
+def test_sharded_ranker_bitwise(quantize):
+    """Twin of the reference's 8-device ranker test, on a local mesh of 8
+    slots: per-slot fused top-k with its offset, a slot-major gather and a
+    stable merge give the dense path's answer bit for bit, f32 and int8
+    alike, and ``serve_backend='auto'`` picks it through the front door
+    when the stream pool has one slot per block."""
+    n, d, k = 1000, 8, 12
+    cfg = tapi.SolveConfig(method="random", truncate_rank=k, num_blocks=d,
+                           stream_backend="single")
+    a = np.random.default_rng(0).standard_normal((64, n)).astype(np.float32)
+    state = tapi.svd_update(tapi.svd_init(n, cfg, device=CPU), a, cfg).state
+    q = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (7, k)).astype(np.float32))
+    dense = ranker.score_topk(
+        ServingSnapshot.from_state(state, quantize=quantize), q, 9)
+    sharded = ranker.score_topk(
+        ServingSnapshot.from_state(shard_state(state, LocalMesh(d, CPU)),
+                                   quantize=quantize), q, 9, sharded=True)
+    assert torch.equal(dense.scores, sharded.scores)
+    assert torch.equal(dense.indices, sharded.indices)
+    set_stream_devices(LocalMesh(d, CPU))
+    try:
+        handle = tapi.serve_init(state, tapi.ServeTopKConfig(
+            k_top=9, quantize=quantize))
+        assert handle.plan.backend == "shard_map"
+        res = tapi.serve_topk(handle, q)
+    finally:
+        set_stream_devices(None)
+    assert torch.equal(res.scores, dense.scores)
+    assert torch.equal(res.indices, dense.indices)
 
 
 def test_integer_factors_served_bitwise_by_both_packages():
@@ -461,10 +507,21 @@ def test_serve_plan_equals_the_reference(cfg, dc):
     assert tp.estimates == jp.estimates and tp.reasons == jp.reasons
 
 
-def test_a_sharded_serve_plan_is_refused_not_run_single(monkeypatch):
-    monkeypatch.setattr(tapi, "_device_count", lambda device: D)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.serve_init(STATES[0])
+def test_a_sharded_serve_plan_runs_the_sharded_ranker():
+    """One slot per column block in the stream pool: R7 picks shard_map,
+    ``serve_init`` shards the snapshot over the pool's mesh and the waves
+    run the sharded ranker (the same answer as a single-device handle)."""
+    set_stream_devices(LocalMesh(D, CPU))
+    try:
+        handle = tapi.serve_init(STATES[0])
+        assert handle.plan.backend == "shard_map"
+        assert handle.read().mesh is not None
+        res = tapi.serve_topk(handle, _queries(3))
+    finally:
+        set_stream_devices(None)
+    single = tapi.serve_topk(tapi.serve_init(STATES[0]), _queries(3))
+    assert torch.equal(res.scores, single.scores)
+    assert torch.equal(res.indices, single.indices)
 
 
 def test_carried_state_served_and_updated_by_both():

@@ -30,6 +30,8 @@ from repro.core import planner as jplanner
 from repro.core import sparse as jsparse
 
 from repro_torch import stream as tstream
+from repro_torch.core.collectives import LocalMesh
+from repro_torch.stream import state as tstate
 from repro_torch.core import api as tapi
 from repro_torch.core import convert
 from repro_torch.core import hierarchy as thier
@@ -307,16 +309,103 @@ def test_plan_update_from_spec_and_from_delta():
         tapi.plan_update(delta, tapi.SolveConfig(**cfg), device=CPU)
 
 
-def test_a_sharded_stream_plan_is_refused_not_run_single(monkeypatch):
-    """One device per column block makes R5d pick shard_map; that engine is
-    not ported, so svd_update raises instead of running something else."""
-    monkeypatch.setattr(tapi, "_device_count", lambda device: 4)
+def test_a_sharded_stream_plan_runs_the_sharded_engine():
+    """One slot per column block in the stream pool makes R5d pick
+    shard_map, and svd_update runs it: the state comes back sharded over
+    the pool's mesh.  Without such a pool the sharded engine refuses, with
+    the reference's message, instead of running something else."""
     cfg = tapi.SolveConfig(truncate_rank=4, num_blocks=4)
     st = tapi.svd_init(64, cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.svd_update(st, np.ones((2, 64), np.float32), cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tstream.ingest_shard_map(st, None, cfg, None)
+    x = np.ones((2, 64), np.float32)
+    with pytest.raises(ValueError, match="one device per column block"):
+        tstream.ingest_shard_map(st, x, cfg, None)
+    tstate.set_stream_devices(LocalMesh(4, CPU))
+    try:
+        r = tapi.svd_update(st, x, cfg)
+    finally:
+        tstate.set_stream_devices(None)
+    assert r.plan.backend == "shard_map"
+    assert r.state.mesh is not None and r.state.mesh.size == 4
+    single = tapi.svd_update(st, x, dataclasses.replace(
+        cfg, stream_backend="single"))
+    np.testing.assert_allclose(r.s.numpy(), single.s.numpy(), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The sharded ingest (rule R5d) against the single-host engine: twins of
+# the reference's 8-device tests, on a local mesh of 8 slots
+# ---------------------------------------------------------------------------
+
+def _sharded_vs_single(batches, base, n):
+    tstate.set_stream_devices(LocalMesh(8, CPU))
+    try:
+        r2 = tapi.svd_stream(batches, tapi.SolveConfig(
+            stream_backend="shard_map", **base), device=CPU)
+    finally:
+        tstate.set_stream_devices(None)
+    r1 = tapi.svd_stream(batches, tapi.SolveConfig(stream_backend="single",
+                                                   **base), device=CPU)
+    assert r2.plan.backend == "shard_map" and r1.plan.backend == "single"
+    return r1, r2
+
+
+def _assert_stream_results_match(r1, r2, j: int, tol: float):
+    """r2 (sharded) vs r1 (single-host): singular values within tol (and
+    ranked), the leading j columns of U and V equal up to sign."""
+    s1, s2 = r1.s.numpy(), r2.s.numpy()
+    assert np.abs(s1 - s2).max() <= tol * s1[0]
+    assert np.all(np.diff(s2) <= 1e-6 * s1[0])
+    u1, u2 = r1.state.u.numpy(), r2.state.u.numpy()
+    v1, v2 = r1.state.v.numpy(), r2.state.v.numpy()
+    sign = np.sign((u1[:, :j] * u2[:, :j]).sum(axis=0))
+    assert np.abs(u1[:, :j] - u2[:, :j] * sign).max() <= tol
+    assert np.abs(v1[:, :j] - v2[:, :j] * sign).max() <= tol
+
+
+@pytest.mark.parametrize("kind", ["dense", "coo", "ell"])
+def test_sharded_ingest_matches_single_host(kind):
+    d, b = 8, 4
+    a = _spectrum_matrix(m=32, n=96)
+    base = dict(method="neighbor_random", truncate_rank=RANK, oversample=8,
+                num_blocks=d)
+    r1, r2 = _sharded_vs_single(_row_batches(a, b, kind, d), base, 96)
+    _assert_stream_results_match(r1, r2, j=8, tol=1e-5)
+    # The repair side-band counters agree exactly (psummed == summed).
+    assert r2.state.lonely_rows_seen == r1.state.lonely_rows_seen
+    assert r2.state.repaired_rows_seen == r1.state.repaired_rows_seen
+
+
+def test_sharded_rank_deficient_batch_repair_matches_single_host():
+    """The rank problem, sharded edition: each slot repairs its block with
+    the seeds the single-host engine hands that block, so the forced-sketch
+    factorization of a batch whose tail only exists after repair agrees
+    across engines."""
+    coo = jsparse.ensure_full_row_rank(
+        jsparse.random_bipartite(16, 1024, 0.006, seed=11, weighted=True),
+        seed=11)
+    dead = np.isin(coo.rows, (2, 9, 13))
+    coo = jsparse.COOMatrix(rows=coo.rows[~dead], cols=coo.cols[~dead],
+                            vals=coo.vals[~dead], shape=coo.shape)
+    tcoo = convert.coo_from_numpy(coo.rows, coo.cols, coo.vals, coo.shape)
+    k = 15
+    base = dict(method="neighbor_random", truncate_rank=k, rank=k,
+                oversample=32, power_iters=4, num_blocks=8)
+    r1, r2 = _sharded_vs_single([tcoo], base, 1024)
+    assert r2.plan.rank == k
+    s1, s2 = r1.s.numpy(), r2.s.numpy()
+    assert np.abs(s1 - s2).max() <= 1e-5 * s1[0]
+    assert float(s2[-1]) > 0.01 * s2[0]          # the repaired tail is real
+    assert r2.diagnostics.repaired_rows == r1.diagnostics.repaired_rows > 0
+
+
+def test_sharded_history_decay_matches_single_host():
+    d, b = 8, 4
+    a = _spectrum_matrix(m=32, n=96, seed=7)
+    base = dict(method="none", truncate_rank=32, oversample=8, num_blocks=d,
+                history_decay=0.5)
+    r1, r2 = _sharded_vs_single(_row_batches(a, b, "dense", d), base, 96)
+    s1, s2 = r1.s.numpy(), r2.s.numpy()
+    assert np.abs(s1 - s2).max() <= 1e-5 * s1[0]
 
 
 # ---------------------------------------------------------------------------
@@ -331,7 +420,11 @@ def test_streaming_state_is_a_frozen_dataclass():
         st.rows_seen = 3
     fields = [f.name for f in dataclasses.fields(tstream.StreamingSVDState)]
     jfields = [f.name for f in dataclasses.fields(jstream.StreamingSVDState)]
-    assert fields == [("seed" if f == "key" else f) for f in jfields]
+    # The port's state also carries its mesh: a tensor has no sharding of
+    # its own, where a JAX array carries it.
+    assert fields == [("seed" if f == "key" else f) for f in jfields] + \
+        ["mesh"]
+    assert st.mesh is None
     assert (st.rows_seen, st.batches_seen, st.n, st.rank) == (8, 1, 96, 8)
     assert st.device == torch.device(CPU)
 

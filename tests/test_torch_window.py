@@ -236,7 +236,9 @@ def test_ingest_window_rejects_mixed_buckets_and_growing_rank():
         jsw.ingest_window(japi.svd_init(N, jcfg),
                           [np.ones((8, N), np.float32)], jcfg, jp)
     assert str(t_err.value) == str(j_err.value)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # A shard_map plan needs one slot per column block in the stream pool
+    # (one here): refused with the reference's message, not run single.
+    with pytest.raises(ValueError, match="one device per column block"):
         sw.ingest_window(state, mixed[:1], CFG,
                          dataclasses.replace(p, backend="shard_map"))
 
@@ -736,3 +738,73 @@ def test_svd_stream_parity_with_injected_draws(kind, method, rank):
                            device=CPU, draws=draws, omegas=omegas)
     assert torch.equal(loop.u, tres.u) and torch.equal(loop.s, tres.s)
     assert torch.equal(loop.v, tres.v)
+
+
+# ---------------------------------------------------------------------------
+# The sharded window (twin of the reference's 8-device scan test)
+# ---------------------------------------------------------------------------
+
+def test_shard_map_window_vs_loop_bit_identical():
+    """On a local mesh of 8 slots: a sharded window equals the same
+    batches as length-1 windows bit for bit (one batch repaired inside
+    the window), equals the per-batch sharded ``svd_update``, sparse deltas
+    through the sharded ELL window too, and ``svd_stream`` end to end."""
+    from repro_torch.core.collectives import LocalMesh
+    from repro_torch.stream import state as tstate
+
+    n, d, k = 64, 8, 8
+    cfg = tapi.SolveConfig(truncate_rank=k, num_blocks=d,
+                           stream_backend="shard_map")
+    rng = np.random.default_rng(0)
+    batches = [rng.standard_normal((8, n)).astype(np.float32)
+               * (rng.random((8, n)) < 0.3) for _ in range(6)]
+    batches[3][2, :] = 0.0          # repair inside the sharded window
+    tstate.set_stream_devices(LocalMesh(d, CPU))
+    try:
+        def mk():
+            st = tapi.svd_init(n, cfg, device=CPU)
+            st = tapi.svd_update(st, batches[0], cfg).state
+            assert st.rank == k and st.mesh is not None
+            return st
+
+        spec = tplanner.ASpec(m=8, n=n, nnz=8 * n, num_blocks=d,
+                              kind="stream")
+        plan = tplanner.make_window_plan(spec, cfg, device_count=8)
+        assert plan.backend == "shard_map"
+        stream = batches[1:]
+        a, ai = sw.ingest_window(mk(), stream, cfg, plan)
+        b = mk()
+        lon = rep = 0
+        for x in stream:
+            b, i = sw.ingest_window(b, [x], cfg, plan)
+            lon += i.lonely_rows
+            rep += i.repaired_rows
+        _assert_states_equal(a, b)
+        assert ai.lonely_rows == lon and ai.repaired_rows == rep
+        assert ai.repaired_rows >= 1
+        c = mk()
+        for x in stream:
+            c = tapi.svd_update(c, x, cfg).state
+        _assert_states_equal(a, c)
+
+        coos = [jsparse.random_bipartite(8, n, 0.15, seed=100 + i)
+                for i in range(6)]
+        st0 = mk()
+        groups = {}
+        for x in coos:
+            groups.setdefault(sw.bucket_signature(as_delta(_port_coo(x), st0)),
+                              []).append(_port_coo(x))
+        _, grp = max(groups.items(), key=lambda kv: len(kv[1]))
+        assert len(grp) >= 3
+        e1, _ = sw.ingest_window(mk(), grp, cfg, plan)
+        e2 = mk()
+        for x in grp:
+            e2, _ = sw.ingest_window(e2, [x], cfg, plan)
+        _assert_states_equal(e1, e2)
+
+        res = tapi.svd_stream(iter(batches), cfg, device=CPU)
+        res1 = tapi.svd_stream(iter(batches), cfg, window=1, device=CPU)
+        assert torch.equal(res.u, res1.u)
+        assert res.plan.backend == "shard_map"
+    finally:
+        tstate.set_stream_devices(None)
