@@ -40,7 +40,10 @@ What it does, one JSON line per phase:
    float64 sum at the dense solve's shape on the paper matrix (exactly), on
    gaussian float32 (twice: the same bits), bf16, the weighted paper matrix
    and the values its bf16 split serves worst, and on short, ragged and
-   mixed rows, and timed beside ``torch.bmm``.
+   mixed rows, and timed beside ``torch.bmm``.  ``sparse_gram`` is timed
+   beside ``torch.sparse.mm`` of the block-diagonal CSR of the stored
+   columns by its transpose (cuSPARSE SpGEMM), whose diagonal blocks are
+   held to the kernel's grams.
 4. ``solve_sparse_exact`` / 5. ``solve_dense_exact`` / 6. ``solve_randomized``
    / 7. ``solve_scaled``: ``repro_torch.core.api.svd`` on the paper's
    539 x 170,897 matrix (COO and dense input, exact and rank-16) and on two
@@ -135,9 +138,20 @@ What it does, one JSON line per phase:
    that pass the deadline, fail the phase.  (c) NCCL at world =
    ``torch.cuda.device_count()`` (1 on one card: a solve and an ingest at
    D = 1 in this process).
-17. ``examples``: the six ``examples/*_torch.py`` twins as subprocesses on
-   the card (the streaming and serving twins also with ``--observe``): exit
-   code 0, wall seconds, and the kernel launches each one reports.
+16b. ``ft``: fault tolerance on the paper rows (sparse batches of 64, rank
+   16) over a ``LocalMesh`` of 8 slots: the unfaulted supervised stream
+   against the same chunks of ``svd_stream`` (the same bits, one
+   ``sparse_gram`` launch or more a committed chunk, the chunks' host syncs
+   plus one commit copy a chunk), then the three chaos scenarios of
+   ``scripts/chaos_run_torch.py`` (resumed factors ``torch.equal`` to the
+   uninterrupted run; Leg B within 1e-5 of S[0] of single-host), recovery
+   ms by stage, the replayed chunk's ms, R8's restore transient within the
+   drift factor.
+17. ``examples``: the seven ``examples/*_torch.py`` twins as subprocesses
+   on the card (the streaming and serving twins also with ``--observe``):
+   exit code 0, wall seconds, and the kernel launches each one reports;
+   every SVD twin must launch its gram kernel with the default config
+   (``use_kernel=None`` is the kernel on a CUDA tensor).
 18. ``stage_summary`` (one ingest, one serve wave), one line
    ``{"kernels": [...]}`` with every kernel's numbers, then the card as
    ``nvidia-smi`` names it, then the last line ``{"ok": true, "device":
@@ -474,6 +488,55 @@ def ell_csr(rows, vals, m):
             check_invariants=False)
 
 
+def ell_blockdiag_csr(rows, vals, m):
+    """(E, E^T) as CSR tensors: E the block-diagonal (D*M, D*C) matrix of
+    the stored columns (block d's (M, C) panel at rows d*M, columns d*C),
+    duplicate slots summed.  ``torch.sparse.mm(E, E^T)`` (cuSPARSE SpGEMM)
+    is the one PyTorch call that computes sparse_gram's function: its
+    (D*M, D*M) result holds G_d on the diagonal and nothing else."""
+    import warnings
+
+    d, c, _ = rows.shape
+    live = vals != 0
+    blk, col, _ = live.nonzero(as_tuple=True)
+    r = rows[live].long() + blk * m
+    col = col + blk * c
+    v = vals[live]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # "beta" notices
+        e = torch.sparse_coo_tensor(torch.stack([r, col]), v,
+                                    (d * m, d * c)).coalesce()
+        et = torch.sparse_coo_tensor(torch.stack([col, r]), v,
+                                     (d * c, d * m)).coalesce()
+        return e.to_sparse_csr(), et.to_sparse_csr()
+
+
+def sparse_gram_library(rows, vals, m, *, iters=10, want=None) -> dict:
+    """The library yardstick of sparse_gram: ``torch.sparse.mm(E, E^T)``
+    (:func:`ell_blockdiag_csr`, built outside the timed window; the port
+    never calls it).  With ``want`` (the kernel's grams) its diagonal
+    blocks are held to them at 1e-5 of max|G| and the rest to zero."""
+    e, et = ell_blockdiag_csr(rows, vals, m)
+    fields = dict(
+        library_ms=time_ms(lambda: torch.sparse.mm(e, et), iters=iters),
+        library="torch.sparse.mm(E, E^T), E the block-diagonal (D*M, D*C) "
+                "CSR of the stored columns (cuSPARSE SpGEMM), built outside "
+                "the timed window")
+    if want is not None:
+        g = torch.sparse.mm(e, et).to_dense()
+        diag = torch.stack([g[i * m:(i + 1) * m, i * m:(i + 1) * m]
+                            for i in range(rows.shape[0])])
+        err = float((diag - want).abs().max())
+        off = float(g.abs().sum() - diag.abs().sum())
+        check(err <= 1e-5 * float(want.abs().max()) and off == 0.0,
+              f"sparse_gram's library yardstick computes another function: "
+              f"diagonal blocks err {err}, off-diagonal mass {off}")
+        fields["library_max_abs_err"] = err
+        del g, diag
+    del e, et
+    return fields
+
+
 def sketch_timed(cases, case, omega, rows, vals, *, iters=10) -> dict:
     """sketch_panel_case, then the kernel's time beside its bound and the
     library yardstick: one ``torch.sparse.mm`` (cuSPARSE) of the
@@ -724,7 +787,9 @@ def sparse_gram_rows(cases, main, ell, well, ragged, rng) -> None:
         ms=time_ms(lambda: sg_mod.sparse_gram(rows, vals, m)),
         device_ms=device_ms(lambda: sg_mod.sparse_gram(rows, vals, m)),
         plain_ms=time_ms(lambda: sg_mod.sparse_gram_ref(rows, vals, m)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        **sparse_gram_library(rows, vals, m,
+                              want=sg_mod.sparse_gram(rows, vals, m)),
         device_kernels=device_kernels_per_call(
             lambda: sg_mod.sparse_gram(rows, vals, m)),
         timed_variants=[])
@@ -1589,7 +1654,8 @@ def phase_solve_scaled(state) -> None:
                 lambda: sg_mod.sparse_gram(ell.col_rows, vals, m)),
             plain_ms=time_ms(lambda: sg_mod.sparse_gram_ref(
                 ell.col_rows, vals, m), iters=3, warmup=1),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by,
+            **sparse_gram_library(ell.col_rows, vals, m, iters=5),
             device_kernels=device_kernels_per_call(
                 lambda: sg_mod.sparse_gram(ell.col_rows, vals, m)))
         main["timed_variants"].append(kf)
@@ -3152,18 +3218,24 @@ def phase_observe(state) -> None:
                 "spans: device time between CUDA events")
 
 
-def phase_drift_stages(state) -> None:
-    """Where the streaming example's first ingest and window spend their
-    peak bytes, stage by stage, beside the R5 / R6 terms
-    (``scripts/drift_stages_torch.py``)."""
+def load_script(name):
+    """A module of ``scripts/`` by file (the folder is not a package)."""
     import importlib.util
 
     root = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(
-        "drift_stages_torch", os.path.join(root, "scripts",
-                                           "drift_stages_torch.py"))
+        name, os.path.join(root, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod            # its dataclasses look it up
     spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_drift_stages(state) -> None:
+    """Where the streaming example's first ingest and window spend their
+    peak bytes, stage by stage, beside the R5 / R6 terms
+    (``scripts/drift_stages_torch.py``)."""
+    mod = load_script("drift_stages_torch")
     torch.cuda.empty_cache()
     out = mod.run(device=DEVICE)
     check(not obs.enabled(), "drift_stages: obs left on")
@@ -3574,21 +3646,163 @@ def phase_distributed(state) -> None:
                 "the per-device closed form")
 
 
-# (script, arguments, the kernels it must launch on the card)
+FT_RANK = 16
+FT_SLOTS = 8
+
+
+def phase_ft(state) -> None:
+    """Fault tolerance on the card: the paper rows (sparse batches of 64,
+    rank 16) through the supervised stream over a LocalMesh of 8 slots.
+    (a) Unfaulted, obs off: the supervised stream against the same
+    chunks of ``svd_stream`` on the same pool: the same bits, one
+    ``sparse_gram`` launch or more a committed chunk, and the host syncs
+    of the chunks plus exactly the commit's one device to host copy a
+    chunk (sync debug mode).  (b) The three chaos scenarios of
+    ``scripts/chaos_run_torch.py`` (their asserts: resumed factors
+    ``torch.equal`` to the uninterrupted run, Leg B within 1e-5 of S[0] of
+    a single-host run, the recover.* spans), obs on: recovery ms by stage,
+    the replayed chunk's ms, and R8's measured restore transient against
+    ``recovery_restore_bytes`` (within the drift factor)."""
+    import tempfile
+    from repro_torch.core.collectives import LocalMesh
+
+    t_phase = time.perf_counter()
+    chaos = load_script("chaos_run_torch")
+    coo = state["coo"]
+    batches = paper_batches(coo)
+    stream = chaos.Stream(batches, coo.shape[1], FT_RANK, DEVICE)
+    check(chaos.SLOTS == FT_SLOTS, "ft: the scenarios' pool changed")
+    cfg = chaos.config(stream, num_blocks=4)
+    every = cfg.checkpoint_every
+    chunks = -(-len(batches) // every)
+    torch.cuda.empty_cache()
+
+    def plain():
+        # The supervisor's placement: one slot a column block (so rule R5d
+        # picks shard_map).
+        stream_state.set_stream_devices(LocalMesh(cfg.num_blocks, DEVICE))
+        try:
+            st = api.svd_init(stream.n, cfg, device=DEVICE)
+            for i in range(0, len(batches), every):
+                st = api.svd_stream(batches[i:i + every], cfg,
+                                    state=st).state
+            return stream_state.gather_state(st)
+        finally:
+            stream_state.set_stream_devices(None)
+
+    def supervised():
+        return chaos.supervised(cfg, stream)
+
+    check(not obs.enabled(), "ft: obs is on before the phase")
+    plain()
+    supervised()                                          # warm
+    runs = {}
+    for name, fn in (("plain", plain), ("supervised", supervised),
+                     ("supervised_again", supervised), ("plain_again", plain)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, sites = sync_sites(fn)
+        torch.cuda.synchronize()
+        runs[name] = dict(out=out, sites=sites, syncs=sum(sites.values()),
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          launches=read_counts())
+    ref = runs["plain"]["out"]
+    for name in ("supervised", "supervised_again"):
+        final, sup = runs[name]["out"]
+        check(chaos.bitwise(final, ref), f"ft: the {name} stream differs "
+              f"from the plain chunks")
+        check(len(sup.chunk_seconds) == chunks, f"ft: {name} committed "
+              f"{len(sup.chunk_seconds)} chunks, want {chunks}")
+        check(runs[name]["launches"]["sparse_gram"] >= chunks,
+              f"ft: {name} launched sparse_gram "
+              f"{runs[name]['launches']['sparse_gram']} times for "
+              f"{chunks} committed chunks")
+        for base in ("plain", "plain_again"):
+            check(runs[name]["syncs"] == runs[base]["syncs"] + chunks,
+                  f"ft: {name} made {runs[name]['syncs']} host syncs, "
+                  f"{base} {runs[base]['syncs']} + {chunks} commits "
+                  f"({runs[name]['sites']} vs {runs[base]['sites']})")
+    keep_counts(state, "ft[supervised]", runs["supervised"]["launches"])
+
+    scenarios = []
+    factor = obs.gate.drift_factor()
+    with tempfile.TemporaryDirectory() as tmp:
+        for scenario in ("kill-at-batch", "persistent-straggler",
+                         "kill-during-merge"):
+            t0 = time.perf_counter()
+            doc, sup = chaos.run(scenario, os.path.join(tmp, "ev.json"),
+                                 stream=stream)
+            secs = time.perf_counter() - t0
+            stages = {}
+            for e in obs.trace.events():
+                if e.name.startswith("recover.") and e.ph == "X":
+                    stages.setdefault(e.name, []).append(e.dur_us / 1e3)
+            check(set(stages) == {"recover.drain", "recover.replan",
+                                  "recover.restore"},
+                  f"ft[{scenario}]: recovery spans {sorted(stages)}")
+            resumed = {e.resumed_from_batch for e in sup.events
+                       if e.kind != "collective_retry"}
+            replay = [c[2] * 1e3 for c in sup.chunk_seconds
+                      if c[0] in resumed]
+            r8 = [r for r in obs.drift.monitor().records()
+                  if r["rule"] == "R8"]
+            check(r8, f"ft[{scenario}]: no R8 restore measured")
+            for r in r8:
+                check(r["ratio"] <= factor, f"ft[{scenario}]: R8 restore "
+                      f"transient {r['measured']} B is {r['ratio']} of "
+                      f"{r['estimated']} B (limit {factor})")
+            scenarios.append(dict(
+                scenario=scenario, seconds=secs,
+                events=[e.kind for e in sup.events],
+                backends=[f"{e.backend_before}->{e.backend_after}"
+                          for e in sup.events],
+                recover_ms=stages, replay_chunk_ms=replay,
+                event_wall_ms=[e.wall_s * 1e3 for e in sup.events],
+                r8=[dict(label=r["label"], measured=r["measured"],
+                         estimated=r["estimated"], ratio=r["ratio"])
+                    for r in r8],
+                **{k: v for k, v in doc.items()
+                   if k in ("legB_rel_err", "backup_saved_s")}))
+    obs.reset()
+    emit("ft", rows=list(coo.shape), batches=len(batches),
+         batch_rows=STREAM_BATCH_ROWS, rank=FT_RANK, slots=FT_SLOTS,
+         num_blocks=cfg.num_blocks, checkpoint_every=every,
+         committed_chunks=chunks,
+         unfaulted={name: dict(ms=r["ms"], host_syncs=r["syncs"],
+                               host_syncs_per_batch=r["syncs"] / len(batches),
+                               sync_sites=r["sites"],
+                               launches=r["launches"])
+                    for name, r in runs.items()},
+         scenarios=scenarios, drift_factor=factor,
+         seconds=time.perf_counter() - t_phase,
+         clocks="ms: host clock, device synchronized at both ends; "
+                "recover_ms: the supervisor's recover.* spans of every "
+                "recovery the scenario ran, kill-at-batch's two legs "
+                "included (host clock; the restore's device copies "
+                "synchronize); replay_chunk_ms: "
+                "the first committed chunk after each recovery (svd_stream "
+                "plus the commit's copy)")
+
+
+# (script, arguments, the kernels it must launch on the card): every SVD
+# twin its gram kernels, with the default config (use_kernel=None), by its
+# input: sparse_gram for COO batches, blockgram for dense ones.
 EXAMPLES = (
-    ("quickstart_torch.py", (), ()),
-    ("streaming_svd_torch.py", (), ()),
-    ("streaming_svd_torch.py", ("--observe",), ()),
+    ("quickstart_torch.py", (), ("sparse_gram",)),
+    ("streaming_svd_torch.py", (), ("sparse_gram", "blockgram")),
+    ("streaming_svd_torch.py", ("--observe",), ("sparse_gram", "blockgram")),
     ("serving_topk_torch.py", (), ("topk_score",)),
     ("serving_topk_torch.py", ("--observe",), ("topk_score",)),
     ("serve_lm_torch.py", (), ("flash_attention", "ssd_scan")),
-    ("distributed_svd_torch.py", (), ()),
-    ("distributed_streaming_torch.py", (), ()),
+    ("distributed_svd_torch.py", (), ("sparse_gram",)),
+    ("distributed_streaming_torch.py", (), ("sparse_gram", "blockgram")),
+    ("elastic_ingest_torch.py", (), ("blockgram",)),
 )
 
 
 def phase_examples(state) -> None:
-    """The six twins, each a process of its own on the card."""
+    """The seven twins, each a process of its own on the card."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     runs = []
@@ -3666,7 +3880,7 @@ def main() -> int:
                   phase_serve_scaled, phase_hierarchical, phase_stream_window,
                   phase_merge_driver_ab, phase_lm_serve, phase_checkpoint,
                   phase_observe, phase_drift_stages, phase_distributed,
-                  phase_examples):
+                  phase_ft, phase_examples):
         phase(state)
         torch.cuda.synchronize()
 

@@ -1,15 +1,17 @@
 """Distributed SVD at "pod scale" through the unified front door
 (PyTorch/CUDA port): the two-level merge over a (pod, model) block mesh,
-then the same matrix re-blocked onto the slots that survive a lost pod.
+then the elastic re-plan after a lost pod: ``ft.plan_mesh`` picks the
+survivors' (data, model) grid, ``ft.build_mesh`` makes it, and the same
+matrix is re-blocked over its model axis only (the data axis holds copies
+of the same blocks).
 
     PYTHONPATH=src python examples/distributed_svd_torch.py [--device cpu]
 
 One card stands for the reference's 16 forced host devices: a
 ``LocalMesh`` holds the 16 block slots as a batch axis, so every kernel
-launches once over the stack (``core/collectives.py``).  The elastic
-re-plan of the reference (``ft.elastic.plan_mesh``) is ROADMAP.md item 13;
-here the survivors' mesh is built by hand.  Each result is checked against
-numpy's SVD of the same matrix.  Runs on the GPU unless ``--device`` says
+launches once over the stack of distinct blocks
+(``core/collectives.py``).  Each result is checked against numpy's SVD of
+the same matrix.  Runs on the GPU unless ``--device`` says
 otherwise.
 """
 import argparse
@@ -20,6 +22,7 @@ import numpy as np
 from repro_torch.core import sparse
 from repro_torch.core.api import SolveConfig, svd
 from repro_torch.core.collectives import LocalMesh
+from repro_torch.ft.elastic import build_mesh, plan_mesh
 from repro_torch.kernels import launch_counts
 
 # Largest |S - S_numpy| accepted, relative to S[0] (the gram path squares
@@ -53,12 +56,18 @@ def main(device=None) -> dict:
     assert res.plan.backend == "shard_map"
     check("hierarchical 4x4", res)
 
-    # Losing a pod: 12 slots survive.  The adapter re-blocks (and re-pads)
-    # the same COO input for the survivors' block axis.
-    survivors = LocalMesh({"blocks": 12}, device)
+    # Losing a pod: re-plan the mesh with the 12 surviving slots.  The
+    # adapter re-blocks (and re-pads) the same COO input for the surviving
+    # block axis.
+    mplan = plan_mesh(12, model_parallel=4, multi_pod_threshold=10**9)
+    new_mesh = build_mesh(mplan, mesh, slots=range(12))
+    print(f"after failure: plan={mplan.shape} {mplan.axis_names} "
+          f"(dropped {mplan.dropped_devices})")
     res2 = svd(coo, SolveConfig(backend="shard_map", method="none",
-                                merge_mode="gram"), mesh=survivors)
-    check(f"recovered on {survivors.size} slots", res2)
+                                merge_mode="gram"),
+               mesh=new_mesh, block_axes=(mplan.axis_names[-1],))
+    assert res2.plan.backend == "shard_map"
+    check(f"recovered on {mplan.num_devices} slots", res2)
     return {"launches": launch_counts(),
             "collectives": dict(mesh.counts)}
 

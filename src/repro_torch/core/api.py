@@ -62,6 +62,7 @@ import torch
 
 from repro_torch import obs, resolve_device
 from repro_torch.core import planner, ranky, sparse
+from repro_torch.core import svd as lsvd
 from repro_torch.core.planner import ASpec, Plan, PlanError  # noqa: F401  (re-export)
 from repro_torch.core.ranky import Key, RepairDraws  # noqa: F401  (re-export)
 from repro_torch.obs import clock
@@ -119,6 +120,10 @@ class SolveConfig:
     * ``use_kernel`` — route the grams through the hand-written CUDA kernels
       (``False`` leaves them to plain ``torch.matmul`` products; the
       sparse sketch always runs through the ``sketch_panel`` kernel).
+      ``None`` (the default) means the kernels for an operand on a CUDA
+      device and the plain products on the CPU, and ``False`` under
+      ``local_mode="svd"``, which forms no gram
+      (``svd.resolve_use_kernel``).
     * ``undetermined_tail`` — emulate the paper's rank problem (single
       backend, proxy merge, exact only).
     * ``two_level`` — shard_map backend: two-level (intra/inter pod)
@@ -178,7 +183,7 @@ class SolveConfig:
     fanout: int = 4
     sketch: bool = False
     want_right: bool = False
-    use_kernel: bool = False
+    use_kernel: Optional[bool] = None
     undetermined_tail: bool = False
     two_level: bool = False
     truncate_rank: Optional[int] = None
@@ -504,13 +509,20 @@ def _resolve_num_blocks(a: MatrixInput, config: "SolveConfig",
 # Engine runner (shared by svd() and the legacy shim: one code path)
 # ---------------------------------------------------------------------------
 
+def _use_kernel(config: SolveConfig, a) -> bool:
+    """``config.use_kernel`` resolved for the operand ``a`` (a tensor or a
+    BlockEll) on its device (``svd.resolve_use_kernel``)."""
+    return lsvd.resolve_use_kernel(config.use_kernel, a.device,
+                                   local_mode=config.local_mode)
+
+
 def _run_single(a, config: SolveConfig, *, draws=None, omega=None):
     return ranky.solve_single(
         a, num_blocks=config.num_blocks, method=config.method,
         local_mode=config.local_mode, merge_mode=config.merge_mode,
         undetermined_tail=config.undetermined_tail, rank=config.rank,
         oversample=config.oversample, power_iters=config.power_iters,
-        want_right=config.want_right, use_kernel=config.use_kernel,
+        want_right=config.want_right, use_kernel=_use_kernel(config, a),
         key=config.resolved_key(), draws=draws, omega=omega)
 
 
@@ -534,7 +546,7 @@ def _run_hierarchical(a, config: SolveConfig, *, sketch_override=...,
         a, num_blocks=config.num_blocks, fanout=config.fanout,
         rank=config.rank, method=config.method, sketch=sketch,
         oversample=config.oversample, power_iters=config.power_iters,
-        want_right=config.want_right, use_kernel=config.use_kernel,
+        want_right=config.want_right, use_kernel=_use_kernel(config, a),
         key=config.resolved_key(), draws=draws, omega=omega)
 
 
@@ -666,8 +678,9 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         on top (``svd(a, rank=16)`` works without building one).
       mesh / block_axes: only for the shard_map backend: the block mesh
         (``core.collectives.LocalMesh`` / ``ProcessGroupMesh``) and which
-        of its axes the column blocks split over (default: all of them, in
-        mesh order).  Passing a mesh makes ``backend="auto"`` prefer
+        of its axes the column blocks split over (default: all of them; a
+        subset, in mesh order, leaves the other axes holding copies of the
+        same blocks).  Passing a mesh makes ``backend="auto"`` prefer
         shard_map, and the solve runs on ``mesh.device``.  Without one a
         shard_map plan runs on the stream pool's mesh.
       device: where the solve runs.  ``None`` is the current CUDA device
@@ -710,6 +723,11 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
         mesh = stream_state.stream_mesh(d)
         block_axes = (stream_state.STREAM_AXIS,)
         device = mesh.device
+    if p.backend == "shard_map":
+        # One slot a distinct block: slots along axes outside block_axes
+        # hold the same block and the solve runs once for them.
+        mesh = mesh.block_mesh(block_axes)
+        block_axes = mesh.axis_names
 
     # local_mode is only consumed by the exact proxy merge; under the
     # gram merge (or the randomized path) a local_mode='svd' config

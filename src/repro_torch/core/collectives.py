@@ -142,6 +142,29 @@ class BlockMesh:
                      if ax in over and ax not in axes)
         return axes, tuple(ax for ax in self.axis_names if ax in over), rest
 
+    def block_mesh(self, axes: Axes = None) -> "BlockMesh":
+        """The mesh of a solve whose column blocks split over ``axes`` only
+        (a non-empty subset of the axes, in mesh order): one slot a block,
+        the block index the flat index over ``axes`` (the reference's
+        ``distributed._flat_index``).  The slots along the other axes hold
+        the same block, so a solve runs once a block: on a local mesh over
+        the D-stack of distinct blocks, on a rank over its own block within
+        the sub-group of the block axes.  Its collectives are tallied in
+        this mesh's ``counts``; the whole mesh is its own block mesh."""
+        axes = self.axes(axes)
+        if not axes:
+            raise ValueError("block_axes must name at least one mesh axis")
+        if axes != tuple(ax for ax in self.axis_names if ax in axes):
+            raise ValueError(
+                f"block_axes={axes} must name mesh axes in the mesh's order "
+                f"{self.axis_names}")
+        if axes == self.axis_names:
+            return self
+        return self._block_view(axes)
+
+    def _block_view(self, axes: Tuple[str, ...]) -> "BlockMesh":
+        raise NotImplementedError
+
     # -- collectives (backends) -------------------------------------------
     def psum(self, x: torch.Tensor, axes: Axes = None, *,
              over: Axes = None) -> torch.Tensor:
@@ -162,6 +185,13 @@ class LocalMesh(BlockMesh):
     def __init__(self, shape: Shape, device=None):
         super().__init__(shape, resolve_device(device), range(
             math.prod(_as_shape(shape).values())))
+
+    def _block_view(self, axes):
+        # One stack of the distinct blocks: a replicated block is computed
+        # once, not once a replica.
+        view = LocalMesh({ax: self.shape[ax] for ax in axes}, self.device)
+        view.counts = self.counts
+        return view
 
     def _grid(self, x: torch.Tensor, over: Tuple[str, ...]) -> torch.Tensor:
         lead = math.prod(self.shape[ax] for ax in over)
@@ -199,6 +229,31 @@ class LocalMesh(BlockMesh):
         return self._moved(x, axes, over, rest)
 
 
+def make_subgroups(shape: Shape, global_ranks: Sequence[int]):
+    """The sub-groups of a process-group mesh of ``shape`` over
+    ``global_ranks`` (slot s on rank ``global_ranks[s]``): for every proper
+    subset of the axes, one group a combination of the other axes'
+    coordinates, holding the slots that share it.  Yields ``(axes, slots,
+    group)``.  ``new_group`` is collective over the default group, so
+    every process of it runs this, in this order, member or not."""
+    import torch.distributed as dist
+
+    layout = BlockMesh(shape, "cpu", ())
+    names = layout.axis_names
+    for n in range(1, len(names)):
+        for sub in itertools.combinations(names, n):
+            other = [ax for ax in names if ax not in sub]
+            buckets: Dict[Tuple[int, ...], list] = {}
+            for slot in range(layout.size):
+                c = layout.coords(slot)
+                buckets.setdefault(tuple(c[ax] for ax in other),
+                                   []).append(slot)
+            for key in sorted(buckets):
+                slots = buckets[key]
+                yield sub, slots, dist.new_group(
+                    [global_ranks[s] for s in slots])
+
+
 class ProcessGroupMesh(BlockMesh):
     """One slot a rank of an initialized ``torch.distributed`` group (the
     slot is the rank within ``group``).  ``psum`` is ``all_reduce(SUM)``
@@ -233,24 +288,24 @@ class ProcessGroupMesh(BlockMesh):
         global_ranks = [dist.get_global_rank(self.group, r)
                         if self.group is not dist.group.WORLD else r
                         for r in range(world)]
-        # The sub-group of each proper subset of the axes that holds this
-        # rank: the slots that share its coordinates on the other axes.
         self._groups: Dict[Tuple[str, ...], object] = {
             self.axis_names: self.group}
-        for n in range(1, len(self.axis_names)):
-            for sub in itertools.combinations(self.axis_names, n):
-                other = [ax for ax in self.axis_names if ax not in sub]
-                buckets: Dict[Tuple[int, ...], list] = {}
-                for slot in range(world):
-                    c = self.coords(slot)
-                    buckets.setdefault(tuple(c[ax] for ax in other),
-                                       []).append(slot)
-                mine = tuple(self.coords(rank)[ax] for ax in other)
-                for key in sorted(buckets):
-                    g = dist.new_group([global_ranks[s]
-                                        for s in buckets[key]])
-                    if key == mine:
-                        self._groups[sub] = g
+        for sub, slots, g in make_subgroups(self.shape, global_ranks):
+            if rank in slots:
+                self._groups[sub] = g
+
+    def _block_view(self, axes):
+        view = object.__new__(ProcessGroupMesh)
+        BlockMesh.__init__(view, {ax: self.shape[ax] for ax in axes},
+                           self.device, (self.flat_index(self.rank, axes),))
+        view.counts = self.counts
+        view._dist, view.backend = self._dist, self.backend
+        # The members of a sub-group of this mesh share their coordinates
+        # on the axes outside it, the non-block axes among them.
+        view._groups = {sub: g for sub, g in self._groups.items()
+                        if set(sub) <= set(axes)}
+        view.group = view._groups[axes]
+        return view
 
     @property
     def rank(self) -> int:

@@ -42,19 +42,6 @@ from repro_torch.core import svd as lsvd
 from repro_torch.core.collectives import BlockMesh
 
 
-def check_block_axes(mesh: BlockMesh, block_axes: Sequence[str]
-                     ) -> Tuple[str, ...]:
-    """The block axes of a solve: every axis of the mesh, in mesh order (a
-    slot's flat index is then its block index)."""
-    axes = mesh.axes(block_axes)
-    if axes != mesh.axis_names:
-        raise ValueError(
-            f"block_axes={axes} must name every axis of the mesh in its "
-            f"order {mesh.axis_names}: one column block a slot, the flat "
-            f"slot index the block index")
-    return axes
-
-
 def local_blocks(a, mesh: BlockMesh, num_blocks: int):
     """The local slots' blocks of a normalized input: the (n_local, M, W)
     dense stack of a (M, D*W) matrix, or a BlockEll of the local blocks
@@ -241,7 +228,7 @@ def solve_shard_map(a, mesh: BlockMesh, *, block_axes: Sequence[str],
         local_mode=config.local_mode,
         merge_mode=config.merge_mode,
         hierarchical=config.two_level,
-        use_kernel=config.use_kernel,
+        use_kernel=config.use_kernel,   # None: resolved on mesh.device
         want_right=config.want_right,
         rank=config.rank,
         oversample=config.oversample,
@@ -260,7 +247,7 @@ def _solve_shard_map(
     local_mode: str = "gram",
     merge_mode: str = "gram",
     hierarchical: bool = False,
-    use_kernel: bool = False,
+    use_kernel: Optional[bool] = None,
     want_right: bool = False,
     rank: Optional[int] = None,
     oversample: int = 8,
@@ -279,17 +266,24 @@ def _solve_shard_map(
         whole input; each takes its own slots' blocks.
       mesh: the block mesh; it runs on ``mesh.device``.
       block_axes: the mesh axes the columns (= paper blocks) split over:
-        every axis, in mesh order.  ``("pod", "model")`` +
+        a non-empty subset of the axes, in mesh order; the block index is
+        the flat index over them and the slots along the other axes hold
+        the same block (``BlockMesh.block_mesh``).  ``("pod", "model")`` +
         ``hierarchical=True`` gives the two-level merge.
       rank: rank=k switches to the randomized truncated sketch path: rank
         repair still runs per slot, then the only collectives are an
         (L, M) psum per power pass plus one (L, L) psum.
 
     Returns (U, S), the same on every process, or (U, S, V) with V the
-    local slots' rows, (n_local * W, r) in padded column order: the whole
+    local blocks' rows, (n_local * W, r) in padded column order: the whole
     V on a local mesh, this rank's block on a process group.
     """
-    axes = check_block_axes(mesh, block_axes)
+    # Slots along the axes outside block_axes hold the same block: the
+    # solve runs once a block, on the mesh of the block axes.
+    mesh = mesh.block_mesh(block_axes)
+    axes = mesh.axis_names
+    use_kernel = lsvd.resolve_use_kernel(use_kernel, mesh.device,
+                                         local_mode=local_mode)
     seed = ranky.seed_of(key)
     d_total = mesh.axis_size(axes)
     common = dict(axes=axes, method=method, merge_mode=merge_mode,
@@ -329,7 +323,7 @@ def distributed_ranky_svd(
     local_mode: str = "gram",
     merge_mode: str = "gram",
     hierarchical: bool = False,
-    use_kernel: bool = False,
+    use_kernel: Optional[bool] = None,
     want_right: bool = False,
     rank: Optional[int] = None,
     oversample: int = 8,

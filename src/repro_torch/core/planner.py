@@ -12,14 +12,15 @@ it sketch?" is always answerable from the result object.
 
 This is the reference's ``repro.core.planner`` for the one-shot rules
 R1-R4, the streaming rules R5/R5d (:func:`make_stream_plan`), the
-scan-window rule R6 (:func:`make_window_plan`) and the serving rule R7
-(:func:`make_serve_plan`), carried over as pure arithmetic: every
+scan-window rule R6 (:func:`make_window_plan`), the serving rule R7
+(:func:`make_serve_plan`) and the elastic-recovery rule R8
+(:func:`make_recovery_plan`: the stream re-planned onto the devices that
+survive a fault, the post-shrink peak priced and a degrade to the
+single-host engine explained, plus the one-time restore transient
+:func:`recovery_restore_bytes`), carried over as pure arithmetic: every
 estimate, decision and reason string equals the reference's to the byte
 (R6's "one lax.scan folds ..." included, though the port's window is the
-same step run T times, ``stream/window.py``).  The recovery rule (R8)
-arrives with its slice.  A plan may name the ``shard_map`` backend (the
-arithmetic does not depend on what is ported); the front door raises
-``NotImplementedError`` for it.
+same step run T times, ``stream/window.py``).
 
 Byte estimates (float32, dominant term only):
 
@@ -530,6 +531,90 @@ def make_stream_plan(batch: ASpec, config, *, device_count: int = 1) -> Plan:
         f"exact {est[exact_key]:,}B, sketch "
         f"{est[sketch_key]:,}B; proceeding with the cheaper "
         f"{'exact gram stack' if cheaper_exact else 'sketch'}"])
+
+
+# ---------------------------------------------------------------------------
+# Rule R8: elastic-recovery re-plan — post-shrink peak, priced not silent
+# ---------------------------------------------------------------------------
+
+def recovery_restore_bytes(batch: ASpec, rank: int) -> int:
+    """The one-time restore transient of an elastic recovery:
+    checkpoints store the right factor gathered, so while the survivors
+    rebuild residency the (N_pad, k) restored copy and its re-placed
+    (sharded or single-device) twin are live simultaneously —
+    ``2 * N_pad * k`` floats."""
+    return BYTES_F32 * 2 * batch.num_blocks * batch.width * rank
+
+
+def make_recovery_plan(batch: ASpec, config, *, survivors: int) -> Plan:
+    """Rule R8: re-plan a stream onto the surviving devices after a
+    failure or eviction, pricing the post-shrink per-device peak so a
+    degrade is explained, not silent.
+
+    Two outcomes, both honest:
+
+    * ``survivors >= num_blocks`` (and > 1 block) — the 1-D stream mesh
+      rebuilds on ``num_blocks`` of the healthy devices; the R5d
+      per-device closed form is unchanged (per-device peak never
+      depended on which devices, only on the one-block-per-device
+      layout).
+    * otherwise — too few devices for one column block each: degrade to
+      the single-host engine on one survivor, whose peak is the FULL R5
+      working set (the reason quotes both numbers, so the operator sees
+      exactly what the shrink costs).
+
+    Either way the estimates carry ``recovery_restore`` — the one-time
+    (N_pad, k)-sized restore transient — and the plan's ``peak_bytes``
+    is the steady post-shrink peak the resumed stream runs at.
+    """
+    obs.counter_add("planner_plans_total", labels={"rule": "R8"})
+    if survivors < 1:
+        raise PlanError(
+            f"R8: recovery needs at least one surviving device, got "
+            f"{survivors}")
+    k = config.truncate_rank
+    if k is None:
+        raise ValueError(
+            "make_recovery_plan needs SolveConfig.truncate_rank=k; got "
+            "truncate_rank=None")
+    remesh = survivors >= batch.num_blocks and batch.num_blocks > 1
+    base = make_stream_plan(
+        batch, config, device_count=batch.num_blocks if remesh else 1)
+    restore = recovery_restore_bytes(batch, k)
+    est = dict(base.estimates)
+    est["recovery_restore"] = restore
+    if remesh and base.backend == "shard_map":
+        head = (
+            f"R8: recovery onto {survivors} survivor(s) — the 1-D stream "
+            f"mesh rebuilds with num_blocks={batch.num_blocks} of the "
+            f"healthy devices; post-shrink PER-DEVICE peak "
+            f"{base.peak_bytes:,}B (the R5d closed form is unchanged — it "
+            f"never depended on which devices, only on the layout); "
+            f"one-time restore transient {restore:,}B (the gathered "
+            f"(N_pad, k={k}) right factor plus its re-placed copy)")
+    elif batch.num_blocks == 1 or remesh:
+        # Single-host by construction (one column block) or by explicit
+        # stream_backend="single" — the shrink changes placement, not
+        # the engine.
+        head = (
+            f"R8: recovery onto {survivors} survivor(s) — the stream "
+            f"runs the single-host engine (num_blocks={batch.num_blocks}, "
+            f"stream_backend={getattr(config, 'stream_backend', 'auto')!r}); "
+            f"peak {base.peak_bytes:,}B unchanged; one-time restore "
+            f"transient {restore:,}B")
+    else:
+        pre = streaming_bytes_per_device(
+            batch, k, config.oversample, exact=base.rank is None,
+            batch_rank=base.rank)
+        head = (
+            f"R8: recovery onto {survivors} survivor(s) < num_blocks="
+            f"{batch.num_blocks} — too few devices for one column block "
+            f"each; degrading honestly to the single-host engine on one "
+            f"survivor, post-shrink peak = the FULL R5 working set "
+            f"{base.peak_bytes:,}B on that device (vs {pre:,}B per device "
+            f"before the shrink); one-time restore transient {restore:,}B")
+    return dataclasses.replace(
+        base, estimates=est, reasons=(head,) + base.reasons)
 
 
 # ---------------------------------------------------------------------------

@@ -25,16 +25,30 @@ nnz-proportional tensor contractions; a block is never densified to
 ``use_kernel=False`` leaves the grams to plain ``torch.matmul`` products;
 ``use_kernel=True`` routes them through the hand-written CUDA kernels
 (``repro_torch.kernels``), which take the whole (D, ...) stack in one
-launch.  ``eigh`` / ``svd`` results differ from LAPACK's in sign and in the
+launch.  ``SolveConfig.use_kernel=None`` (the default) is resolved to one
+of the two by :func:`resolve_use_kernel` where a config reaches the
+engines: the kernels on a CUDA device, the plain products elsewhere.  ``eigh`` / ``svd`` results differ from LAPACK's in sign and in the
 basis of degenerate subspaces: compare S by value and U / V by subspace.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core import sparse
+
+
+def resolve_use_kernel(use_kernel: Optional[bool], device, *,
+                       local_mode: str = "gram") -> bool:
+    """Whether the grams of an operand on ``device`` go through the hand
+    kernels: ``SolveConfig.use_kernel`` as given when it is a bool; for
+    ``None``, the kernels on a CUDA device and the plain products on any
+    other (the CPU keeps the reference's ``False`` path bit for bit).
+    ``local_mode="svd"`` forms no gram, so there ``None`` is ``False``."""
+    if use_kernel is not None:
+        return bool(use_kernel)
+    return local_mode != "svd" and torch.device(device).type == "cuda"
 
 
 def gram(a_blk: torch.Tensor, *, use_kernel: bool = False) -> torch.Tensor:

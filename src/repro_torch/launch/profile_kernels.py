@@ -28,8 +28,10 @@ and the bound of this checkout's ``blockgram.work`` at ``chip_smoke.py``'s
 ``products``, errors against ``chip_smoke.gram_f64`` (float64 sums); for
 ``sparse_gram`` (``sgram``) the device time at the paper's ELL (8, 5096,
 5), M 539, and at ``chip_smoke.py``'s 2048 x 1,048,576 ELL (8, 84104, 8),
-each 0/1 and weighted, beside ``chip_smoke.sparse_gram_bound``, with the
-device kernels of a call, the error against ``chip_smoke.sparse_gram_f64``
+each 0/1 and weighted, beside ``chip_smoke.sparse_gram_bound`` and one
+``torch.sparse.mm`` of the block-diagonal CSR of the stored columns by its
+transpose (``chip_smoke.ell_blockdiag_csr``: cuSPARSE SpGEMM, the CSRs
+built outside the timed window), with the device kernels of a call, the error against ``chip_smoke.sparse_gram_f64``
 (a float64 sum) and whether 10 calls give the same bits; for
 ``sketch_panel`` (``sketch``) the same at the paper's ELL with Omega (24,
 539) and at the 32,768 x 262,144 ELL (8, 32768, 36) with Omega (64,
@@ -319,10 +321,13 @@ def sgram_rows(sg, cs):
         stable = all(torch.equal(got, sg.sparse_gram(r, v, m))
                      for _ in range(10))
         b_ms, b_by = cs.sparse_gram_bound(r, v, m)
+        e, et = cs.ell_blockdiag_csr(r, v, m)
+        lib_ms = _time_ms(lambda: torch.sparse.mm(e, et))
+        del e, et
         rows.append(dict(
             case=tag, shape=list(r.shape), m=m,
             ms=_time_ms(lambda: sg.sparse_gram(r, v, m)),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             device_kernels=cs.device_kernels_per_call(
                 lambda: sg.sparse_gram(r, v, m)),
             kernel_ms=cs.device_ms_by_kernel(lambda: sg.sparse_gram(r, v, m)),

@@ -114,7 +114,8 @@ def _factor_batch(blocks, m_b: int, config, plan, seed: int,
         # Exact: per-block gram stack (sparse-native E+R grams) + eigh,
         # truncated to the merge width r_b = min(m_b, k + oversample).
         with obs.span("gram_stack"):
-            grams = lsvd.gram_stack(blocks, use_kernel=config.use_kernel)
+            grams = lsvd.gram_stack(blocks, use_kernel=lsvd.resolve_use_kernel(
+                config.use_kernel, v.device))
         with obs.span("merge_grams_eigh"):
             u_b, _ = lsvd.merge_grams_eigh(grams)
         del grams
@@ -329,8 +330,9 @@ def shard_step(kind: str, local, mesh, *, m: int, width: int, config,
     k = v_d.shape[-1]
     if sk_rank is None:
         with obs.span("gram_stack"):
-            g = mesh.psum(lsvd.gram_stack(blocks,
-                                          use_kernel=config.use_kernel))[0]
+            g = mesh.psum(lsvd.gram_stack(
+                blocks, use_kernel=lsvd.resolve_use_kernel(
+                    config.use_kernel, v_d.device)))[0]
         with obs.span("merge_grams_eigh"):
             u_b, _ = lsvd.eigh_to_svd(g)
         del g

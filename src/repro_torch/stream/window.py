@@ -290,7 +290,8 @@ def _factor(kind: str, d: int, m_pad: int, width: int, n_univ: int,
 
     if sk_rank is None:
         with obs.span("gram_stack"):
-            grams = lsvd.gram_stack(blocks, use_kernel=config.use_kernel)
+            grams = lsvd.gram_stack(blocks, use_kernel=lsvd.resolve_use_kernel(
+                config.use_kernel, v.device))
         with obs.span("merge_grams_eigh"):
             u_b, _ = lsvd.merge_grams_eigh(grams)
         u_b = u_b[:, :r_b]
@@ -439,7 +440,8 @@ def ingest_window(
                           num_blocks=d)
     step_key = (plan.backend, kind, d, m_pad, width, n_univ, r_b, k, plan.rank,
                 config.oversample, config.power_iters, config.method,
-                config.use_kernel, float(config.history_decay))
+                lsvd.resolve_use_kernel(config.use_kernel, state.device),
+                float(config.history_decay))
     traces_before = len(_TRACES)
     _BUILT.add(step_key)
     _TRACES.add((step_key, sig[2:], t_len))

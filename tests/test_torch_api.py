@@ -39,7 +39,11 @@ KEY = jax.random.PRNGKey(21)
 def test_solve_config_has_every_field_with_the_same_default():
     jf = {f.name: f.default for f in dataclasses.fields(japi.SolveConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tapi.SolveConfig)}
+    # One default differs on purpose: the port's use_kernel=None is the
+    # hand kernel on a CUDA tensor and the reference's False on the CPU.
+    assert jf.pop("use_kernel") is False and tf.pop("use_kernel") is None
     assert tf == jf
+    assert tapi.lsvd.resolve_use_kernel(None, "cpu") is False
     assert tapi.BACKENDS == japi.BACKENDS and tapi.MERGE_MODES == japi.MERGE_MODES
     assert tapi.LOCAL_MODES == japi.LOCAL_MODES
     assert tapi.STREAM_BACKENDS == japi.STREAM_BACKENDS
@@ -422,6 +426,126 @@ def test_parity_shard_map_backend_8_slots():
         u0, s0 = tdist.distributed_ranky_svd(ell, mesh, method="none",
                                              merge_mode="gram", key=11)
     assert torch.equal(res.s, s0[:6])
+
+
+def test_parity_shard_map_backend_on_part_of_a_mesh():
+    """The same twin on a (data 2, model 4) local mesh with
+    block_axes=("model",): four column blocks, each held by two slots.
+    api.svd is bit-identical to the legacy shim and to a mesh of the four
+    blocks alone, and V is trimmed back to N."""
+    from repro_torch.core import distributed as tdist
+
+    _, tcoo = paper_like_coo(m=16, n=2048, density=0.004, seed=3)
+    a = tsparse.pad_to_block_multiple(tcoo.todense(), 4)
+    ell = tsparse.block_ell_from_coo(tcoo, 4, device="cpu")
+    mesh = tcollectives.LocalMesh({"data": 2, "model": 4}, "cpu")
+    alone = tcollectives.LocalMesh({"model": 4}, "cpu")
+    kw = dict(method="neighbor_random", merge_mode="gram", want_right=True,
+              key=11)
+    cfg = tapi.SolveConfig(backend="shard_map", **kw)
+    for legacy_in, api_in in ((torch.from_numpy(a), a), (ell, ell),
+                              (ell, tcoo)):
+        with pytest.warns(DeprecationWarning):
+            u0, s0, v0 = tdist.distributed_ranky_svd(
+                legacy_in, mesh, block_axes=("model",), **kw)
+        res = tapi.svd(api_in, cfg, mesh=mesh, block_axes=("model",))
+        assert torch.equal(res.u, u0) and torch.equal(res.s, s0)
+        assert torch.equal(res.v, v0[:tcoo.shape[1]])
+        assert res.plan.backend == "shard_map"
+        four = tapi.svd(api_in, cfg, mesh=alone)
+        assert torch.equal(res.s, four.s) and torch.equal(res.v, four.v)
+    # The shim's default block axes, ("model",), on a (pod, model) mesh.
+    with pytest.warns(DeprecationWarning):
+        u1, s1 = tdist.distributed_ranky_svd(
+            ell, tcollectives.LocalMesh({"pod": 2, "model": 4}, "cpu"),
+            key=11)
+    assert torch.equal(s1, tapi.svd(ell, backend="shard_map", mesh=alone,
+                                    key=11).s)
+
+
+# ---------------------------------------------------------------------------
+# use_kernel=None: the hand kernel on a CUDA operand, today's plain path on
+# the CPU
+# ---------------------------------------------------------------------------
+
+class _OnCuda:
+    """An operand's stand-in that only claims to lie on a CUDA device."""
+    device = torch.device("cuda")
+
+
+def test_use_kernel_none_resolves_by_device_and_local_mode():
+    resolve = tapi.lsvd.resolve_use_kernel
+    assert resolve(None, "cpu") is False
+    assert resolve(None, torch.device("cuda", 0)) is True
+    # local_mode="svd" forms no gram: None is False on any device, and an
+    # explicit value is kept as given on any device.
+    assert resolve(None, "cuda", local_mode="svd") is False
+    assert resolve(False, "cuda") is False and resolve(True, "cpu") is True
+    cfg = tapi.SolveConfig()
+    assert tapi._use_kernel(cfg, _OnCuda()) is True
+    assert tapi._use_kernel(tapi.SolveConfig(use_kernel=False),
+                            _OnCuda()) is False
+    assert tapi._use_kernel(tapi.SolveConfig(local_mode="svd",
+                                             merge_mode="proxy"),
+                            _OnCuda()) is False
+
+
+@pytest.mark.parametrize("kind", ["coo", "dense"])
+def test_use_kernel_none_equals_false_on_the_cpu(kind):
+    """The default config runs the reference's plain products on the CPU,
+    bit for bit: one-shot (single, hierarchical, shard_map) and streaming
+    (per batch and in windows)."""
+    _, ta = _three_inputs()[kind]
+    mesh = tcollectives.LocalMesh({"model": 8}, "cpu")
+    for kw in (dict(backend="single", num_blocks=8),
+               dict(backend="hierarchical", num_blocks=8, want_right=True),
+               dict(backend="shard_map", mesh=mesh, merge_mode="proxy")):
+        mesh_kw = {"mesh": kw.pop("mesh")} if "mesh" in kw else \
+            {"device": "cpu"}
+        a = tapi.svd(ta, tapi.SolveConfig(key=3, **kw), **mesh_kw)
+        b = tapi.svd(ta, tapi.SolveConfig(key=3, use_kernel=False, **kw),
+                     **mesh_kw)
+        assert torch.equal(a.u, b.u) and torch.equal(a.s, b.s)
+        if a.v is not None:
+            assert torch.equal(a.v, b.v)
+    rng = np.random.default_rng(4)
+    batches = [(rng.random((12, 300)) < 0.05).astype(np.float32)
+               for _ in range(5)]
+    cfg = tapi.SolveConfig(truncate_rank=6, num_blocks=4, key=2)
+    a = tapi.svd_stream(batches, cfg, device="cpu").state
+    b = tapi.svd_stream(batches, dataclasses.replace(cfg, use_kernel=False),
+                        device="cpu").state
+    assert torch.equal(a.u, b.u) and torch.equal(a.s, b.s)
+    assert torch.equal(a.v, b.v)
+
+
+def test_use_kernel_none_changes_no_plan():
+    """The planner reads use_kernel only in R7 (ServeTopKConfig), so the
+    R1-R6 plans of None, False and True are equal to the byte, and equal
+    to the reference's with its default."""
+    spec = tplanner.ASpec(**SPEC)
+    batch = tplanner.ASpec(m=64, n=4096, nnz=2000, num_blocks=8,
+                           kind="stream")
+    for kw, devices in ((dict(), 1), (dict(rank=6), 1), (dict(), 8),
+                        (dict(merge_mode="proxy"), 8)):
+        plans = [_plan_dict(tplanner.make_plan(
+            spec, tapi.SolveConfig(use_kernel=uk, **kw),
+            device_count=devices)) for uk in (None, False, True)]
+        assert plans[0] == plans[1] == plans[2]
+        jp = jplanner.make_plan(jplanner.ASpec(**SPEC),
+                                japi.SolveConfig(**kw), device_count=devices)
+        assert plans[0]["reasons"] == jp.reasons
+    for devices in (1, 8):
+        cfgs = [tapi.SolveConfig(truncate_rank=16, use_kernel=uk)
+                for uk in (None, False, True)]
+        stream = [_plan_dict(tplanner.make_stream_plan(
+            batch, c, device_count=devices)) for c in cfgs]
+        window = [_plan_dict(tplanner.make_window_plan(
+            batch, c, device_count=devices)) for c in cfgs]
+        assert stream[0] == stream[1] == stream[2]
+        assert window[0] == window[1] == window[2]
+    # R7 reads ServeTopKConfig.use_kernel, whose default stays True.
+    assert tapi.ServeTopKConfig().use_kernel is True
 
 
 def test_plan_peak_bytes_is_per_device_for_shard_map():

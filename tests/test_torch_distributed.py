@@ -68,6 +68,14 @@ ONE_SHOT = [
      True),
 ]
 
+# Column blocks over part of a (data 2, model 4) mesh, block_axes=("model",):
+# (name, input, method, merge_mode, want_right)
+PART_MESH = [
+    ("gram-nr-ell", "ell", "neighbor_random", "gram", True),
+    ("proxy-random-dense", "dense", "random", "proxy", False),
+]
+PART_D = 4
+
 # The streams: (name, input kind, forced batch rank)
 STREAMS = [("dense", "dense", None), ("coo", "coo", None),
            ("sketch", "coo", 4)]
@@ -102,6 +110,16 @@ for name, kind, method, merge, two, rank, right in %(cases)s:
                           block_axes=axes, config=cfg)
     for i, x in enumerate(res):
         out[f"{name}/{i}"] = np.asarray(x)
+
+mesh3 = jax.make_mesh((2, %(PART_D)d), ("data", "model"))
+ell4 = sparse.block_ell_from_coo(coo, %(PART_D)d)
+for name, kind, method, merge, right in %(part)s:
+    cfg = SolveConfig(backend="shard_map", method=method, merge_mode=merge,
+                      want_right=right, key=key)
+    res = solve_shard_map(dense if kind == "dense" else ell4, mesh3,
+                          block_axes=("model",), config=cfg)
+    for i, x in enumerate(res):
+        out[f"part-{name}/{i}"] = np.asarray(x)
 
 errors = []
 for call in (
@@ -185,7 +203,8 @@ def ref(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("ref") / "shard_map.npz")
     out = run_forced_devices(_REFERENCE % dict(
         M=M, N=N, D=D, OVER=OVER, SN=SN, SMB=SMB, SK=SK, path=path,
-        cases=repr([c for c in ONE_SHOT]), streams=repr(STREAMS)))
+        cases=repr([c for c in ONE_SHOT]), streams=repr(STREAMS),
+        part=repr(PART_MESH), PART_D=PART_D))
     assert "REFERENCE_OK" in out
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
@@ -296,6 +315,21 @@ def main(rank, world):
     two = api.svd(coo, backend="shard_map", mesh=m2, merge_mode="proxy",
                   two_level=True, key=5)
     out["two"] = two.s.numpy()
+    part = api.svd(coo, backend="shard_map", mesh=m2, block_axes=("model",),
+                   want_right=True, key=5)
+    out["part"] = [part.u.numpy(), part.s.numpy(), part.v.numpy()]
+    from repro_torch import ft
+    # Survivors' meshes: every rank takes part in making the groups; a
+    # rank outside the plan holds no slot.
+    subs = []
+    for plan, slots in ((ft.plan_stream_mesh(3, 2), [0, 2, 3]),
+                        (ft.plan_mesh(2, model_parallel=2), [1, 3])):
+        sub = ft.build_mesh(plan, mesh, slots=slots)
+        x = torch.full((1, 2), float(rank + 1))
+        subs.append(None if sub is None else (
+            dict(sub.shape), sub.rank, sub.psum(x).tolist(),
+            sub.psum(x, sub.axis_names[-1]).tolist()))
+    out["subs"] = subs
     sst.set_stream_devices(mesh)
     cfg = api.SolveConfig(truncate_rank=8, num_blocks=world, key=5)
     rng = np.random.default_rng(0)
@@ -388,6 +422,44 @@ def test_process_group_solves_match_the_local_mesh(gloo):
     for got in gloo:
         np.testing.assert_allclose(got["two"], two.s.numpy(), rtol=1e-5,
                                    atol=1e-5 * float(two.s[0]))
+
+
+def test_process_group_solves_over_part_of_a_mesh(gloo):
+    """block_axes=("model",) on the (pod 2, model 2) gloo group: each rank
+    solves its model coordinate's block within the sub-group of its pod,
+    as a local mesh of the same shape does; V is the rank's block."""
+    _, tcoo = _coo()
+    want = tapi.svd(tcoo, backend="shard_map",
+                    mesh=tcol.LocalMesh({"pod": 2, "model": 2}, CPU),
+                    block_axes=("model",), want_right=True, key=5)
+    w = N // 2
+    for rank, got in enumerate(gloo):
+        u, s, v = got["part"]
+        assert_same_factors(u, s, want.u.numpy(), want.s.numpy(), rtol=1e-5,
+                            top=4)
+        rows = want.v.numpy()[(rank % 2) * w:(rank % 2 + 1) * w, :4]
+        sign = np.sign((u[:, :4] * want.u.numpy()[:, :4]).sum(0))
+        np.testing.assert_allclose(v[:, :4] * sign, rows, rtol=0,
+                                   atol=1e-4 * np.abs(rows).max())
+
+
+def test_process_group_build_mesh_makes_a_sub_group_of_survivors(gloo):
+    """ft.build_mesh on a 4-rank pool: a 1-D stream plan on slots 0, 2, 3
+    takes ranks 0 and 2; a (data 1, model 2) plan on slots 1 and 3 makes
+    its sub-groups on every rank, members or not."""
+    x = [float(r + 1) for r in range(4)]
+    for rank, got in enumerate(gloo):
+        stream, grid = got["subs"]
+        if rank in (0, 2):
+            assert stream == ({"blocks": 2}, rank // 2,
+                              [[x[0] + x[2]] * 2], [[x[0] + x[2]] * 2])
+        else:
+            assert stream is None
+        if rank in (1, 3):
+            assert grid == ({"data": 1, "model": 2}, rank // 2,
+                            [[x[1] + x[3]] * 2], [[x[1] + x[3]] * 2])
+        else:
+            assert grid is None
 
 
 def test_process_group_stream_window_ranker_and_checkpoint(gloo):
@@ -520,6 +592,44 @@ def test_one_shot_matches_the_reference_shard_map(ref, case):
         assert projector_gap(out[2].numpy()[:, :top], jv[:, :top]) < 1e-3
 
 
+@pytest.mark.parametrize("case", PART_MESH, ids=[c[0] for c in PART_MESH])
+def test_part_of_a_mesh_matches_the_reference_shard_map(ref, case):
+    """block_axes=("model",) on a (data 2, model 4) local mesh: four column
+    blocks, each held by the two slots along "data", against the
+    reference's shard_map on the same mesh of forced devices (block d
+    repairs with fold_in(key, d), d the flat index over the block axes).
+    S within 1e-5 of S[0], U and V by subspace."""
+    name, kind, method, merge, right = case
+    _, tcoo = _coo()
+    w = N // PART_D
+    if kind == "dense":
+        a = torch.from_numpy(tsparse.pad_to_block_multiple(tcoo.todense(),
+                                                           PART_D))
+        score_cols = w
+    else:
+        a = tsparse.block_ell_from_coo(tcoo, PART_D, device=CPU)
+        score_cols = a.capacity[0]
+    draws = shard_map_draws(KEY, method, PART_D, M, w, score_cols)
+    mesh = tcol.LocalMesh({"data": 2, "model": PART_D}, CPU)
+    cfg = tapi.SolveConfig(backend="shard_map", method=method,
+                           merge_mode=merge, want_right=right)
+    res = tapi.svd(a, cfg, mesh=mesh, block_axes=("model",), draws=draws)
+    assert res.plan.backend == "shard_map"
+    ju, js = ref[f"part-{name}/0"], ref[f"part-{name}/1"]
+    np.testing.assert_allclose(res.s.numpy(), js, rtol=0, atol=1e-5 * js[0])
+    assert projector_gap(res.u.numpy()[:, :6], ju[:, :6]) < 1e-3
+    if right:
+        jv = ref[f"part-{name}/2"]
+        assert res.v.shape == jv.shape
+        assert projector_gap(res.v.numpy()[:, :6], jv[:, :6]) < 1e-3
+    # The replicated slots add nothing: the same bits as a mesh of the
+    # four blocks alone, and the collectives tallied on the mesh passed.
+    alone = tapi.svd(a, cfg, mesh=tcol.LocalMesh({"model": PART_D}, CPU),
+                     draws=draws)
+    assert torch.equal(res.u, alone.u) and torch.equal(res.s, alone.s)
+    assert sum(mesh.counts.values()) > 0
+
+
 def test_shim_warns_and_runs_the_same_engine():
     _, tcoo = _coo()
     ell = tsparse.block_ell_from_coo(tcoo, D, device=CPU)
@@ -554,10 +664,16 @@ def test_errors_carry_the_references_messages(ref):
         assert str(err.value) == str(want)
     with pytest.raises(ValueError, match="mesh only applies"):
         tapi.svd(tcoo, backend="single", mesh=mesh)
-    with pytest.raises(ValueError, match="every axis of the mesh"):
+    # block_axes may name part of the mesh (the other axes replicate), but
+    # only axes of the mesh, in its order.
+    with pytest.raises(ValueError, match="unknown mesh axis"):
         tapi.svd(tcoo, backend="shard_map",
                  mesh=tcol.LocalMesh({"pod": 2, "model": 4}, CPU),
-                 block_axes=("model",))
+                 block_axes=("rows",))
+    with pytest.raises(ValueError, match="in the mesh's order"):
+        tapi.svd(tcoo, backend="shard_map",
+                 mesh=tcol.LocalMesh({"pod": 2, "model": 4}, CPU),
+                 block_axes=("model", "pod"))
     with pytest.raises(ValueError, match="one device per block"):
         tapi.svd(tcoo, backend="shard_map", num_blocks=D, device=CPU)
 

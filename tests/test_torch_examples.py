@@ -41,6 +41,7 @@ CASES = [
     ("serve_lm_torch", {}),
     ("distributed_svd_torch", {}),
     ("distributed_streaming_torch", {}),
+    ("elastic_ingest_torch", {}),
 ]
 
 
