@@ -117,7 +117,26 @@ What it does, one JSON line per phase:
    launches and host syncs a batch (sync debug mode); R5, R6 and R7 drift
    ratios recorded, each within ``obs.gate.drift_factor()``; every span's
    CUDA events resolved, the top-level spans' sum within the wall time, the
-   Chrome trace valid; ms a batch with obs off and on.
+   Chrome trace valid; ms a batch with obs off and on.  Then the
+   reference's obs-off serving gate: with obs off, interleaved pairs of a
+   direct ``ranker.score_topk`` on the handle and ``serve_topk``, each call
+   timed on the host clock up to a synchronize, 3 rounds; the least p99 of
+   ``serve_topk`` within 1.01 x the least p99 of the direct call.
+14b. ``lint``: the analyzer (``repro_torch.analysis``) over
+   ``src/repro_torch``: no unsuppressed finding; then every host-sync site
+   phase 14 recorded (torch's sync debug mode; a sync inside torch's own
+   Python code is put on the port's line that called it), classified
+   against rule RL107: outside the port, covered (the line is in a call
+   RL107 flags), out of its reach (not serve/ or stream/, or in no host
+   loop), or missed (in a hot-path loop body and not flagged: fails).
+14c. ``trace``: ``scripts/ranky_trace_torch.py`` as a process, at the
+   reference CI's invocation (its defaults, Prometheus metrics) and at the
+   paper's column count (24 batches of 64 x 170,897 at rank 16, 32 waves,
+   JSON metrics): exit 0, a valid Chrome trace covering the categories
+   ingest / merge / serve / snapshot and every span name the reference's
+   run writes, metrics that parse and hold the reference's names,
+   ``blockgram`` launched by the stream and ``topk_score`` exactly once a
+   wave, drift within the factor and no ``DriftWarning``.
 15. ``drift_stages``: ``scripts/drift_stages_torch.py`` at the streaming
    example's shapes: the R5 / R6 drift of its first ingests and window, the
    peak bytes of every stage beside the term that prices it, and the
@@ -203,6 +222,7 @@ BF16_FLOPS = 989e12
 
 NUM_BLOCKS = 8
 DEVICE = "cuda"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # (M, N) of the two matrices of phase 7; density 5e-4 like the paper's.
 SCALED_EXACT = (2048, 1_048_576)
 SCALED_TALL = (32_768, 262_144)
@@ -2351,25 +2371,43 @@ STREAM_WINDOW = dict(n=1_048_576, rank=64, batches=48, rows=(1000, 1024),
 PAPER_WINDOW = dict(rank=16, rows=(50, 64))
 
 
+def sync_site(stack) -> str:
+    """"file:line" of a host sync, relative to the checkout: the innermost
+    frame of the port's package (a sync raised inside one of torch's own
+    Python functions, such as ``torch.unique``, is the port's call of it),
+    else the innermost frame."""
+    port = os.path.join(ROOT, "src", "repro_torch") + os.sep
+    stack = [f for f in stack
+             if os.path.basename(f.filename) != "warnings.py"]
+    frame = next((f for f in reversed(stack)
+                  if os.path.abspath(f.filename).startswith(port)),
+                  stack[-1])
+    return f"{os.path.relpath(frame.filename, ROOT)}:{frame.lineno}"
+
+
 def sync_sites(fn):
     """(result, {"file:line": count}) of the host syncs ``fn()`` makes, as
-    torch's sync debug mode reports them."""
+    torch's sync debug mode reports them (sites as ``sync_site`` reads
+    them)."""
+    import traceback
     import warnings
 
+    sites = {}
+
+    def record(message, *args, **kwargs):
+        if "synchroniz" in str(message):
+            where = sync_site(traceback.extract_stack()[:-1])
+            sites[where] = sites.get(where, 0) + 1
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    sites = {}
-    for w in caught:
-        if "synchroniz" not in str(w.message):
-            continue
-        where = f"{os.path.relpath(w.filename)}:{w.lineno}"
-        sites[where] = sites.get(where, 0) + 1
     return out, sites
 
 
@@ -2969,6 +3007,15 @@ def phase_lm_serve(state) -> None:
 OBSERVE_CFG = dict(method="neighbor_random", truncate_rank=16, oversample=8,
                    num_blocks=NUM_BLOCKS, use_kernel=True)
 OBSERVE_WAVES = 20
+# The obs-off serving gate (the reference's, ``benchmarks/serving.py`` and
+# ``scripts/check_bench_json.py``): interleaved pairs of a direct
+# ``ranker.score_topk`` and ``serve_topk`` with obs off, the least p99 of
+# the rounds within ``limit`` of the direct path's.  The reference takes
+# at least 100 pairs a round; with 60,000 the p99 stands on 600 waves of
+# each arm's tail, not on 1 or 2: on the H100's host a 500-pair p99 moves
+# by several percent between runs, a 60,000-pair one by a few tenths.
+# 2,000 pairs of warm-up first.
+OBS_AB = dict(rounds=3, pairs=60_000, warmup=2_000, limit=1.01)
 
 
 def paper_batches(coo, dense=False):
@@ -3122,6 +3169,63 @@ def observe_on_pass(sparse_b, dense_b, queries) -> tuple:
     return (res, waves, handle), nums, rec
 
 
+def obs_off_ab(handle, queries) -> dict:
+    """The obs-off gate on the card: ``serve_topk`` with obs off against
+    the direct ``ranker.score_topk`` call it makes, in interleaved pairs
+    (direct first), each call timed on the host clock up to a
+    ``torch.cuda.synchronize()`` after it.  p50 / p99 in us a round; the
+    gate holds the least p99 of the rounds."""
+    cfg = handle.config
+    sharded = handle.plan.backend == "shard_map"
+
+    def direct(q):
+        return ranker.score_topk(handle.read(), q, cfg.k_top,
+                                 block_n=cfg.block_n, sharded=sharded,
+                                 use_kernel=cfg.use_kernel)
+
+    def served(q):
+        return api.serve_topk(handle, q)
+
+    def timed(fn, q) -> float:
+        t0 = time.perf_counter()
+        fn(q)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+
+    check(not obs.enabled(), "observe: obs is on for the obs-off gate")
+    for q in queries:
+        a, b = served(q), direct(q)
+        check(torch.equal(a.scores, b.scores)
+              and torch.equal(a.indices, b.indices), "observe: serve_topk "
+              "with obs off differs from the direct ranker call")
+    for w in range(OBS_AB["warmup"]):
+        q = queries[w % len(queries)]
+        timed(direct, q)
+        timed(served, q)
+    rounds = []
+    for _ in range(OBS_AB["rounds"]):
+        base, off = [], []
+        for w in range(OBS_AB["pairs"]):
+            q = queries[w % len(queries)]
+            base.append(timed(direct, q))
+            off.append(timed(served, q))
+        rounds.append({f"{q}_{name}_us": float(np.percentile(lat, pct))
+                       for name, lat in (("base", base), ("off", off))
+                       for q, pct in (("p50", 50), ("p99", 99))})
+    p99_base = min(r["p99_base_us"] for r in rounds)
+    p99_off = min(r["p99_off_us"] for r in rounds)
+    check(p99_off <= OBS_AB["limit"] * p99_base, f"observe: obs-off serving "
+          f"p99 {p99_off:.1f} us > {OBS_AB['limit']} x the direct path's "
+          f"{p99_base:.1f} us; rounds {rounds}")
+    return dict(**OBS_AB, p99_base_us=p99_base, p99_off_us=p99_off,
+                ratio=p99_off / p99_base,
+                p50_base_us=min(r["p50_base_us"] for r in rounds),
+                p50_off_us=min(r["p50_off_us"] for r in rounds),
+                by_round=rounds,
+                clocks="host clock around each call up to a "
+                       "torch.cuda.synchronize() after it")
+
+
 def phase_observe(state) -> None:
     """The observability layer on the card changes no result and adds no
     host sync; it records R5 / R6 / R7 drift within the factor.  After an
@@ -3187,6 +3291,10 @@ def phase_observe(state) -> None:
                          ("topk_score", OBSERVE_WAVES)):
         check(ref_n["launches"][kernel] == want, f"observe: {kernel} "
               f"launched {ref_n['launches'][kernel]} times, want {want}")
+    ab = obs_off_ab(passes[-1][1][2], queries)
+    state["observe_sync_sites"] = sorted({
+        site for _, _, n, _ in passes
+        for sites in n["sync_sites"].values() for site in sites})
     ms = {mode: {k: [n["ms_per_batch"][k] for m, _, n, _ in passes
                      if m == mode] for k in ("sparse", "dense", "wave")}
           for mode in ("off", "on")}
@@ -3212,10 +3320,199 @@ def phase_observe(state) -> None:
                           in obs.span_summary(on[0]["events"])},
          serve_metrics={k: v for k, v in on[0]["metrics"].items()
                         if k.startswith("serve_")},
+         obs_off_gate=ab,
          clocks="ms_per_batch: host clock around each svd_stream / the "
                 "waves, device synchronized at both ends, one value a "
                 "pass (after an obs-off warm-up pass, off, on, on, off); "
                 "spans: device time between CUDA events")
+
+
+def classify_sync_sites(sites) -> dict:
+    """Each "file:line" host-sync site against RL107 (``repro_torch.
+    analysis``): ``outside`` the port's package; ``covered``: the line
+    lies in a call RL107 flags (suppressed or not); ``out_of_reach``: a
+    module outside serve/ and stream/, or a line lexically in no host
+    loop (reached through a call: RL107 follows none); ``missed``: in a
+    loop body of a serve/ or stream/ module and not flagged."""
+    import ast
+    from repro_torch.analysis import get_rule
+    from repro_torch.analysis.regions import ProjectContext, build_module
+    from repro_torch.analysis.rules import hot_loop_nodes, in_hot_path
+
+    def lines(node):
+        return range(node.lineno, node.end_lineno + 1)
+
+    rule = get_rule("RL107")
+    reach = {}
+    out = dict(outside=[], covered=[], out_of_reach=[], missed=[])
+    for site in sites:
+        path, line = site.rsplit(":", 1)
+        line = int(line)
+        if not path.startswith("src/repro_torch/"):
+            out["outside"].append(site)
+            continue
+        if path not in reach:
+            with open(os.path.join(ROOT, path)) as f:
+                m = build_module(path, f.read())
+            calls = {(n.lineno, n.col_offset + 1): n for n in ast.walk(m.tree)
+                     if isinstance(n, ast.Call)}
+            flagged = {ln for fnd in rule.check(m, ProjectContext([m]))
+                       for ln in lines(calls[(fnd.line, fnd.col)])}
+            looped = {ln for _, n in hot_loop_nodes(m)
+                      if not isinstance(n, (ast.FunctionDef, ast.Lambda))
+                      and hasattr(n, "lineno") for ln in lines(n)}
+            reach[path] = (in_hot_path(m), flagged, looped)
+        hot, flagged, looped = reach[path]
+        if not hot:
+            out["out_of_reach"].append(f"{site} (not serve/ or stream/)")
+        elif line in flagged:
+            out["covered"].append(site)
+        elif line in looped:
+            out["missed"].append(site)
+        else:
+            out["out_of_reach"].append(f"{site} (in no host loop)")
+    return out
+
+
+def phase_lint(state) -> None:
+    """The analyzer (``repro_torch.analysis``) over the port's package:
+    no unsuppressed finding; then every host-sync site phase ``observe``
+    recorded on the card, classified against RL107 (``classify_sync_
+    sites``): a site in a hot-path loop that RL107 does not flag fails."""
+    from repro_torch.analysis import analyze_paths
+
+    t0 = time.perf_counter()
+    result = analyze_paths([os.path.join(ROOT, "src", "repro_torch")])
+    secs = time.perf_counter() - t0
+    check(not result.errors, f"lint: analysis errors {result.errors}")
+    check(not result.findings, "lint: unsuppressed findings:\n" + "\n".join(
+        f.render() for f in result.findings))
+    sites = state["observe_sync_sites"]
+    classes = classify_sync_sites(sites)
+    check(not classes["missed"], f"lint: host syncs the card recorded in "
+          f"hot-path loops that RL107 does not flag: {classes['missed']}")
+    emit("lint", files=result.files_analyzed, findings=0, seconds=secs,
+         sync_sites=len(sites),
+         counts={k: len(v) for k, v in classes.items()}, sites=classes)
+
+
+# Phase ``trace``: ``scripts/ranky_trace_torch.py`` as the reference's CI
+# runs its twin (the defaults, Prometheus text), then at the paper's column
+# count (JSON metrics).
+TRACE_RUNS = (
+    ("ci", (), "metrics.prom"),
+    ("paper", ("--n", "170897", "--rows", "64", "--rank", "16",
+               "--batches", "24", "--waves", "32"), "metrics.json"),
+)
+TRACE_CATEGORIES = {"ingest", "merge", "serve", "snapshot"}
+# What the reference's ``scripts/ranky_trace.py`` wrote (``--batches 4
+# --waves 4 --n 256`` on the CPU): its span and instant-event names and its
+# metric names (Prometheus text; the JSON export has no _sum / _count).
+TRACE_REFERENCE_SPANS = {"ingest.batch", "ingest.window", "merge.svd",
+                         "serve.topk", "snapshot.stage", "snapshot.publish"}
+TRACE_REFERENCE_METRICS = {
+    "drift_estimated_bytes", "drift_measured_bytes", "drift_ratio",
+    "ingest_batches_total", "ingest_rows_total", "jit_cache_size",
+    "planner_plans_total", "serve_latency_us", "serve_latency_us_count",
+    "serve_latency_us_sum", "serve_queries_total", "serve_requests_total",
+    "snapshot_age_seconds", "snapshot_version", "window_compile_total",
+    "window_dispatch_total"}
+PROM_LINE = r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$"
+
+
+def metric_names(path: str) -> set:
+    """The metric names of a metrics export: Prometheus text (every line
+    that is not a comment is ``name{labels} value``) or JSON."""
+    import re
+
+    with open(path) as f:
+        if path.endswith(".json"):
+            doc = json.load(f)
+            return {key.split("{", 1)[0] for kind in doc.values()
+                    for key in kind}
+        names = set()
+        for line in f.read().splitlines():
+            if not line or line.startswith("#"):
+                continue
+            m = re.match(PROM_LINE, line)
+            check(m is not None, f"trace: {path}: bad line {line!r}")
+            float(m.group(3))
+            names.add(m.group(1))
+        return names
+
+
+def phase_trace(state) -> None:
+    """``scripts/ranky_trace_torch.py`` as a process on the card, at the
+    reference CI's invocation and at the paper's column count: a valid
+    trace covering the reference's categories and span names, metrics that
+    parse and hold the reference's names, ``blockgram`` launched by the
+    stream and ``topk_score`` exactly once a wave, drift within the
+    factor and no ``DriftWarning``."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    factor = obs.gate.drift_factor()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args, metrics in TRACE_RUNS:
+            out = os.path.join(tmp, f"{name}.trace.json")
+            mpath = os.path.join(tmp, f"{name}.{metrics}")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable,
+                 os.path.join(ROOT, "scripts", "ranky_trace_torch.py"),
+                 out, "--metrics", mpath, *args],
+                env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            what = f"trace[{name}]"
+            check(proc.returncode == 0, f"{what}: exited {proc.returncode}"
+                  f":\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            last = proc.stdout.strip().splitlines()[-1]
+            check(last.startswith("summary "), f"{what}: no summary line")
+            summary = json.loads(last[len("summary "):])
+            with open(out) as f:
+                doc = json.load(f)
+            obs.validate_chrome_trace(doc)
+            events = doc["traceEvents"]
+            cats = {e["name"].split(".", 1)[0] for e in events
+                    if e["ph"] == "X"}
+            names = {e["name"] for e in events if e["ph"] in ("X", "i")}
+            check(TRACE_CATEGORIES <= cats, f"{what}: span categories "
+                  f"{sorted(cats)} lack {sorted(TRACE_CATEGORIES - cats)}")
+            check(TRACE_REFERENCE_SPANS <= names, f"{what}: lacks the "
+                  f"reference's {sorted(TRACE_REFERENCE_SPANS - names)}")
+            got = metric_names(mpath)
+            want = TRACE_REFERENCE_METRICS
+            if metrics.endswith(".json"):
+                want = {n for n in want if not n.endswith(("_sum", "_count"))}
+            check(want <= got, f"{what}: metrics lack {sorted(want - got)}")
+            launches = summary["launches"]
+            check(summary["stream_launches"]["blockgram"] >= 1,
+                  f"{what}: the stream never launched blockgram")
+            check(summary["serve_launches"]["topk_score"] == summary["waves"]
+                  and launches["topk_score"] == summary["waves"],
+                  f"{what}: topk_score launched {launches['topk_score']} "
+                  f"times for {summary['waves']} waves")
+            drift = summary["drift"]
+            for rule in ("R5", "R6", "R7"):
+                check(any(k.split("/")[0] == rule for k in drift),
+                      f"{what}: no {rule} drift recorded {drift}")
+            check("DriftWarning" not in proc.stderr
+                  and all(r <= factor for r in drift.values()),
+                  f"{what}: drift {drift} (limit {factor})")
+            runs.append(dict(
+                run=name, args=list(args), wall_s=wall,
+                stream_s=summary["stream_s"], serve_s=summary["serve_s"],
+                trace_events=summary["trace_events"], spans=sum(
+                    e["ph"] == "X" for e in events),
+                instants=sum(e["ph"] == "i" for e in events),
+                span_categories=sorted(cats), metric_names=len(got),
+                launches=launches, drift=drift))
+            keep_counts(state, f"trace[{name}]", launches)
+    emit("trace", runs=runs, drift_factor=factor,
+         clocks="wall_s: the process, interpreter start and the kernel "
+                "library's load included; stream_s / serve_s: its host "
+                "clock, the device synchronized at the end")
 
 
 def load_script(name):
@@ -3879,7 +4176,8 @@ def main() -> int:
                   phase_solve_scaled, phase_stream_exact, phase_stream_serve,
                   phase_serve_scaled, phase_hierarchical, phase_stream_window,
                   phase_merge_driver_ab, phase_lm_serve, phase_checkpoint,
-                  phase_observe, phase_drift_stages, phase_distributed,
+                  phase_observe, phase_lint, phase_trace,
+                  phase_drift_stages, phase_distributed,
                   phase_ft, phase_examples):
         phase(state)
         torch.cuda.synchronize()

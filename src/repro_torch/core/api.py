@@ -54,6 +54,7 @@ Usage::
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -66,6 +67,8 @@ from repro_torch.core import svd as lsvd
 from repro_torch.core.planner import ASpec, Plan, PlanError  # noqa: F401  (re-export)
 from repro_torch.core.ranky import Key, RepairDraws  # noqa: F401  (re-export)
 from repro_torch.obs import clock
+from repro_torch.obs.gate import _STATE as _OBS_GATE
+from repro_torch.serve import ranker as ranker_mod
 
 BACKENDS = ("single", "hierarchical", "shard_map", "auto")
 STREAM_BACKENDS = ("single", "shard_map", "auto")
@@ -460,8 +463,9 @@ def as_block_input(a: MatrixInput, num_blocks: int, *,
         if needs_dense:
             # local_mode='svd' is the paper's exact small-problem oracle
             # and needs the dense operand.
+            dense = a.todense()  # ranky-lint: disable=RL104 -- svd oracle
             return torch.from_numpy(sparse.pad_to_block_multiple(
-                a.todense(), num_blocks)).to(device)
+                dense, num_blocks)).to(device)
         return sparse.block_ell_from_coo(a, num_blocks, device=device)
     t = torch.as_tensor(a).to(device=device, dtype=torch.float32)
     rem = (-t.shape[1]) % num_blocks
@@ -1209,16 +1213,28 @@ class ServeTopKConfig:
                        kind="ServeTopKConfig")
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class ServeHandle:
     """One live serving endpoint: the double-buffered snapshot cell plus
     the R7 plan and config that built it.  ``commit`` folds a freshly
     ingested state in (stage + atomic publish); reads via ``serve_topk``
-    always see exactly one consistent snapshot."""
+    always see exactly one consistent snapshot.  The plan and config are
+    fixed for the handle's life (``serve_init`` a new one to change
+    them)."""
 
     buffer: Any          # serve.snapshot.SnapshotBuffer
     plan: Plan
     config: ServeTopKConfig
+
+    def __post_init__(self):
+        # The ranker call with this handle's fixed arguments: with obs
+        # off, a wave is this one call (the obs-off gate times it against
+        # the direct ranker call).
+        object.__setattr__(self, "_score", functools.partial(
+            ranker_mod.score_topk, block_n=self.config.block_n,
+            sharded=self.plan.backend == "shard_map",
+            use_kernel=self.config.use_kernel,
+            max_batch=self.config.batch_size))
 
     def read(self):
         return self.buffer.read()
@@ -1330,38 +1346,23 @@ def serve_topk(handle: ServeHandle, queries,
     :class:`~repro_torch.serve.ranker.TopKResult`: scores descending,
     ties to the lowest item id, stamped with the snapshot version.
     """
-    from repro_torch.serve import ranker as ranker_mod
-
-    queries = torch.as_tensor(queries)
-    cfg = handle.config
-    if queries.dim() != 2:
-        raise ValueError(
-            f"queries must be a (B, k) batch of factor-space rows, got "
-            f"shape {tuple(queries.shape)}")
-    if queries.shape[0] > cfg.batch_size:
-        raise ValueError(
-            f"wave of {queries.shape[0]} queries exceeds the planned "
-            f"batch_size={cfg.batch_size}; split the wave or serve_init "
-            f"with a larger batch_size")
-    if not obs.enabled():
-        return ranker_mod.score_topk(
-            handle.read(), queries,
-            cfg.k_top if k_top is None else k_top,
-            block_n=cfg.block_n,
-            sharded=handle.plan.backend == "shard_map",
-            use_kernel=cfg.use_kernel)
+    k_top = handle.config.k_top if k_top is None else k_top
+    if not _OBS_GATE["enabled"]:
+        # obs.enabled() read in place, then one ranker call, which checks
+        # the wave (the planned batch_size too): with obs off a wave runs
+        # no more Python than the direct ranker call (chip_smoke.py holds
+        # its p99 within 1 % of that call's).
+        return handle._score(handle.buffer.read(), queries, k_top)
     snap = handle.read()
+    queries = torch.as_tensor(queries)
+    ranker_mod.check_wave(queries, snap.rank, handle.config.batch_size)
     with obs.span("serve.topk", batch=int(queries.shape[0]),
                   version=snap.version) as sp:
         # The wave's latency is its device time: folded into the
         # histogram when the span's events resolve, never waited for here.
         sp.then(_observe_latency)
-        res = ranker_mod.score_topk(
-            snap, queries, cfg.k_top if k_top is None else k_top,
-            block_n=cfg.block_n,
-            sharded=handle.plan.backend == "shard_map",
-            use_kernel=cfg.use_kernel,
-            plan_bytes=handle.plan.estimated_peak_bytes)
+        res = handle._score(snap, queries, k_top,
+                            plan_bytes=handle.plan.estimated_peak_bytes)
     obs.counter_add("serve_requests_total")
     obs.counter_add("serve_queries_total", float(queries.shape[0]))
     obs.gauge_set("snapshot_version", snap.version)

@@ -23,7 +23,7 @@ def paper_coo(cfg: RankyPaperConfig) -> sparse.COOMatrix:
 def paper_matrix(cfg: RankyPaperConfig) -> np.ndarray:
     # The dense copy exists as the exactness oracle and as the input of
     # the dense path; the sparse path never builds it.
-    return paper_coo(cfg).todense()
+    return paper_coo(cfg).todense()  # ranky-lint: disable=RL104 -- oracle
 
 
 def paper_block_ell(cfg: RankyPaperConfig, num_blocks: int, *,

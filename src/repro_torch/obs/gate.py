@@ -6,6 +6,8 @@ core/*.py) guard every span, metric and drift probe with
 the whole subsystem is one boolean check per instrumentation point:
 zero extra kernel launches, zero extra host syncs, zero ring-buffer
 writes (pinned by tests/test_torch_obs.py's dispatch-count test).
+``api.serve_topk`` reads ``_STATE["enabled"]`` in place (no call): its
+obs-off branch is held to 1 % of the direct ranker call's p99.
 
 This module is a dependency leaf on purpose: ``trace``/``metrics``/
 ``drift`` all import the gate, the package ``__init__`` re-exports it,

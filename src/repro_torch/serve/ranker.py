@@ -136,6 +136,22 @@ def _sharded_topk(snapshot: ServingSnapshot, qs, factors, scale, k_top, *,
             torch.gather(cand_i, 1, pos[:, :k_top]))
 
 
+def check_wave(queries: torch.Tensor, rank: int,
+               max_batch: Optional[int] = None) -> None:
+    """Raise ``ValueError`` unless ``queries`` is a (B, rank) wave of at
+    most ``max_batch`` rows (the wave width a serving plan priced)."""
+    shape = queries.shape
+    if len(shape) == 2 and max_batch is not None and shape[0] > max_batch:
+        raise ValueError(
+            f"wave of {shape[0]} queries exceeds the planned "
+            f"batch_size={max_batch}; split the wave or serve_init "
+            f"with a larger batch_size")
+    if len(shape) != 2 or shape[1] != rank:
+        raise ValueError(
+            f"queries must be (B, {rank}) factor-space rows, got "
+            f"{tuple(shape)}")
+
+
 def score_topk(
     snapshot: ServingSnapshot,
     queries: torch.Tensor,
@@ -145,12 +161,14 @@ def score_topk(
     sharded: bool = False,
     use_kernel: bool = True,
     plan_bytes: Optional[int] = None,
+    max_batch: Optional[int] = None,
 ) -> TopKResult:
     """Answer one request wave: top ``k_top`` items per query row.
 
     ``queries`` are factor-space rows (B, k): use :func:`project_rows`
     for raw interaction deltas or :func:`user_queries` for known users.
-    They are moved to the snapshot's device.
+    They are moved to the snapshot's device; ``max_batch`` caps B
+    (``check_wave``).
 
     ``plan_bytes`` (the R7 closed-form estimate, threaded down by
     ``api.serve_topk``) arms the drift monitor when observability is
@@ -163,10 +181,7 @@ def score_topk(
             "sharded=True needs a snapshot of a sharded state (serve_init "
             "with serve_backend='shard_map' over the stream mesh)")
     queries = torch.as_tensor(queries).to(snapshot.device)
-    if queries.dim() != 2 or queries.shape[1] != snapshot.rank:
-        raise ValueError(
-            f"queries must be (B, {snapshot.rank}) factor-space rows, "
-            f"got {tuple(queries.shape)}")
+    check_wave(queries, snapshot.rank, max_batch)
     if not 0 < k_top <= snapshot.n:
         raise ValueError(
             f"k_top={k_top} must be in (0, n={snapshot.n}]")

@@ -702,7 +702,7 @@ def test_importing_the_port_pulls_in_neither_jax_nor_the_jax_package():
         "import repro_torch.models.schema, repro_torch.models.convert\n"
         "import repro_torch.models.attention, repro_torch.models.ssm\n"
         "import repro_torch.models.transformer, repro_torch.serve.engine\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.analysis\n"
         "from repro_torch.configs.base import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
