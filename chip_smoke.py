@@ -103,6 +103,31 @@ What it does, one JSON line per phase:
    x 32 tokens, greedy and sampled from a seeded generator.
    Phase 3 holds ``flash_attention`` and ``ssd_scan`` against their plain
    versions at this path's shapes, in bf16 and float32, with variants.
+12b. ``lm_families``: the ssm, dense and vlm families, weights from a
+   seeded generator on the card, one line per model.  (a) gemma2-9b at full
+   width and depth (42 layers, 37 GB of float32 weights): ``prefill_forward``
+   of 2 x 8,192 tokens, past the window of 4,096 (``flash_attention``
+   exactly 42 launches, ``ssd_scan`` none), 32 greedy decode steps, then
+   32 teacher-forced steps at B = 8 with the int8 KV cache against a float
+   one: in float32 against the float32 cache at the reference's
+   ``tests/test_kvquant.py`` limits (its own setting), and in the config's
+   bf16 against the bf16 cache (greedy agreement held, the excess over the
+   same limits recorded), and the caches' bytes; (b) its first 4 layers in float32 on a prompt of 4,160 tokens:
+   ``prefill_forward`` (4 launches, the window hiding the first 64 keys
+   from the last rows) against ``engine.prefill_cache`` (decode steps, no
+   kernel), last logits and every K / V entry within 3e-4 of max, and
+   the same prefill with ``attn_window=0`` as the control that must exceed
+   it.  (c) mamba2-1.3b (48 layers): 8 x 1,024 in bf16 (``ssd_scan``
+   exactly 48), 32 decode steps, the float32 check at 2 x 256 with the
+   bf16-rounded control.  (d) qwen2-vl-2b (28 layers): 8 x 1,024 with three
+   position streams (a 16 x 16 image block at tokens 8-263, then text;
+   ``flash_attention`` exactly 28), 32 decode steps with the engine's
+   positions, the float32 check on text.  (e) phi3-medium-14b,
+   phi4-mini-3.8b and starcoder2-15b at full width and 2 layers: 2 x 1,024
+   (2 launches each), 8 decode steps, the float32 check at 1 x 128.
+   Phase 3 holds ``flash_attention`` at gemma2-9b's prefill shape (window
+   4,096, softcap 50, B 1 against the plain version, timed at B 2 beside
+   SDPA with a band mask) and at starcoder2's GQA group of 12.
 13. ``checkpoint``: the paper rows' sparse stream at rank 16
    (``use_kernel=True``) saved with ``repro_torch.checkpoint`` and restored
    onto the card; u, s, v equal (``torch.equal``) and the counters too, then
@@ -167,10 +192,12 @@ What it does, one JSON line per phase:
    ms by stage, the replayed chunk's ms, R8's restore transient within the
    drift factor.
 17. ``examples``: the seven ``examples/*_torch.py`` twins as subprocesses
-   on the card (the streaming and serving twins also with ``--observe``):
-   exit code 0, wall seconds, and the kernel launches each one reports;
-   every SVD twin must launch its gram kernel with the default config
-   (``use_kernel=None`` is the kernel on a CUDA tensor).
+   on the card (the streaming and serving twins also with ``--observe``,
+   the LM twin at its default mamba2 and on zamba2): exit code 0, wall
+   seconds, and the kernel launches each one reports; every SVD twin must
+   launch its gram kernel with the default config (``use_kernel=None`` is
+   the kernel on a CUDA tensor), the LM twin ``ssd_scan`` (and on zamba2
+   ``flash_attention`` too).
 18. ``stage_summary`` (one ingest, one serve wave), one line
    ``{"kernels": [...]}`` with every kernel's numbers, then the card as
    ``nvidia-smi`` names it, then the last line ``{"ok": true, "device":
@@ -238,13 +265,34 @@ SCALED_SERVE = dict(n=1_048_576, rows=1024, batches=2, density=1e-3,
 # (10x its readings, 1.7e-5 - 3.1e-5 of max), the requests.
 LM_ARCH = "zamba2-2.7b"
 # The configs whose kernel widths phase 3 also holds: mamba2-1.3b's SSM
-# state 128 and gemma2-9b's head dim 256 (the models are not served yet).
+# state 128 and gemma2-9b's head dim 256 (both served in phase 12b).
 SSM_ARCH = "mamba2-1.3b"
 WIDE_ATTN_ARCH = "gemma2-9b"
 LM_PREFILL = dict(batch=8, seq=1024, decode=32)
 LM_LONG = dict(batch=2, seq=3000)
 LM_CHECK = dict(batch=2, seq=256, rel=3e-4)
 LM_REQUESTS = dict(requests=4, tokens=32, temperature=0.8)
+# Phase 12b (``lm_families``): gemma2-9b at full depth, 2 prompts past its
+# window of 4,096 (max_seq leaves room for the decode steps), then the int8
+# KV cache at B = 8; its first 4 layers in float32 on a prompt 64 tokens
+# past the window; mamba2-1.3b and qwen2-vl-2b at full depth (qwen2-vl's
+# prompts open with a 16 x 16 image block at tokens 8-263); the other dense
+# configs at full width and 2 layers; the float32 checks of mamba2 / qwen2-vl
+# (FAMILY_CHECK) and of the cut dense configs (``check_seq``).
+GEMMA = dict(arch="gemma2-9b", batch=2, seq=8192, max_seq=8224, decode=32,
+             int8_batch=8, int8_steps=32)
+GEMMA_CHECK = dict(layers=4, seq=4160)
+MAMBA = dict(arch="mamba2-1.3b", batch=8, seq=1024, decode=32)
+QWEN = dict(arch="qwen2-vl-2b", batch=8, seq=1024, decode=32, patch=16,
+            patch_at=8)
+DENSE_CUT = dict(archs=("phi3-medium-14b", "phi4-mini-3.8b",
+                        "starcoder2-15b"),
+                 layers=2, batch=2, seq=1024, decode=8, check_seq=128)
+FAMILY_CHECK = dict(batch=2, seq=256)
+# The int8 cache against a float one: the reference's own limits
+# (``tests/test_kvquant.py``, float32: rtol 0.1, atol 0.15, greedy
+# agreement 0.9).
+KV_INT8 = dict(rtol=0.1, atol=0.15, agree=0.9)
 KERNEL_MODULES = {"sparse_gram": sg_mod, "blockgram": bg_mod,
                   "sketch_panel": sp_mod, "topk_score": tk_mod,
                   "flash_attention": fa_mod, "ssd_scan": ss_mod}
@@ -1146,6 +1194,7 @@ def flash_kernel_rows(cases, main) -> None:
     check(float(got[:, :, :40].abs().max()) == 0.0,
           "flash_attention: rows that see no key must be zeros")
     timed += flash_wide_rows(cases, gen)
+    timed += flash_path_rows(cases, gen)
     main["flash_attention"] = dict(rows["bfloat16"], float32=rows["float32"],
                                    timed_variants=timed)
 
@@ -1180,6 +1229,75 @@ def flash_wide_rows(cases, gen) -> list:
               f"flash_attention: rows that see no key must be zeros (head "
               f"dim {d}, {tag})")
     return timed
+
+
+def sdpa_band_ms(q, k, v, window: int) -> float:
+    """The yardstick of a windowed causal call: one SDPA call with a
+    boolean band mask (key j seen by query i iff i - window < j <= i; SDPA
+    has no softcap), K and V expanded to the query heads beforehand."""
+    group = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    sq, sk = q.shape[2], k.shape[2]
+    qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    ki = torch.arange(sk, device=q.device)[None, :]
+    band = (qi >= ki) & ((qi - ki) < window)
+    return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kk, vv, attn_mask=band))
+
+
+def flash_path_rows(cases, gen) -> list:
+    """``flash_attention`` at phase 12b's shapes.  gemma2-9b's local-layer
+    prefill, q (B, 16, 8192, 256) over k, v (B, 8, 8192, 256), causal,
+    window 4,096, softcap 50, in bf16 and float32: held against the plain
+    version at B = 1 (whose float32 scores are 4.3 GB), timed at B = 1 and
+    at the phase's B = 2 beside its bound and SDPA with a boolean band
+    mask.  starcoder2-15b's GQA group 12 at head dim 128, q (2, 48, 1024,
+    128) over k, v (2, 4, 1024, 128), causal, bf16, timed beside its
+    bound, the plain version and SDPA."""
+    cfg = get_config(WIDE_ATTN_ARCH)
+    w, cap, seq = cfg.attn_window, cfg.logit_softcap, GEMMA["seq"]
+    hq, hkv, d = cfg.padded_heads, cfg.padded_kv_heads, cfg.head_dim
+    kw = dict(window=w, softcap=cap)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        case = (f"{WIDE_ATTN_ARCH} prefill {hq}/{hkv} heads of {d}, "
+                f"{seq} tokens, causal, window {w}, softcap {cap:g} {tag}")
+        q, k, v, _, err = flash_case(cases, f"{case}, B 1", 1, hq, hkv, seq,
+                                     seq, d, dtype, gen, **kw)
+        ms_b1 = time_ms(lambda: fa_mod.flash_attention(q, k, v, **kw))
+        plain_b1 = time_ms(lambda: fa_mod.flash_attention_ref(q, k, v, **kw),
+                           iters=3, warmup=1)
+        del q, k, v
+        torch.cuda.empty_cache()
+        b = GEMMA["batch"]
+        q = lm_randn((b, hq, seq, d), gen, dtype)
+        k = lm_randn((b, hkv, seq, d), gen, dtype)
+        v = lm_randn((b, hkv, seq, d), gen, dtype)
+        b_ms, b_by, flops, nbytes = flash_bound(q, k, window=w)
+        ms = time_ms(lambda: fa_mod.flash_attention(q, k, v, **kw))
+        rows.append(dict(
+            case=f"{case}, B {b}", max_abs_err=err, ms=ms, bound_ms=b_ms,
+            bound_by=b_by, **achieved(flops, nbytes, ms),
+            library_ms=sdpa_band_ms(q, k, v, w),
+            library="SDPA with a boolean band mask (no softcap)",
+            ms_b1=ms_b1, plain_ms_b1=plain_b1,
+            max_abs_err_is="B 1 against the plain version"))
+        del q, k, v
+        torch.cuda.empty_cache()
+    sc = get_config("starcoder2-15b")
+    shape = (2, sc.padded_heads, sc.padded_kv_heads, 1024, 1024, sc.head_dim)
+    row = flash_timed(cases, f"starcoder2-15b GQA {shape[1]}/{shape[2]} "
+                      f"(group {shape[1] // shape[2]}), head dim "
+                      f"{shape[5]}, 2 x 1024, causal bfloat16", shape,
+                      torch.bfloat16, gen)
+    q = lm_randn(shape[:2] + shape[3:4] + shape[5:], gen, torch.bfloat16)
+    k = lm_randn((2, shape[2], 1024, shape[5]), gen, torch.bfloat16)
+    row["plain_ms"] = time_ms(lambda: fa_mod.flash_attention_ref(q, k, k),
+                              iters=3, warmup=1)
+    rows.append(row)
+    return rows
 
 
 def ssd_inputs(b, seq, h, g, p, n, dtype, gen):
@@ -2788,6 +2906,38 @@ def profile_prefill(cfg, params, batch) -> dict:
                               if "attn_kernel" in k or "ssd_kernel" in k])
 
 
+def against_steps(label, lg, c, lg_d, c_d, rel) -> dict:
+    """Each of last logits and every cache entry against the token-by-token
+    prefill's: max abs error beside ``rel`` * max|.|."""
+    out = {}
+    for key in ["logits"] + [k for k in c_d if k != "len"]:
+        got, want = (lg, lg_d) if key == "logits" else (c[key], c_d[key])
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{label}: {key} shape/dtype")
+        err = max_err(got, want)
+        top = float(want.abs().max())
+        out[key] = dict(max_abs_err=err, limit=rel * top, max_abs=top,
+                        err_over_max=err / top)
+    return out
+
+
+@contextlib.contextmanager
+def bf16_rounded_kernels():
+    """Within: both LM kernels fed their inputs rounded through bf16, as a
+    kernel that computed in bf16 would be (the float32 checks' control)."""
+    def rounded(fn):
+        def wrap(*args, **kw):
+            return fn(*(t.bfloat16().float() for t in args), **kw)
+        return wrap
+
+    saved = kernel_ops.flash_attention, kernel_ops.ssd_scan
+    kernel_ops.flash_attention, kernel_ops.ssd_scan = map(rounded, saved)
+    try:
+        yield
+    finally:
+        kernel_ops.flash_attention, kernel_ops.ssd_scan = saved
+
+
 def lm_requests(cfg, n: int, seed: int = 0):
     """Requests of 2-11 tokens, as ``launch/serve.py`` makes them."""
     rng = np.random.default_rng(seed)
@@ -2915,19 +3065,7 @@ def phase_lm_serve(state) -> None:
     dcounts = read_counts()
     check(dcounts["flash_attention"] == 0 and dcounts["ssd_scan"] == 0,
           f"lm_serve[check]: decode steps launched {dcounts}")
-    def against_steps(lg, c):
-        out = {}
-        for key, got, want in [("logits", lg, lg_d)] + [
-                (k, c[k], c_d[k]) for k in ("conv", "ssm", "k", "v")]:
-            check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"lm_serve[check]: {key} shape/dtype")
-            err = max_err(got, want)
-            top = float(want.abs().max())
-            out[key] = dict(max_abs_err=err, limit=ck["rel"] * top,
-                            max_abs=top, err_over_max=err / top)
-        return out
-
-    errs = against_steps(lg_k, c_k)
+    errs = against_steps("lm_serve[check]", lg_k, c_k, lg_d, c_d, ck["rel"])
     for key, e in errs.items():
         check(e["max_abs_err"] <= e["limit"],
               f"lm_serve[check]: {key} max abs err {e['max_abs_err']} > "
@@ -2937,19 +3075,11 @@ def phase_lm_serve(state) -> None:
     # The control: the same float32 prefill with both kernels fed inputs
     # rounded through bf16, as a kernel that computed in bf16 would be.
     # It must exceed the limit, or the limit could not tell such a kernel.
-    def rounded(fn):
-        def wrap(*args, **kw):
-            return fn(*(t.bfloat16().float() for t in args), **kw)
-        return wrap
-
-    saved = kernel_ops.flash_attention, kernel_ops.ssd_scan
-    kernel_ops.flash_attention, kernel_ops.ssd_scan = map(rounded, saved)
-    try:
+    with bf16_rounded_kernels():
         lg_r, c_r = transformer.prefill_forward(cfg32, params,
                                                 {"tokens": toks32})
-    finally:
-        kernel_ops.flash_attention, kernel_ops.ssd_scan = saved
-    control = against_steps(lg_r, c_r)
+    control = against_steps("lm_serve[check]", lg_r, c_r, lg_d, c_d,
+                            ck["rel"])
     check(any(e["max_abs_err"] > e["limit"] for e in control.values()),
           f"lm_serve[check]: the bf16-rounded control stays within the "
           f"limit {ck['rel']} of max, which therefore cannot tell it: "
@@ -2995,6 +3125,330 @@ def phase_lm_serve(state) -> None:
                            greedy, sampled[0])),
          clocks="host clock between device synchronizations; "
                 "prefill_ms_first includes first-call cuBLAS set-up")
+
+
+# ---------------------------------------------------------------------------
+# Phase 12b: the ssm, dense and vlm families at full width
+# ---------------------------------------------------------------------------
+
+def vlm_positions(b: int, s: int, patch: int, start: int) -> torch.Tensor:
+    """(B, S, 3) M-RoPE ids of a prompt with one image: text at 0..start-1,
+    a ``patch`` x ``patch`` block of patch tokens from ``start`` on
+    (temporal ``start``, height ``start`` + row, width ``start`` + column),
+    then text from ``start + patch`` on, the three streams equal."""
+    i = torch.arange(s, device=DEVICE)
+    j = i - start
+    block = (j >= 0) & (j < patch * patch)
+    text = torch.where(j >= patch * patch, start + patch + j - patch * patch,
+                       i)
+    t = torch.where(block, start, text)
+    h = torch.where(block, start + torch.div(j, patch, rounding_mode="floor"),
+                    text)
+    w = torch.where(block, start + j % patch, text)
+    return torch.stack([t, h, w], dim=-1)[None].expand(b, s, 3).contiguous()
+
+
+def text_positions(b: int, s: int) -> torch.Tensor:
+    """(B, S, 3) M-RoPE ids of text: the three streams equal, 0..S-1."""
+    return torch.arange(s, device=DEVICE)[None, :, None].expand(
+        b, s, 3).contiguous()
+
+
+def family_batch(cfg, tokens, pos=None) -> dict:
+    batch = {"tokens": tokens}
+    if cfg.use_mrope:
+        batch["pos"] = (pos if pos is not None
+                        else text_positions(*tokens.shape))
+    return batch
+
+
+def want_launches(cfg, label, counts) -> None:
+    """A prefill launches ``flash_attention`` once an attention layer and
+    ``ssd_scan`` once a Mamba-2 layer, exactly, and nothing else."""
+    attn = cfg.num_layers if cfg.family in ("dense", "vlm") else 0
+    scan = cfg.num_layers if cfg.family == "ssm" else 0
+    want = dict(read_counts(), flash_attention=attn, ssd_scan=scan)
+    want.update({k: 0 for k in want if k not in ("flash_attention",
+                                                  "ssd_scan")})
+    check(counts == want, f"lm_families[{label}]: launched {counts}, want "
+          f"{want}")
+
+
+def family_serve(state, cfg, params, gen, *, batch, seq, decode,
+                 max_seq=None, pos=None) -> dict:
+    """The served path in the config's bf16: ``prefill_forward`` of
+    ``batch`` prompts of ``seq`` tokens (first call, then warm), then
+    ``decode`` greedy ``decode_step``s; times, tokens/s, peak, launches."""
+    label = cfg.name
+    max_seq = max_seq or seq + decode
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=DEVICE)
+    inputs = family_batch(cfg, tokens, pos)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (logits, cache), first_ms = synced_ms(
+        lambda: transformer.prefill_forward(cfg, params, inputs,
+                                            max_seq=max_seq))
+    counts = read_counts()
+    keep_counts(state, f"lm_families[{label} prefill]", counts)
+    want_launches(cfg, f"{label} prefill", counts)
+    check(logits.shape == (batch, cfg.padded_vocab)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()) and cache["len"] == seq,
+          f"lm_families[{label}]: prefill logits or cache")
+    prefill_peak = torch.cuda.max_memory_allocated()
+    reset_counts()
+    out_tokens = []
+
+    def decode_all():
+        nonlocal logits, cache
+        for _ in range(decode):
+            tok = engine.sample(cfg, logits, 0.0, gen)
+            out_tokens.append(tok)
+            logits, cache = engine.step(cfg, params, cache, tok[:, None])
+
+    _, decode_ms = synced_ms(decode_all)
+    dcounts = read_counts()
+    keep_counts(state, f"lm_families[{label} decode]", dcounts)
+    toks = torch.stack(out_tokens, dim=1)
+    check(bool(torch.isfinite(logits).all())
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+          and cache["len"] == seq + decode,
+          f"lm_families[{label}]: decode logits, tokens or cache length")
+    peak = torch.cuda.max_memory_allocated()
+    del cache, logits
+    _, warm_ms = synced_ms(
+        lambda: transformer.prefill_forward(cfg, params, inputs,
+                                            max_seq=max_seq))
+    return dict(prompts=batch, prompt_tokens=seq, max_seq=max_seq,
+                decode_steps=decode, dtype=cfg.dtype,
+                launches_per_prefill=dict(
+                    flash_attention=counts["flash_attention"],
+                    ssd_scan=counts["ssd_scan"]),
+                launches_in_decode=dict(
+                    flash_attention=dcounts["flash_attention"],
+                    ssd_scan=dcounts["ssd_scan"]),
+                prefill_ms_first=first_ms, prefill_ms_warm=warm_ms,
+                prefill_tokens_per_s=batch * seq / warm_ms * 1e3,
+                decode_ms_per_step=decode_ms / decode,
+                decode_tokens_per_s=batch * decode / decode_ms * 1e3,
+                prefill_peak_bytes=prefill_peak, peak_bytes=peak)
+
+
+def family_check(state, cfg32, params, tokens, control, control_is) -> dict:
+    """The kernels inside the model, float32: ``prefill_forward`` (the
+    kernels) against ``engine.prefill_cache`` (decode steps, none) of the
+    same prompt, within LM_CHECK's limit; then ``control()``, a prefill
+    (``control_is``) that must exceed it."""
+    label = f"{cfg32.name} check"
+    rel = LM_CHECK["rel"]
+    reset_counts()
+    (lg_k, c_k), fwd_ms = synced_ms(lambda: transformer.prefill_forward(
+        cfg32, params, family_batch(cfg32, tokens)))
+    counts = read_counts()
+    keep_counts(state, f"lm_families[{label}]", counts)
+    want_launches(cfg32, label, counts)
+    reset_counts()
+    (c_d, lg_d), steps_ms = synced_ms(lambda: engine.prefill_cache(
+        cfg32, params, tokens, engine.ServeConfig(max_seq=tokens.shape[1])))
+    dcounts = read_counts()
+    check(not any(dcounts.values()),
+          f"lm_families[{label}]: decode steps launched {dcounts}")
+    errs = against_steps(f"lm_families[{label}]", lg_k, c_k, lg_d, c_d, rel)
+    for key, e in errs.items():
+        check(e["max_abs_err"] <= e["limit"],
+              f"lm_families[{label}]: {key} max abs err {e['max_abs_err']} "
+              f"> {e['limit']} (prefill_forward vs prefill_cache, float32)")
+    del lg_k, c_k
+    lg_r, c_r = control()
+    ctrl = against_steps(f"lm_families[{label}]", lg_r, c_r, lg_d, c_d, rel)
+    check(any(e["max_abs_err"] > e["limit"] for e in ctrl.values()),
+          f"lm_families[{label}]: the control stays within the limit {rel} "
+          f"of max, which therefore cannot tell it: {ctrl}")
+    return dict(batch=tokens.shape[0], prompt_tokens=tokens.shape[1],
+                dtype="float32", rel_limit=rel, prefill_forward_ms=fwd_ms,
+                prefill_cache_ms=steps_ms, errors=errs, control=ctrl,
+                control_is=control_is)
+
+
+def rounded_check(state, cfg32, params, tokens) -> dict:
+    """``family_check`` whose control is the same float32 prefill with
+    both kernels fed bf16-rounded inputs."""
+    def control():
+        with bf16_rounded_kernels():
+            return transformer.prefill_forward(cfg32, params,
+                                               family_batch(cfg32, tokens))
+    return family_check(state, cfg32, params, tokens, control,
+                        "kernels fed bf16-rounded inputs")
+
+
+def int8_decode(cfg, params, toks, *, quant: bool, dtype):
+    """Teacher-forced decode steps of ``toks`` (B, T) from an empty cache
+    (int8 with ``quant``, else ``dtype``): (logits (B, T, V) over the real
+    vocab, ms a step, the cache's bytes)."""
+    b, steps = toks.shape
+    cache = transformer.init_cache(cfg, b, steps, dtype=dtype, device=DEVICE,
+                                   kv_quant=quant)
+    check(cache["k"].dtype == (torch.int8 if quant else dtype),
+          "lm_families: int8 cache dtype")
+    nbytes = sum(t.numel() * t.element_size()
+                 for k, t in cache.items() if k != "len")
+    outs = []
+
+    def run():
+        for t in range(steps):
+            outs.append(transformer.decode_step(
+                cfg, params, cache, {"tokens": toks[:, t:t + 1]})[0])
+
+    _, ms = synced_ms(run)
+    return torch.stack(outs, 1)[..., :cfg.vocab_size], ms / steps, nbytes
+
+
+def int8_against_float(cfg, params, gen) -> dict:
+    """The int8 KV cache against a float cache, teacher-forced from an
+    empty cache.  Held at the reference's ``tests/test_kvquant.py`` limits
+    in its own setting, float32 compute against a float32 cache; then in
+    the config's bf16 against the bf16 cache, where the greedy agreement is
+    held and the excess over the same limits recorded (bf16 activations
+    move the logits further: PERF.md §6); the caches' bytes."""
+    g, lim = GEMMA, KV_INT8
+    toks = torch.randint(0, cfg.vocab_size, (g["int8_batch"],
+                                             g["int8_steps"]),
+                         generator=gen, device=DEVICE)
+    out = dict(batch=g["int8_batch"], steps=g["int8_steps"], **lim)
+    for tag, c, dtype in (
+            ("float32", dataclasses.replace(cfg, dtype="float32"),
+             torch.float32),
+            ("bfloat16", cfg, torch.bfloat16)):
+        full, ms_full, b_full = int8_decode(c, params, toks, quant=False,
+                                            dtype=dtype)
+        q8, ms_q8, b_q8 = int8_decode(c, params, toks, quant=True,
+                                      dtype=dtype)
+        diff = (q8 - full).abs()
+        excess = float((diff - lim["atol"] - lim["rtol"] * full.abs()).max())
+        agree = float((q8.argmax(-1) == full.argmax(-1)).float().mean())
+        check(agree >= lim["agree"], f"lm_families[int8 {tag}]: greedy "
+              f"agreement {agree} < {lim['agree']}")
+        if tag == "float32":
+            check(excess <= 0, f"lm_families[int8 float32]: logits exceed "
+                  f"rtol {lim['rtol']}, atol {lim['atol']} of the float32 "
+                  f"cache's by {excess}")
+        out[tag] = dict(max_abs_diff=float(diff.max()),
+                        max_excess_over_limit=excess,
+                        within_limits=excess <= 0, greedy_agreement=agree,
+                        ms_per_step_float_cache=ms_full,
+                        ms_per_step_int8=ms_q8, cache_bytes_float=b_full,
+                        cache_bytes_int8=b_q8, cache_bytes_ratio=b_q8 / b_full)
+    return out
+
+
+def family_params(cfg, seed: int):
+    """Random float32 master weights from a seeded generator on the card."""
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    params, ms = synced_ms(lambda: schema.init_params(cfg, gen, DEVICE))
+    n = schema.param_count_actual(params)
+    check(n >= cfg.param_count(), f"lm_families[{cfg.name}]: {n} parameters "
+          f"< the config's {cfg.param_count()}")
+    return params, gen, dict(params=n, init_params_ms=ms)
+
+
+def first_layers(params, n: int) -> dict:
+    """The model cut to its first ``n`` layers (views, no copy)."""
+    return dict(params, layers={k: v[:n] for k, v in params["layers"].items()})
+
+
+def free_model() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_families(state) -> None:
+    t_phase = time.perf_counter()
+    free_model()
+
+    # (a) gemma2-9b at full width and depth, then (b) its first 4 layers
+    # in float32, the window inside the model.
+    t0 = time.perf_counter()
+    g = GEMMA
+    cfg = get_config(g["arch"])
+    params, gen, init = family_params(cfg, 23)
+    serve = family_serve(state, cfg, params, gen, batch=g["batch"],
+                         seq=g["seq"], decode=g["decode"],
+                         max_seq=g["max_seq"])
+    int8 = int8_against_float(cfg, params, gen)
+    gc = GEMMA_CHECK
+    cfg32 = dataclasses.replace(cfg, num_layers=gc["layers"], dtype="float32")
+    p4 = first_layers(params, gc["layers"])
+    toks = torch.randint(0, cfg.vocab_size, (1, gc["seq"]), generator=gen,
+                         device=DEVICE)
+    nowin = dataclasses.replace(cfg32, attn_window=0)
+    chk = family_check(state, cfg32, p4, toks, lambda: transformer
+                       .prefill_forward(nowin, p4, {"tokens": toks}),
+                       "attn_window=0 (every layer global)")
+    chk.update(depth_cut=dict(layers=gc["layers"], of=cfg.num_layers),
+               window=cfg.attn_window,
+               keys_hidden_from_last_row=gc["seq"] - cfg.attn_window)
+    del params, p4
+    free_model()
+    emit("lm_families", model=cfg.name, family=cfg.family,
+         layers=cfg.num_layers, d_model=cfg.d_model, **init, main=serve,
+         int8_kv=int8, check=chk, seconds=time.perf_counter() - t0)
+
+    # (c) mamba2-1.3b and (d) qwen2-vl-2b at full width and depth
+    for spec in (MAMBA, QWEN):
+        t0 = time.perf_counter()
+        cfg = get_config(spec["arch"])
+        params, gen, init = family_params(cfg, 24)
+        pos = None
+        if cfg.use_mrope:
+            pos = vlm_positions(spec["batch"], spec["seq"], spec["patch"],
+                                spec["patch_at"])
+        serve = family_serve(state, cfg, params, gen, batch=spec["batch"],
+                             seq=spec["seq"], decode=spec["decode"], pos=pos)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        toks = torch.randint(0, cfg.vocab_size, (FAMILY_CHECK["batch"],
+                                                 FAMILY_CHECK["seq"]),
+                             generator=gen, device=DEVICE)
+        chk = rounded_check(state, cfg32, params, toks)
+        del params
+        free_model()
+        emit("lm_families", model=cfg.name, family=cfg.family,
+             layers=cfg.num_layers, d_model=cfg.d_model, **init, main=serve,
+             check=chk, positions=("image block of %d x %d patches at "
+                                   "tokens %d-%d, then text" % (
+                                       spec["patch"], spec["patch"],
+                                       spec["patch_at"], spec["patch_at"]
+                                       + spec["patch"] ** 2 - 1)
+                                   if pos is not None else None),
+             seconds=time.perf_counter() - t0)
+
+    # (e) the other dense configs at full width, cut in depth
+    dc = DENSE_CUT
+    for arch in dc["archs"]:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=dc["layers"])
+        params, gen, init = family_params(cfg, 25)
+        serve = family_serve(state, cfg, params, gen, batch=dc["batch"],
+                             seq=dc["seq"], decode=dc["decode"])
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        toks = torch.randint(0, cfg.vocab_size, (1, dc["check_seq"]),
+                             generator=gen, device=DEVICE)
+        chk = rounded_check(state, cfg32, params, toks)
+        del params
+        free_model()
+        emit("lm_families", model=arch, family=cfg.family,
+             layers=cfg.num_layers, d_model=cfg.d_model,
+             depth_cut=dict(layers=dc["layers"], of=full.num_layers),
+             heads=dict(q=cfg.padded_heads, kv=cfg.padded_kv_heads,
+                        head_dim=cfg.head_dim),
+             **init, main=serve, check=chk,
+             seconds=time.perf_counter() - t0)
+    emit("lm_families_done", seconds=time.perf_counter() - t_phase,
+         clocks="host clock between device synchronizations; "
+                "prefill_ms_first includes first-call cuBLAS set-up; peaks "
+                "are torch.cuda.max_memory_allocated since the model's "
+                "prefill")
 
 
 # ---------------------------------------------------------------------------
@@ -4084,14 +4538,17 @@ def phase_ft(state) -> None:
 
 # (script, arguments, the kernels it must launch on the card): every SVD
 # twin its gram kernels, with the default config (use_kernel=None), by its
-# input: sparse_gram for COO batches, blockgram for dense ones.
+# input: sparse_gram for COO batches, blockgram for dense ones; the LM twin
+# at its default (mamba2: ssd_scan) and on zamba2 (both LM kernels).
 EXAMPLES = (
     ("quickstart_torch.py", (), ("sparse_gram",)),
     ("streaming_svd_torch.py", (), ("sparse_gram", "blockgram")),
     ("streaming_svd_torch.py", ("--observe",), ("sparse_gram", "blockgram")),
     ("serving_topk_torch.py", (), ("topk_score",)),
     ("serving_topk_torch.py", ("--observe",), ("topk_score",)),
-    ("serve_lm_torch.py", (), ("flash_attention", "ssd_scan")),
+    ("serve_lm_torch.py", (), ("ssd_scan",)),
+    ("serve_lm_torch.py", ("--arch", "zamba2-2.7b"),
+     ("flash_attention", "ssd_scan")),
     ("distributed_svd_torch.py", (), ("sparse_gram",)),
     ("distributed_streaming_torch.py", (), ("sparse_gram", "blockgram")),
     ("elastic_ingest_torch.py", (), ("blockgram",)),
@@ -4099,7 +4556,8 @@ EXAMPLES = (
 
 
 def phase_examples(state) -> None:
-    """The seven twins, each a process of its own on the card."""
+    """The seven twins (the LM twin twice), each a process of its own on
+    the card."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     runs = []
@@ -4175,7 +4633,8 @@ def main() -> int:
                   phase_solve_dense_exact, phase_solve_randomized,
                   phase_solve_scaled, phase_stream_exact, phase_stream_serve,
                   phase_serve_scaled, phase_hierarchical, phase_stream_window,
-                  phase_merge_driver_ab, phase_lm_serve, phase_checkpoint,
+                  phase_merge_driver_ab, phase_lm_serve,
+                  phase_lm_families, phase_checkpoint,
                   phase_observe, phase_lint, phase_trace,
                   phase_drift_stages, phase_distributed,
                   phase_ft, phase_examples):

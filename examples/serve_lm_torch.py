@@ -1,19 +1,22 @@
 """Serving example (PyTorch/CUDA port): batched generation with prefill +
 decode.
 
-    PYTHONPATH=src python examples/serve_lm_torch.py [--arch zamba2-2.7b] [--device cpu]
+    PYTHONPATH=src python examples/serve_lm_torch.py [--arch mamba2-1.3b] [--device cpu]
 
 Batches uneven requests, prefills them in one pass, then decodes.  Runs
 the architecture's smoke config (narrow widths, random weights from a
-seeded generator).  The port serves the ``hybrid`` family (zamba2-2.7b:
-Mamba-2 layers and one shared attention block); the other families wait
-for ROADMAP.md item 16 and raise ``NotImplementedError``.
+seeded generator).  The port serves the ``ssm`` family (mamba2-1.3b, the
+default), ``dense`` (gemma2-9b, phi3-medium-14b, phi4-mini-3.8b,
+starcoder2-15b), ``vlm`` (qwen2-vl-2b, text prompts: the three M-RoPE
+streams equal) and ``hybrid`` (zamba2-2.7b); the ``moe`` and ``encdec``
+families wait for ROADMAP.md item 16 and raise ``NotImplementedError``.
 
 The whole-prompt prefill (``prefill_forward``) goes through the
-``flash_attention`` and ``ssd_scan`` kernels on the GPU; it is checked in
-float32 against the engine's token-by-token prefill of the same prompts
-(decode steps, no kernel), last logits and every cache entry.  Runs on
-the GPU unless ``--device`` says otherwise.
+model's kernels on the GPU (``ssd_scan`` for Mamba-2 layers,
+``flash_attention`` for attention layers); it is checked in float32
+against the engine's token-by-token prefill of the same prompts (decode
+steps, no kernel), last logits and every cache entry.  Runs on the GPU
+unless ``--device`` says otherwise.
 """
 import argparse
 import dataclasses
@@ -48,7 +51,7 @@ def _rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def main(arch: str = "zamba2-2.7b", tokens: int = 32,
+def main(arch: str = "mamba2-1.3b", tokens: int = 32,
          temperature: float = 0.8, device=None) -> dict:
     cfg = get_smoke_config(arch)
     device = resolve_device(device)
@@ -64,11 +67,14 @@ def main(arch: str = "zamba2-2.7b", tokens: int = 32,
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     want_cache, want = prefill_cache(
         cfg32, params, prompts, ServeConfig(max_seq=prompts.shape[1]))
-    got, cache = transformer.prefill_forward(cfg32, params,
-                                             {"tokens": prompts})
+    batch = {"tokens": prompts}
+    if cfg.use_mrope:     # text: the three position streams equal
+        batch["pos"] = torch.arange(prompts.shape[1], device=device)[
+            None, :, None].expand(*prompts.shape, 3)
+    got, cache = transformer.prefill_forward(cfg32, params, batch)
     errs = {"logits": _rel(got, want)}
     errs.update({key: _rel(cache[key], want_cache[key])
-                 for key in ("conv", "ssm", "k", "v")})
+                 for key in cache if key != "len"})
     print("prefill_forward vs token-by-token prefill (float32, of max): "
           + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
     assert max(errs.values()) <= PREFILL_REL, errs
@@ -91,7 +97,7 @@ def main(arch: str = "zamba2-2.7b", tokens: int = 32,
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="zamba2-2.7b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="mamba2-1.3b")
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--device", default=None,

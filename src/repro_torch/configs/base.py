@@ -6,7 +6,7 @@ assigned architecture contributes a module in repro_torch/configs with
 ``config()`` (the exact published shape) and ``smoke_config()`` (a
 reduced same-family shape for CPU tests).  The modules are pure data and
 equal to the reference's field for field; the two packages share no
-module.  Of the families, the port runs ``hybrid`` so far.
+module.  Of the families, the port serves hybrid, ssm, dense and vlm.
 """
 from __future__ import annotations
 

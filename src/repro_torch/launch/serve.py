@@ -1,12 +1,15 @@
 """Serving launcher: batched generation requests against an architecture.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
       --smoke --device cpu --requests 4 --tokens 32
 
-Runs on the GPU unless ``--device`` says otherwise.  The port runs the
-``hybrid`` family (zamba2-2.7b); other architectures raise
-``NotImplementedError``, as does ``--model-parallel`` above 1 (the LM's
-model mesh is ROADMAP.md item 16).
+Runs on the GPU unless ``--device`` says otherwise.  The port serves the
+``ssm`` (mamba2-1.3b), ``dense`` (gemma2-9b, phi3-medium-14b,
+phi4-mini-3.8b, starcoder2-15b), ``vlm`` (qwen2-vl-2b, text requests: the
+three M-RoPE streams equal) and ``hybrid`` (zamba2-2.7b) families; the
+``moe`` and ``encdec`` architectures raise ``NotImplementedError``, as
+does ``--model-parallel`` above 1 (the LM's model mesh is ROADMAP.md item
+16).
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """GQA attention block: causal prefill through the ``flash_attention``
-kernel at every length, and single-token decode against a KV cache, with
-RoPE and softcap.  The counterpart of ``repro.models.attention`` on one
-device, for the hybrid family.  The reference leaves its kernel for a
-plain chunked version at ``s * sk >= 2048**2``; the port's kernel takes
-any length in O(S) memory, so there is no such branch here.
+kernel at every length, and single-token decode against a KV cache (bf16 /
+float32, or int8 with per-position scales), with RoPE or M-RoPE, sliding
+windows and softcap.  The counterpart of ``repro.models.attention`` on one
+device, for the hybrid, ssm, dense and vlm families.  The reference leaves
+its kernel for a plain chunked version at ``s * sk >= 2048**2``; the port's
+kernel takes any length in O(S) memory, so there is no such branch here.
 
 Where the reference reads a ``REPRO_PERF`` flag (``flash_vjp``,
 ``decode_pet``, ``local_kv_update``) the port takes the default branch:
@@ -11,21 +12,22 @@ it has no environment switches.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_mrope, apply_rope
+from repro_torch.serve import kvquant
 
 
 def _rope(cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """pos (B, S), or (B, S, 3) position streams under M-RoPE."""
     if not cfg.use_rope:
         return x
     if cfg.use_mrope:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md "
-                                  "item 16)")
+        return apply_mrope(x, pos, cfg.rope_theta)
     return apply_rope(x, pos, cfg.rope_theta)
 
 
@@ -35,11 +37,12 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor, pos: torch.Tensor,
-              *, return_kv: bool = False):
+              *, window: int = 0, return_kv: bool = False):
     """Full-sequence causal self-attention (prefill).  x (B, S, D), pos
-    (B, S).  With ``return_kv=True`` also returns the (B, Hkv, S, Dh)
-    post-RoPE K/V pair that fills the decode cache.  The sliding window and
-    cross-attention of other families are not ported (ROADMAP.md item
+    (B, S) or (B, S, 3); ``window`` > 0 lets each query see its last
+    ``window`` keys only.  With ``return_kv=True`` also returns the
+    (B, Hkv, S, Dh) post-RoPE K/V pair that fills the decode cache.  The
+    cross-attention of the encdec family is not ported (ROADMAP.md item
     16)."""
     q = _rope(cfg, _proj(x, p["wq"]), pos)
     k = _rope(cfg, _proj(x, p["wk"]), pos)
@@ -47,7 +50,8 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor, pos: torch.Tensor,
     qh = q.transpose(1, 2).contiguous()
     kh = k.transpose(1, 2).contiguous()
     vh = v.transpose(1, 2).contiguous()
-    out = ops.flash_attention(qh, kh, vh, softcap=cfg.logit_softcap)
+    out = ops.flash_attention(qh, kh, vh, window=window,
+                              softcap=cfg.logit_softcap)
     out = out.transpose(1, 2)                            # (B, S, Hp, Dh)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     if return_kv:
@@ -57,36 +61,62 @@ def attention(cfg: ModelConfig, p: Dict, x: torch.Tensor, pos: torch.Tensor,
 
 def decode_attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                      pos: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, cache_len: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     cache_v: torch.Tensor, cache_len: int, *,
+                     window: int = 0,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None):
     """One-token decode: writes the new K/V at ``cache_len`` and attends
-    over positions <= cache_len.  x (B, 1, D), pos (B, 1), caches
-    (B, Hkv, Smax, Dh).  The reference returns new cache arrays; here the
-    entry is written into ``cache_k`` / ``cache_v`` IN PLACE (no copy of the
-    cache per token), and they are returned.  Returns (y (B, 1, D),
-    cache_k, cache_v)."""
+    over positions <= cache_len (and > cache_len - window where window >
+    0).  x (B, 1, D), pos (B, 1) or (B, 1, 3), caches (B, Hkv, Smax, Dh).
+    With ``k_scale`` / ``v_scale`` (B, Hkv, Smax, 1) float32 the caches are
+    int8: the new entry is quantized per position (``kvquant.quantize``)
+    and the scales fold into the contractions (``attend_q8`` /
+    ``combine_q8``).  The reference returns new cache arrays; here the
+    entry and its scales are written IN PLACE (no copy of the cache per
+    token), and the tensors are returned.  Returns (y (B, 1, D), cache_k,
+    cache_v[, k_scale, v_scale])."""
     b = x.shape[0]
     smax, dh = cache_k.shape[2], cache_k.shape[3]
     if not 0 <= cache_len < smax:
         raise ValueError(f"decode_attention: position {cache_len} is outside "
                          f"the cache (max_seq {smax})")
+    quant = k_scale is not None
     q = _rope(cfg, _proj(x, p["wq"]), pos)
     k_new = _rope(cfg, _proj(x, p["wk"]), pos)
     v_new = _proj(x, p["wv"])
-    cache_k[:, :, cache_len] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, :, cache_len] = v_new[:, 0].to(cache_v.dtype)
+    if quant:
+        kq, ks = kvquant.quantize(k_new[:, 0])            # (B, Hkv, Dh)
+        vq, vs = kvquant.quantize(v_new[:, 0])
+        cache_k[:, :, cache_len] = kq
+        cache_v[:, :, cache_len] = vq
+        k_scale[:, :, cache_len] = ks
+        v_scale[:, :, cache_len] = vs
+    else:
+        cache_k[:, :, cache_len] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, :, cache_len] = v_new[:, 0].to(cache_v.dtype)
 
     hq, hkv = q.shape[2], cache_k.shape[1]
     group = hq // hkv
     q32 = q.float() * (dh ** -0.5)                       # (B, 1, Hq, Dh)
     qg = q32.reshape(b, hkv, group, dh)
-    logits = torch.einsum("bhgk,bhsk->bhgs", qg, cache_k.float())
+    if quant:
+        logits = kvquant.attend_q8(qg, cache_k, k_scale)
+    else:
+        logits = torch.einsum("bhgk,bhsk->bhgs", qg, cache_k.float())
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     kpos = torch.arange(smax, device=x.device)
-    logits = torch.where(kpos <= cache_len, logits, -1e30)
+    valid = kpos <= cache_len
+    if window > 0:
+        valid &= kpos > cache_len - window
+    logits = torch.where(valid, logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgs,bhsk->bhgk", probs, cache_v.float())
+    if quant:
+        out = kvquant.combine_q8(probs, cache_v, v_scale)
+    else:
+        out = torch.einsum("bhgs,bhsk->bhgk", probs, cache_v.float())
     out = out.reshape(b, 1, hq, dh).to(x.dtype)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    if quant:
+        return y, cache_k, cache_v, k_scale, v_scale
     return y, cache_k, cache_v

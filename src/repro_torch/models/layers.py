@@ -1,5 +1,5 @@
-"""Shared model layers: norms, activations, RoPE, embeddings and the
-logit head.  The counterpart of ``repro.models.layers`` without its
+"""Shared model layers: norms, activations, RoPE and M-RoPE, embeddings
+and the logit head.  The counterpart of ``repro.models.layers`` without its
 ``ShardCtx``: the port runs on one device and has no mesh."""
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ def gated(kind: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float,
@@ -63,6 +63,28 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x32 = x.float()
     x1, x2 = x32[..., : dh // 2], x32[..., dh // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): pos3 (B, S, 3) = (temporal, height, width) ids.
+    The Dh/2 frequency pairs are split into three contiguous sections,
+    each rotated by its own position stream."""
+    dh = x.shape[-1]
+    half = dh // 2
+    s1 = half - 2 * (half // 3)
+    sections = (s1, half // 3, half // 3)
+    freqs = rope_freqs(dh, theta, x.device)
+    parts, lo = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(pos3[..., i][..., None].float() * freqs[lo: lo + sec])
+        lo += sec
+    ang = torch.cat(parts, dim=-1)                           # (B, S, Dh/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., :half], x32[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 

@@ -1,5 +1,6 @@
 """Parameter schema and initialisation: the counterpart of
-``repro.models.schema`` for the families the port runs (``hybrid``).
+``repro.models.schema`` for the families the port runs (``hybrid``,
+``ssm``, ``dense`` and ``vlm``).
 
 Parameters are a nested dict of tensors in the reference's layout: the
 ``layers`` subtree is stacked with a leading (num_layers,) dim, so that
@@ -23,7 +24,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import gated
 
-PORTED_FAMILIES = ("hybrid",)
+PORTED_FAMILIES = ("hybrid", "ssm", "dense", "vlm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
@@ -66,6 +67,14 @@ def _norm(cfg: ModelConfig) -> PD:
     return PD((cfg.d_model,), init="zeros" if cfg.sandwich_norm else "ones")
 
 
+def _dense_layer(cfg: ModelConfig) -> Dict[str, PD]:
+    out = {"ln1": _norm(cfg), "ln2": _norm(cfg), **_attn(cfg), **_mlp(cfg)}
+    if cfg.sandwich_norm:
+        out["ln1_post"] = _norm(cfg)
+        out["ln2_post"] = _norm(cfg)
+    return out
+
+
 def _ssm_layer(cfg: ModelConfig) -> Dict[str, PD]:
     d, di = cfg.d_model, cfg.ssm_inner
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
@@ -99,9 +108,14 @@ def param_schema(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         schema["lm_head"] = PD((d, vp), fan_in=d)
-    schema["layers"] = _ssm_layer(cfg)
-    schema["shared_attn"] = {"ln1": _norm(cfg), "ln2": _norm(cfg),
-                             **_attn(cfg), **_mlp(cfg)}
+    if cfg.family in ("dense", "vlm"):
+        schema["layers"] = _dense_layer(cfg)
+    elif cfg.family == "ssm":
+        schema["layers"] = _ssm_layer(cfg)
+    else:                                   # hybrid
+        schema["layers"] = _ssm_layer(cfg)
+        schema["shared_attn"] = {"ln1": _norm(cfg), "ln2": _norm(cfg),
+                                 **_attn(cfg), **_mlp(cfg)}
     return schema
 
 

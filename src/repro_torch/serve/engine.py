@@ -6,7 +6,9 @@ steps one token at a time (no kernel); ``transformer.prefill_forward`` is
 the prefill that runs the whole prompt at once through the kernels.
 Generation is greedy at temperature 0, else Gumbel-max sampling (what
 ``jax.random.categorical`` does) with noise from an explicit
-``torch.Generator``: randomness is an input.  ``batch_requests``
+``torch.Generator``: randomness is an input.  Under M-RoPE (qwen2-vl)
+each step's three position streams equal the cache length
+(``_mrope_pos``), as in the reference.  ``batch_requests``
 left-pads uneven requests and ``generate`` does not mask the padding,
 which is the reference's behaviour.
 """
@@ -31,6 +33,21 @@ class ServeConfig:
     seed: int = 0
 
 
+def _mrope_pos(b: int, t: int, device) -> torch.Tensor:
+    """(B, 1, 3) position ids of a decode step at position ``t``: the three
+    M-RoPE streams equal, as for text."""
+    return torch.full((b, 1, 3), t, dtype=torch.int32, device=device)
+
+
+def step(cfg: ModelConfig, params, cache: Dict, tok: torch.Tensor):
+    """The engine's decode step: ``decode_step`` of tokens (B, 1), with
+    the engine's M-RoPE positions where the config uses them."""
+    batch = {"tokens": tok}
+    if cfg.use_mrope:
+        batch["pos"] = _mrope_pos(tok.shape[0], cache["len"], tok.device)
+    return decode_step(cfg, params, cache, batch)
+
+
 def prefill_cache(cfg: ModelConfig, params, prompts: torch.Tensor,
                   scfg: ServeConfig) -> Tuple[Dict, torch.Tensor]:
     """Feed the prompt tokens (B, P) through decode steps.  Returns (cache,
@@ -42,8 +59,7 @@ def prefill_cache(cfg: ModelConfig, params, prompts: torch.Tensor,
                        device=prompts.device)
     logits = None
     for t in range(plen):
-        logits, cache = decode_step(cfg, params, cache,
-                                    {"tokens": prompts[:, t:t + 1]})
+        logits, cache = step(cfg, params, cache, prompts[:, t:t + 1])
     return cache, logits
 
 
@@ -77,8 +93,7 @@ def generate(cfg: ModelConfig, params, prompts: torch.Tensor,
     for _ in range(num_tokens):
         tok = sample(cfg, logits, scfg.temperature, generator)
         toks.append(tok)
-        logits, cache = decode_step(cfg, params, cache,
-                                    {"tokens": tok[:, None]})
+        logits, cache = step(cfg, params, cache, tok[:, None])
     if not toks:
         return torch.empty((prompts.shape[0], 0), dtype=torch.int32,
                            device=prompts.device)

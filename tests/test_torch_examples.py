@@ -60,4 +60,5 @@ def test_example_runs_and_passes_its_checks(clean_obs, capsys, name, kw):
 
 def test_serve_lm_twin_refuses_unported_families(clean_obs):
     with pytest.raises(NotImplementedError, match="item 16"):
-        _load("serve_lm_torch").main(arch="mamba2-1.3b", device="cpu")
+        _load("serve_lm_torch").main(arch="qwen3-moe-235b-a22b",
+                                     device="cpu")

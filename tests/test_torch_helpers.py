@@ -192,3 +192,62 @@ def test_reference_draws_have_the_ports_layout():
     assert int(d.random_cols.min()) >= 0 and int(d.random_cols.max()) < 25
     assert reference_draws(key, "random", 4, 10, 25, 7).neighbor_scores is None
     assert reference_draws(key, "neighbor", 4, 10, 25, 7).random_cols is None
+
+
+# ---------------------------------------------------------------------------
+# The LM slices
+# ---------------------------------------------------------------------------
+
+def lm_smoke_models(arch: str, **overrides):
+    """(reference config, port config, reference params, port params) of
+    ``arch``'s smoke config in float32 (plus ``overrides``), the reference's
+    ``init_params`` carried over with ``convert.params_from_numpy``."""
+    import dataclasses
+
+    from repro.configs import base as jbase
+    from repro.models import schema as jschema
+    from repro_torch.configs import base as tbase
+    from repro_torch.models import convert as lm_convert
+
+    jcfg = dataclasses.replace(jbase.get_smoke_config(arch), dtype="float32",
+                               **overrides)
+    tcfg = dataclasses.replace(tbase.get_smoke_config(arch), dtype="float32",
+                               **overrides)
+    jp = jschema.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = lm_convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp),
+                                      device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def lm_np(x) -> np.ndarray:
+    """A port tensor or a reference array as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def lm_cache_to_port(cache) -> dict:
+    """A reference decode cache as the port's (``len`` a Python int)."""
+    return {k: (int(v) if k == "len" else torch.from_numpy(np.array(v)))
+            for k, v in cache.items()}
+
+
+def mrope_positions(b: int, s: int, grid: int = 4, start: int = 2
+                    ) -> np.ndarray:
+    """(B, S, 3) int32 M-RoPE ids: text up to ``start``, a ``grid`` x
+    ``grid`` patch block (temporal fixed, height = row, width = column),
+    then text with the three streams equal, each row shifted by its
+    index so that rows differ."""
+    pos = np.zeros((b, s, 3), np.int32)
+    for r in range(b):
+        t = 0
+        for i in range(s):
+            j = i - start
+            if 0 <= j < grid * grid:
+                pos[r, i] = (start + r, start + r + j // grid,
+                             start + r + j % grid)
+                t = start + r + grid
+            else:
+                pos[r, i] = t
+                t += 1
+    return pos
