@@ -8,15 +8,19 @@ the architecture's smoke config (narrow widths, random weights from a
 seeded generator).  The port serves the ``ssm`` family (mamba2-1.3b, the
 default), ``dense`` (gemma2-9b, phi3-medium-14b, phi4-mini-3.8b,
 starcoder2-15b), ``vlm`` (qwen2-vl-2b, text prompts: the three M-RoPE
-streams equal) and ``hybrid`` (zamba2-2.7b); the ``moe`` and ``encdec``
-families wait for ROADMAP.md item 16 and raise ``NotImplementedError``.
+streams equal), ``hybrid`` (zamba2-2.7b) and ``moe``
+(phi3.5-moe-42b-a6.6b, qwen3-moe-235b-a22b).  whisper-small (``encdec``)
+raises ``ValueError``: these text requests carry no encoder frames, and
+the reference's example stops at the same point.
 
 The whole-prompt prefill (``prefill_forward``) goes through the
 model's kernels on the GPU (``ssd_scan`` for Mamba-2 layers,
 ``flash_attention`` for attention layers); it is checked in float32
 against the engine's token-by-token prefill of the same prompts (decode
-steps, no kernel), last logits and every cache entry.  Runs on the GPU
-unless ``--device`` says otherwise.
+steps, no kernel), last logits and every cache entry; a moe model is
+checked at a capacity factor that drops no token (E / K), since a decode
+step routes B tokens and the prefill B * P.  Runs on the GPU unless
+``--device`` says otherwise.
 """
 import argparse
 import dataclasses
@@ -65,6 +69,9 @@ def main(arch: str = "mamba2-1.3b", tokens: int = 32,
     # The kernels inside the model: the whole-prompt prefill against the
     # token-by-token one, in a float32 copy of the config (same weights).
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if cfg.family == "moe":
+        cfg32 = dataclasses.replace(
+            cfg32, capacity_factor=cfg.num_experts / cfg.experts_per_token)
     want_cache, want = prefill_cache(
         cfg32, params, prompts, ServeConfig(max_seq=prompts.shape[1]))
     batch = {"tokens": prompts}

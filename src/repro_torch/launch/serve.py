@@ -6,10 +6,12 @@
 Runs on the GPU unless ``--device`` says otherwise.  The port serves the
 ``ssm`` (mamba2-1.3b), ``dense`` (gemma2-9b, phi3-medium-14b,
 phi4-mini-3.8b, starcoder2-15b), ``vlm`` (qwen2-vl-2b, text requests: the
-three M-RoPE streams equal) and ``hybrid`` (zamba2-2.7b) families; the
-``moe`` and ``encdec`` architectures raise ``NotImplementedError``, as
-does ``--model-parallel`` above 1 (the LM's model mesh is ROADMAP.md item
-16).
+three M-RoPE streams equal), ``hybrid`` (zamba2-2.7b) and ``moe``
+(phi3.5-moe-42b-a6.6b, qwen3-moe-235b-a22b) families.  whisper-small
+(``encdec``) raises ``ValueError``: its requests carry no encoder frames,
+as in the reference, whose launcher stops at the same point.
+``--model-parallel`` above 1 raises ``NotImplementedError`` (the LM's
+model mesh is ROADMAP.md item 16).
 """
 from __future__ import annotations
 

@@ -1,16 +1,16 @@
 """Parameter schema and initialisation: the counterpart of
-``repro.models.schema`` for the families the port runs (``hybrid``,
-``ssm``, ``dense`` and ``vlm``).
+``repro.models.schema`` for the six families (``dense``, ``vlm``, ``moe``,
+``ssm``, ``hybrid``, ``encdec``).
 
 Parameters are a nested dict of tensors in the reference's layout: the
-``layers`` subtree is stacked with a leading (num_layers,) dim, so that
-carrying the reference's weights over is a map over leaves
-(``models/convert.py``).  The init rules are the reference's (``normal``
-scaled by 1/sqrt(fan_in), ``embed``, ``conv``, ``a_log``, ``dt_bias``,
-``ones``, ``zeros``); the random leaves are drawn from one explicit
-``torch.Generator`` in schema order, so they do not equal the reference's
-draws (randomness is an input: the parity tests carry the reference's
-weights over instead).
+``layers`` subtree is stacked with a leading (num_layers,) dim and the
+encoder's ``enc_layers`` with (encoder_layers,), so that carrying the
+reference's weights over is a map over leaves (``models/convert.py``).
+The init rules are the reference's (``normal`` scaled by 1/sqrt(fan_in),
+``embed``, ``conv``, ``a_log``, ``dt_bias``, ``ones``, ``zeros``); the
+random leaves are drawn from one explicit ``torch.Generator`` in schema
+order, so they do not equal the reference's draws (randomness is an
+input: the parity tests carry the reference's weights over instead).
 """
 from __future__ import annotations
 
@@ -24,15 +24,15 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import gated
 
-PORTED_FAMILIES = ("hybrid", "ssm", "dense", "vlm")
+PORTED_FAMILIES = ("hybrid", "ssm", "dense", "vlm", "moe", "encdec")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet."""
+    """Raise for a family the port does not run."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"runs {PORTED_FAMILIES}); see ROADMAP.md item 16")
+            f"{cfg.name}: family {cfg.family!r} is not one the port runs "
+            f"{PORTED_FAMILIES}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +75,24 @@ def _dense_layer(cfg: ModelConfig) -> Dict[str, PD]:
     return out
 
 
+def _moe_layer(cfg: ModelConfig) -> Dict[str, PD]:
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.d_ff
+    return {
+        "ln1": _norm(cfg), "ln2": _norm(cfg), **_attn(cfg),
+        "router": PD((d, e), fan_in=d),
+        "w_gate": PD((e, d, f), fan_in=d),
+        "w_up": PD((e, d, f), fan_in=d),
+        "w_down": PD((e, f, d), fan_in=f),
+    }
+
+
+def _encdec_dec_layer(cfg: ModelConfig) -> Dict[str, PD]:
+    """Self-attention, the ``x``-prefixed cross-attention, the MLP."""
+    return {"ln1": _norm(cfg), "ln_x": _norm(cfg), "ln2": _norm(cfg),
+            **_attn(cfg), **{"x" + k: v for k, v in _attn(cfg).items()},
+            **_mlp(cfg)}
+
+
 def _ssm_layer(cfg: ModelConfig) -> Dict[str, PD]:
     d, di = cfg.d_model, cfg.ssm_inner
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
@@ -98,8 +116,8 @@ def _ssm_layer(cfg: ModelConfig) -> Dict[str, PD]:
 
 
 def param_schema(cfg: ModelConfig) -> Dict[str, Any]:
-    """Nested schema.  The ``layers`` subtree is per-layer and gets stacked
-    with a leading (num_layers,) dim by ``init_params``."""
+    """Nested schema.  The ``layers`` and ``enc_layers`` subtrees are
+    per-layer and get stacked (``map_schema``)."""
     require_ported(cfg)
     d, vp = cfg.d_model, cfg.padded_vocab
     schema: Dict[str, Any] = {
@@ -110,8 +128,18 @@ def param_schema(cfg: ModelConfig) -> Dict[str, Any]:
         schema["lm_head"] = PD((d, vp), fan_in=d)
     if cfg.family in ("dense", "vlm"):
         schema["layers"] = _dense_layer(cfg)
+    elif cfg.family == "moe":
+        schema["layers"] = _moe_layer(cfg)
     elif cfg.family == "ssm":
         schema["layers"] = _ssm_layer(cfg)
+    elif cfg.family == "encdec":
+        # learned positions; the decoder's sized for the reference's
+        # largest decode shape (32,768), past whisper's published 448
+        schema["enc_pos"] = PD((cfg.encoder_seq, d), init="embed")
+        schema["dec_pos"] = PD((32_768, d), init="embed")
+        schema["enc_layers"] = _dense_layer(cfg)
+        schema["enc_final_norm"] = _norm(cfg)
+        schema["layers"] = _encdec_dec_layer(cfg)
     else:                                   # hybrid
         schema["layers"] = _ssm_layer(cfg)
         schema["shared_attn"] = {"ln1": _norm(cfg), "ln2": _norm(cfg),
@@ -122,14 +150,15 @@ def param_schema(cfg: ModelConfig) -> Dict[str, Any]:
 def map_schema(cfg: ModelConfig,
                fn: Callable[[PD, Tuple[int, ...], Tuple[str, ...]], Any]):
     """``fn(pd, shape, path)`` over the schema, ``shape`` with the leading
-    (num_layers,) dim for the stacked subtree -> the same nesting."""
+    stacked dim in the stacked subtrees (``layers``: num_layers,
+    ``enc_layers``: encoder_layers) -> the same nesting."""
+    stack = {"layers": cfg.num_layers, "enc_layers": cfg.encoder_layers}
 
     def rec(node, stacked, path):
         if isinstance(node, PD):
             shape = node.shape if stacked is None else (stacked,) + node.shape
             return fn(node, shape, path)
-        return {k: rec(v, cfg.num_layers if k == "layers" else stacked,
-                       path + (k,))
+        return {k: rec(v, stack.get(k, stacked), path + (k,))
                 for k, v in node.items()}
 
     return rec(param_schema(cfg), None, ())

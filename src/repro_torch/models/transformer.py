@@ -1,37 +1,49 @@
-"""Forward passes of the families the port serves: full-sequence logits,
-prefill that returns the decode cache, and single-token decode.
+"""Forward passes of the six LM families: full-sequence logits, prefill
+that returns the decode cache, and single-token decode.
 
 - ``dense`` (gemma2, phi3, phi4, starcoder2) and ``vlm`` (qwen2-vl, the
   dense trunk with M-RoPE positions ``batch["pos"]`` (B, S, 3)): a stack of
   attention + MLP blocks; gemma2 alternates a local layer (2i, sliding
   window ``attn_window``) with a global one (2i + 1) and wraps attention and
-  MLP in sandwich norms.  Their KV cache may be int8
+  MLP in sandwich norms.
+- ``moe`` (phi3.5-moe, qwen3-moe): the dense block with the routed experts
+  (``models/moe.py``) in place of the MLP; ``forward_logits`` returns their
+  load-balance loss.  The KV cache of these three may be int8
   (``init_cache(kv_quant=True)``).
 - ``ssm`` (mamba2): a stack of Mamba-2 layers.
 - ``hybrid`` (zamba2): Mamba-2 layers with one shared attention block
   applied every ``hybrid_attn_every`` layers.
+- ``encdec`` (whisper): an encoder over precomputed frame embeddings
+  ``batch["frames"]`` (B, encoder_seq, D) with learned positions, then
+  decoder layers of causal self-attention, cross-attention over the
+  encoder's output and an MLP, with learned decoder positions.  The cache
+  holds the cross K / V (``xk``, ``xv``) beside the self K / V.
 
 The counterpart of ``repro.models.transformer`` on one device; the
 reference's ``lax.scan`` over stacked layers is a Python loop over the
-stacked parameters here.  ``moe`` and ``encdec`` raise
-``NotImplementedError`` (ROADMAP.md item 16).
+stacked parameters here.
 
 Compute dtype: the config's (``bfloat16`` unless a caller replaces it),
 with float32 master weights cast at each use, as the reference does.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     activate, embed_lookup, gated, lm_logits, rms_norm,
 )
 from repro_torch.models.schema import require_ported
+
+# The weight of the moe family's load-balance loss (the reference's).
+AUX_LOSS_COEF = 0.01
+_KV_FAMILIES = ("dense", "vlm", "moe")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -52,19 +64,46 @@ def mlp_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, p["w_down"].to(x.dtype))
 
 
+def _ffn(cfg: ModelConfig, p: Dict, h: torch.Tensor,
+         auxs: Optional[List[torch.Tensor]]) -> torch.Tensor:
+    """The block's feed-forward: the MLP, or the moe layer's routed experts
+    (their load-balance loss appended to ``auxs`` where given)."""
+    if cfg.family != "moe":
+        return mlp_block(cfg, p, h)
+    y, aux = moe_mod.moe_block(cfg, p, h)
+    if auxs is not None:
+        auxs.append(aux)
+    return y
+
+
 def _dense_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                 attend: Callable[[torch.Tensor], torch.Tensor]
-                 ) -> torch.Tensor:
-    """One attention + MLP block; ``attend`` maps the normed input to the
-    attention output.  Sandwich norms (gemma2) after attention and MLP."""
+                 attend: Callable[[torch.Tensor], torch.Tensor],
+                 auxs: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """One attention + feed-forward block; ``attend`` maps the normed input
+    to the attention output.  Sandwich norms (gemma2) after attention and
+    MLP."""
     a = attend(_norm(cfg, x, p["ln1"]))
     if cfg.sandwich_norm:
         a = _norm(cfg, a, p["ln1_post"])
     x = x + a
-    m = mlp_block(cfg, p, _norm(cfg, x, p["ln2"]))
+    m = _ffn(cfg, p, _norm(cfg, x, p["ln2"]), auxs)
     if cfg.sandwich_norm:
         m = _norm(cfg, m, p["ln2_post"])
     return x + m
+
+
+def _dec_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               attend: Callable[[torch.Tensor], torch.Tensor],
+               cross: Callable[[torch.Tensor, Dict], torch.Tensor]
+               ) -> torch.Tensor:
+    """One encdec decoder layer: self-attention (``attend``), then
+    cross-attention over the encoder's output (``cross``, given the normed
+    input and the layer's ``x``-prefixed weights without the prefix), then
+    the MLP."""
+    x = x + attend(_norm(cfg, x, p["ln1"]))
+    xp = {k[1:]: v for k, v in p.items() if k.startswith("x")}
+    x = x + cross(_norm(cfg, x, p["ln_x"]), xp)
+    return x + mlp_block(cfg, p, _norm(cfg, x, p["ln2"]))
 
 
 def _ssm_layer_fwd(cfg, p, x):
@@ -72,9 +111,10 @@ def _ssm_layer_fwd(cfg, p, x):
     return x + ssm_mod.ssm_block(cfg, p, h)
 
 
-def layer_params(params: Dict, i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i`` of the stacked ``layers`` subtree."""
-    return {k: v[i] for k, v in params["layers"].items()}
+def layer_params(params: Dict, i: int,
+                 stack: str = "layers") -> Dict[str, torch.Tensor]:
+    """Layer ``i`` of a stacked subtree (``layers``, ``enc_layers``)."""
+    return {k: v[i] for k, v in params[stack].items()}
 
 
 def layer_window(cfg: ModelConfig, i: int) -> int:
@@ -90,15 +130,55 @@ def _groups(cfg: ModelConfig) -> Tuple[int, int]:
     return cfg.num_layers // k, k
 
 
+def _seq_positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def encoder(cfg: ModelConfig, params: Dict,
+            frames: torch.Tensor) -> torch.Tensor:
+    """The encdec encoder over precomputed frame embeddings (B, S, D), in
+    their dtype: learned positions, non-causal dense blocks, a final
+    norm."""
+    b, s, _ = frames.shape
+    x = frames + params["enc_pos"][:s][None].to(frames.dtype)
+    pos = _seq_positions(b, s, frames.device)
+    for li in range(cfg.encoder_layers):
+        pl = layer_params(params, li, "enc_layers")
+        x = _dense_block(cfg, pl, x, lambda h: attn_mod.attention(
+            cfg, pl, h, pos, causal=False))
+    return rms_norm(x, params["enc_final_norm"], eps=cfg.norm_eps)
+
+
+def _cross(cfg: ModelConfig, enc_out: torch.Tensor, pos: torch.Tensor,
+           return_kv: bool = False):
+    """Cross-attention of the decoder (queries at ``pos``) over
+    ``enc_out``, its keys at 0..Se-1."""
+    epos = _seq_positions(enc_out.shape[0], enc_out.shape[1],
+                          enc_out.device)
+    return lambda h, xp: attn_mod.attention(
+        cfg, xp, h, pos, causal=False, kv_x=enc_out, kv_pos=epos,
+        return_kv=return_kv)
+
+
 def trunk(cfg: ModelConfig, params: Dict, x: torch.Tensor,
-          pos: torch.Tensor) -> torch.Tensor:
-    """Token embeddings (B, S, D) -> final hidden states."""
+          pos: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
+          auxs: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """Token embeddings (B, S, D) -> final hidden states.  encdec attends
+    over ``enc_out``; moe appends each layer's load-balance loss to
+    ``auxs``."""
     require_ported(cfg)
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in _KV_FAMILIES:
         for li in range(cfg.num_layers):
             pl, win = layer_params(params, li), layer_window(cfg, li)
             x = _dense_block(cfg, pl, x, lambda h: attn_mod.attention(
-                cfg, pl, h, pos, window=win))
+                cfg, pl, h, pos, window=win), auxs)
+        return x
+    if cfg.family == "encdec":
+        cross = _cross(cfg, enc_out, pos)
+        for li in range(cfg.num_layers):
+            pl = layer_params(params, li)
+            x = _dec_block(cfg, pl, x, lambda h: attn_mod.attention(
+                cfg, pl, h, pos), cross)
         return x
     if cfg.family == "ssm":
         for li in range(cfg.num_layers):
@@ -130,19 +210,38 @@ def _positions(cfg: ModelConfig, batch: Dict, b: int, s: int,
     """``batch["pos"]`` (B, S, 3) under M-RoPE, else 0..S-1 per row."""
     if cfg.use_mrope:
         return batch["pos"]
-    return torch.arange(s, device=device)[None].expand(b, s)
+    return _seq_positions(b, s, device)
+
+
+def _decoder_in(cfg: ModelConfig, params: Dict, batch: Dict, dtype
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The token embeddings (B, S, D) and, for encdec, the encoder's output
+    over ``batch["frames"]`` in ``dtype``, the learned decoder positions
+    0..S-1 added to the embeddings."""
+    tokens = batch["tokens"]
+    x = _embed_in(cfg, params, tokens, dtype)
+    if not cfg.is_encdec:
+        return x, None
+    enc_out = encoder(cfg, params, batch["frames"].to(dtype))
+    s = tokens.shape[1]
+    return x + params["dec_pos"][:s][None].to(dtype), enc_out
 
 
 def forward_logits(cfg: ModelConfig, params: Dict, batch: Dict
-                   ) -> Tuple[torch.Tensor, float]:
-    """Full-sequence logits (B, S, Vp) float32, and the auxiliary loss (0.0
-    for these families).  batch: tokens (B, S) [+ pos (B, S, 3) vlm]."""
+                   ) -> Tuple[torch.Tensor, Any]:
+    """Full-sequence logits (B, S, Vp) float32, and the auxiliary loss:
+    for moe the layers' mean load-balance loss times ``AUX_LOSS_COEF``, a
+    0-dim float32 tensor; 0.0 for the other families.  batch: tokens
+    (B, S) [+ pos (B, S, 3) vlm] [+ frames (B, Se, D) encdec]."""
     require_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = _embed_in(cfg, params, tokens, compute_dtype(cfg))
-    h = trunk(cfg, params, x, _positions(cfg, batch, b, s, tokens.device))
-    return _head_out(cfg, params, h), 0.0
+    x, enc_out = _decoder_in(cfg, params, batch, compute_dtype(cfg))
+    auxs: List[torch.Tensor] = []
+    h = trunk(cfg, params, x, _positions(cfg, batch, b, s, tokens.device),
+              enc_out=enc_out, auxs=auxs)
+    aux = torch.stack(auxs).mean() * AUX_LOSS_COEF if auxs else 0.0
+    return _head_out(cfg, params, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -152,20 +251,27 @@ def forward_logits(cfg: ModelConfig, params: Dict, batch: Dict
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                dtype=torch.bfloat16, device=None,
                kv_quant: bool = False) -> Dict[str, Any]:
-    """Decode cache.  dense / vlm: one K/V pair per layer in ``dtype``, or
-    with ``kv_quant=True`` int8 K/V plus per-position float32 scales
-    ``k_scale`` / ``v_scale`` (L, B, Hkv, Smax, 1) (``serve/kvquant.py``;
-    the other families keep their cache as it is, as in the reference).
-    ssm: per-layer conv and SSM state in float32.  hybrid: both, with one
-    K/V pair per shared-block application.  ``len`` is the number of
-    positions filled, a Python int (the reference keeps an int32 device
-    scalar)."""
+    """Decode cache.  dense / vlm / moe: one K/V pair per layer in
+    ``dtype``, or with ``kv_quant=True`` int8 K/V plus per-position float32
+    scales ``k_scale`` / ``v_scale`` (L, B, Hkv, Smax, 1)
+    (``serve/kvquant.py``; the other families keep their cache as it is, as
+    in the reference).  encdec: the self K/V pair per layer and the cross
+    K/V ``xk`` / ``xv`` (L, B, Hkv, encoder_seq, Dh).  ssm: per-layer conv
+    and SSM state in float32.  hybrid: both, with one K/V pair per
+    shared-block application.  ``len`` is the number of positions filled,
+    a Python int (the reference keeps an int32 device scalar)."""
     require_ported(cfg)
     b, L = batch_size, cfg.num_layers
     hkv, dh = cfg.padded_kv_heads, cfg.head_dim
     f32 = torch.float32
     cache: Dict[str, Any] = {"len": 0}
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family == "encdec":
+        for key, n in (("k", max_seq), ("v", max_seq),
+                       ("xk", cfg.encoder_seq), ("xv", cfg.encoder_seq)):
+            cache[key] = torch.zeros((L, b, hkv, n, dh), dtype=dtype,
+                                     device=device)
+        return cache
+    if cfg.family in _KV_FAMILIES:
         kv_dtype = torch.int8 if kv_quant else dtype
         for key in ("k", "v"):
             cache[key] = torch.zeros((L, b, hkv, max_seq, dh), dtype=kv_dtype,
@@ -201,13 +307,14 @@ def prefill_forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
                     max_seq: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process a full prompt and RETURN THE DECODE CACHE.  batch: tokens
-    (B, S) [+ pos (B, S, 3) vlm].  Returns (last-token logits (B, Vp)
-    float32, cache ready for ``decode_step`` at position S, in the compute
-    dtype: only ``init_cache`` makes an int8 cache, as in the reference).
-    ``max_seq`` reserves cache room beyond the prompt (default S).  Each
-    attention layer goes through the ``flash_attention`` kernel at every
-    length (with the layer's window) and each Mamba-2 layer through the
-    ``ssd_scan`` kernel."""
+    (B, S) [+ pos (B, S, 3) vlm] [+ frames (B, encoder_seq, D) encdec].
+    Returns (last-token logits (B, Vp) float32, cache ready for
+    ``decode_step`` at position S, in the compute dtype: only
+    ``init_cache`` makes an int8 cache, as in the reference).  ``max_seq``
+    reserves cache room beyond the prompt (default S).  Each attention
+    layer (encoder, self and cross) goes through the ``flash_attention``
+    kernel at every length (with the layer's window) and each Mamba-2
+    layer through the ``ssd_scan`` kernel."""
     require_ported(cfg)
     dtype = compute_dtype(cfg)
     tokens = batch["tokens"]
@@ -215,7 +322,11 @@ def prefill_forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
     max_seq = max_seq or s
     if max_seq < s:
         raise ValueError(f"prefill_forward: max_seq={max_seq} < prompt {s}")
-    x = _embed_in(cfg, params, tokens, dtype)
+    if cfg.is_encdec and batch["frames"].shape[1] != cfg.encoder_seq:
+        raise ValueError(
+            f"prefill_forward: the decode cache holds {cfg.encoder_seq} "
+            f"encoder frames, got {tuple(batch['frames'].shape)}")
+    x, enc_out = _decoder_in(cfg, params, batch, dtype)
     pos = _positions(cfg, batch, b, s, tokens.device)
     cache = init_cache(cfg, b, max_seq, dtype=dtype, device=tokens.device)
     cache["len"] = s
@@ -229,11 +340,24 @@ def prefill_forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
             return a
         return attend
 
-    if cfg.family in ("dense", "vlm"):
+    cross = _cross(cfg, enc_out, pos, return_kv=True) if cfg.is_encdec \
+        else None
+
+    def cross_into(li):
+        def attend(h, xp):
+            a, (cache["xk"][li], cache["xv"][li]) = cross(h, xp)
+            return a
+        return attend
+
+    if cfg.family in _KV_FAMILIES:
         for li in range(cfg.num_layers):
             pl = layer_params(params, li)
             x = _dense_block(cfg, pl, x,
                              attend_into(pl, li, layer_window(cfg, li)))
+    elif cfg.family == "encdec":
+        for li in range(cfg.num_layers):
+            pl = layer_params(params, li)
+            x = _dec_block(cfg, pl, x, attend_into(pl, li), cross_into(li))
     elif cfg.family == "ssm":
         for li in range(cfg.num_layers):
             x = _ssm_prefill(cfg, params, cache, li, x)
@@ -263,7 +387,10 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     Returns (logits (B, Vp) float32, cache).  The cache is updated IN
     PLACE, its tensors and its ``len`` (one more), and the same dict is
     returned (the reference returns new arrays; a copy of the whole cache
-    per token would double its traffic)."""
+    per token would double its traffic).  moe routes the step's B tokens
+    (capacity over B: it drops differently from a prefill, as in the
+    reference); encdec adds the learned position ``len`` and attends over
+    the whole cross cache."""
     require_ported(cfg)
     dtype = compute_dtype(cfg)
     tokens = batch["tokens"]
@@ -275,6 +402,8 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
     else:
         pos = torch.full((b, 1), clen, dtype=torch.int64,
                          device=tokens.device)
+    if cfg.is_encdec:
+        x = x + params["dec_pos"][clen][None, None].to(dtype)
 
     def attend_at(p, slot, window=0):
         scales = {}
@@ -288,11 +417,22 @@ def decode_step(cfg: ModelConfig, params: Dict, cache: Dict,
                 window=window, **scales)[0]
         return attend
 
-    if cfg.family in ("dense", "vlm"):
+    def cross_at(li):
+        def attend(h, xp):
+            return attn_mod.decode_attention(
+                cfg, xp, h, pos, cache["xk"][li], cache["xv"][li],
+                cfg.encoder_seq - 1, update_cache=False)[0]
+        return attend
+
+    if cfg.family in _KV_FAMILIES:
         for li in range(cfg.num_layers):
             pl = layer_params(params, li)
             x = _dense_block(cfg, pl, x,
                              attend_at(pl, li, layer_window(cfg, li)))
+    elif cfg.family == "encdec":
+        for li in range(cfg.num_layers):
+            pl = layer_params(params, li)
+            x = _dec_block(cfg, pl, x, attend_at(pl, li), cross_at(li))
     elif cfg.family == "ssm":
         for li in range(cfg.num_layers):
             x = _ssm_step(cfg, params, cache, li, x)

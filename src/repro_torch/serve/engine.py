@@ -8,9 +8,13 @@ Generation is greedy at temperature 0, else Gumbel-max sampling (what
 ``jax.random.categorical`` does) with noise from an explicit
 ``torch.Generator``: randomness is an input.  Under M-RoPE (qwen2-vl)
 each step's three position streams equal the cache length
-(``_mrope_pos``), as in the reference.  ``batch_requests``
-left-pads uneven requests and ``generate`` does not mask the padding,
-which is the reference's behaviour.
+(``_mrope_pos``), as in the reference.  An encoder-decoder model
+(whisper) needs its encoder frames: ``prefill_cache(frames=)`` runs the
+encoder and fills the cross cache, and without frames it raises, as does
+``generate``, which takes none (the reference's ``generate`` passes no
+frames and stops at an assert).  ``batch_requests`` left-pads uneven
+requests and ``generate`` does not mask the padding, which is the
+reference's behaviour.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import (
-    compute_dtype, decode_step, init_cache,
+    compute_dtype, decode_step, encoder, init_cache,
 )
 
 
@@ -49,14 +53,28 @@ def step(cfg: ModelConfig, params, cache: Dict, tok: torch.Tensor):
 
 
 def prefill_cache(cfg: ModelConfig, params, prompts: torch.Tensor,
-                  scfg: ServeConfig) -> Tuple[Dict, torch.Tensor]:
+                  scfg: ServeConfig, frames: Optional[torch.Tensor] = None
+                  ) -> Tuple[Dict, torch.Tensor]:
     """Feed the prompt tokens (B, P) through decode steps.  Returns (cache,
-    last logits (B, Vp))."""
+    last logits (B, Vp)).  encdec: first the encoder over ``frames`` (B,
+    encoder_seq, D), in their dtype, and the cross cache from its output
+    by the float32 ``xwk`` / ``xwv``, cast to the cache's dtype."""
     b, plen = prompts.shape
     if plen < 1:
         raise ValueError("prefill_cache needs at least one prompt token")
     cache = init_cache(cfg, b, scfg.max_seq, dtype=compute_dtype(cfg),
                        device=prompts.device)
+    if cfg.is_encdec:
+        if frames is None:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder model: serving it needs "
+                f"its encoder frames (B, {cfg.encoder_seq}, {cfg.d_model}), "
+                f"passed as prefill_cache(frames=); generate takes none")
+        enc_out = encoder(cfg, params, frames).float()
+        for key, w in (("xk", "xwk"), ("xv", "xwv")):
+            cache[key] = torch.einsum(
+                "bsd,ldhk->lbhsk", enc_out, params["layers"][w].float()
+            ).to(cache[key].dtype)
     logits = None
     for t in range(plen):
         logits, cache = step(cfg, params, cache, prompts[:, t:t + 1])

@@ -58,7 +58,14 @@ def test_example_runs_and_passes_its_checks(clean_obs, capsys, name, kw):
     assert "Traceback" not in printed
 
 
-def test_serve_lm_twin_refuses_unported_families(clean_obs):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        _load("serve_lm_torch").main(arch="qwen3-moe-235b-a22b",
-                                     device="cpu")
+def test_serve_lm_twin_serves_moe_and_refuses_frameless_whisper(clean_obs):
+    """The LM twin serves qwen3-moe's smoke config (its float32 prefill
+    check at the no-drop capacity factor); whisper-small's text requests
+    carry no encoder frames and raise, as the reference's example stops
+    at its assert."""
+    twin = _load("serve_lm_torch")
+    out = twin.main(arch="qwen3-moe-235b-a22b", tokens=4, device="cpu")
+    assert set(out["launches"].values()) == {0}
+    assert max(out["prefill_rel_err"].values()) <= twin.PREFILL_REL
+    with pytest.raises(ValueError, match="frames"):
+        twin.main(arch="whisper-small", device="cpu")

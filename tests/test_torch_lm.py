@@ -51,10 +51,6 @@ from test_torch_helpers import assert_close_rel
 ARCH = "zamba2-2.7b"
 CTX = ShardCtx()
 REL = 1e-4
-# The architectures whose families the port does not serve yet (moe,
-# encdec); the ssm, dense and vlm families have their own test files.
-OTHER_ARCHS = [a for a in jbase.ARCH_IDS
-               if jbase.get_config(a).family not in tschema.PORTED_FAMILIES]
 
 
 def _np(x):
@@ -471,20 +467,42 @@ def test_launcher_serves_the_smoke_config_on_the_cpu(capsys):
 # Guards
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_other_families_raise_not_implemented(arch):
+@pytest.mark.parametrize("arch", jbase.ARCH_IDS)
+def test_every_family_runs_on_the_cpu(arch):
+    """Every config the repo ships, at smoke size with the port's own
+    weights: the schema, the cache, ``forward_logits``, ``prefill_forward``
+    and a ``decode_step`` run and give finite logits of the padded vocab
+    (each family is held against the reference in its own file).  A
+    family the port does not know raises."""
     cfg = tbase.get_smoke_config(arch)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    calls = [
-        lambda: tschema.param_schema(cfg),
-        lambda: ttr.init_cache(cfg, 1, 4, device="cpu"),
-        lambda: ttr.forward_logits(cfg, {}, {"tokens": toks}),
-        lambda: ttr.prefill_forward(cfg, {}, {"tokens": toks}),
-        lambda: ttr.decode_step(cfg, {}, {"len": 0}, {"tokens": toks[:, :1]}),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 16"):
-            call()
+    assert cfg.family in tschema.PORTED_FAMILIES
+    params = tschema.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert set(tschema.param_schema(cfg)) == set(params)
+    b, s = 2, 5
+    batch = {"tokens": torch.arange(b * s, dtype=torch.int32).reshape(b, s)}
+    if cfg.use_mrope:
+        batch["pos"] = torch.arange(s)[None, :, None].expand(b, s, 3)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder_seq, cfg.d_model),
+            generator=torch.Generator().manual_seed(1))
+    cache = ttr.init_cache(cfg, b, s + 1, device="cpu")
+    assert cache["len"] == 0
+    assert all(v.shape[1] == b for k, v in cache.items() if k != "len")
+    logits, aux = ttr.forward_logits(cfg, params, batch)
+    assert logits.shape == (b, s, cfg.padded_vocab)
+    assert torch.isfinite(logits).all() and np.isfinite(float(aux))
+    last, cache = ttr.prefill_forward(cfg, params, batch, max_seq=s + 1)
+    step = {"tokens": batch["tokens"][:, :1]}
+    if cfg.use_mrope:
+        step["pos"] = batch["pos"][:, :1] + s
+    nxt, cache = ttr.decode_step(cfg, params, cache, step)
+    for out in (last, nxt):
+        assert out.shape == (b, cfg.padded_vocab) and torch.isfinite(out).all()
+    assert cache["len"] == s + 1
+    other = dataclasses.replace(cfg, family="retnet")
+    with pytest.raises(NotImplementedError, match="retnet"):
+        ttr.forward_logits(other, params, batch)
 
 
 def test_a_cuda_request_without_cuda_raises():
