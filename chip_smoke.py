@@ -151,7 +151,38 @@ What it does, one JSON line per phase:
    ``xk``, ``xv`` entries.  Phase 3 holds ``flash_attention`` at whisper's
    shapes: the encoder (8, 12, 1,500, 64) non-causal, the cross-attention
    (8, 12, 448, 64) over 1,500 keys and (1, 12, 2,048, 64) over 1,500 keys
-   (sq > sk), bf16 and float32, beside the bound and SDPA.
+   (sq > sk), bf16 and float32, beside the bound and SDPA.  At every
+   ``flash_attention`` case phase 3 also asks the kernel for its row
+   log-sum-exp (the training forward's second output): the output must be
+   the same bits, and lse within 1e-5 (float32) / 1e-3 (bf16) of max|lse|
+   of the plain version's, -inf exactly on the rows that see no key.
+12d. ``lm_train``: training, one JSON line a case.  (a) zamba2-2.7b at
+   full width cut to 12 layers (2 shared-block groups), float32, 2 x 256
+   tokens: every parameter leaf's gradient of ``train_loss`` through the
+   kernels (``flash_attention`` 2, ``ssd_scan`` 12 launches) against
+   autograd of the plain versions called directly, per leaf max|d| <= 1e-3
+   x max|g|, every leaf non-zero, and a control (bf16-rounded kernel
+   inputs) that must exceed the limit; the flash backward alone against
+   autograd of the plain version at gemma2-9b's local layer past its window
+   (1 x 16/8 x 5,120, head dim 256, softcap 50) and at whisper's 448
+   queries over 1,500 keys, float32 (1e-4 of max) and bf16 (1e-2: the saved
+   output is bf16); both backwards (torch ops, not kernels) timed at
+   zamba2's training shape beside their bounds, the plain versions'
+   autograd and SDPA's backward.  (b) zamba2-2.7b at full depth, bf16 over
+   float32 master weights, AdamW, remat ``"dots"``, the launcher's 8 x 512
+   tokens from ``batch_at``: 6 steps (finite metrics, ``flash_attention``
+   exactly 18 and ``ssd_scan`` 108 launches a step: forward and the
+   remat's recompute), ms a step, tokens/s, peak bytes, then one step
+   timed by part (CUDA events around the gradient, the two backwards and
+   AdamW) and one profiled (device time by kernel category).  (c)
+   Ranky-GaLore on examples/gradient_compression_torch.py's model in
+   float32, 2 steps from one set of parameters on the card and on the CPU
+   (repair columns drawn on the CPU on both sides): the bases after the
+   refresh compared after a sign fix beside their eigenvalue gaps, the
+   CPU's bases carried over, parameters per leaf within 1e-4 of max; the
+   refresh's ms, the state's bytes against AdamW's.  (d) the loop on
+   zamba2's smoke config, 5 + 5 steps with a restart against 10 straight
+   (rtol 1e-4, atol 1e-5; whether the bits are equal is recorded).
 13. ``checkpoint``: the paper rows' sparse stream at rank 16
    (``use_kernel=True``) saved with ``repro_torch.checkpoint`` and restored
    onto the card; u, s, v equal (``torch.equal``) and the counters too, then
@@ -216,13 +247,14 @@ What it does, one JSON line per phase:
    uninterrupted run; Leg B within 1e-5 of S[0] of single-host), recovery
    ms by stage, the replayed chunk's ms, R8's restore transient within the
    drift factor.
-17. ``examples``: the seven ``examples/*_torch.py`` twins as subprocesses
+17. ``examples``: the nine ``examples/*_torch.py`` twins as subprocesses
    on the card (the streaming and serving twins also with ``--observe``,
-   the LM twin at its default mamba2 and on zamba2): exit code 0, wall
-   seconds, and the kernel launches each one reports; every SVD twin must
-   launch its gram kernel with the default config (``use_kernel=None`` is
-   the kernel on a CUDA tensor), the LM twin ``ssd_scan`` (and on zamba2
-   ``flash_attention`` too).
+   the LM twin at its default mamba2 and on zamba2, the trainers at 60 /
+   40 steps): exit code 0, wall seconds, and the kernel launches each one
+   reports; every SVD twin must launch its gram kernel with the default
+   config (``use_kernel=None`` is the kernel on a CUDA tensor), the LM twin
+   ``ssd_scan`` (and on zamba2 ``flash_attention`` too), each trainer
+   ``flash_attention`` and a last logged loss below 0.85 x its first.
 18. ``stage_summary`` (one ingest, one serve wave), one line
    ``{"kernels": [...]}`` with every kernel's numbers, then the card as
    ``nvidia-smi`` names it, then the last line ``{"ok": true, "device":
@@ -249,11 +281,13 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.ranky_paper import RankyPaperConfig  # noqa: E402
 from repro_torch import obs  # noqa: E402
+from repro_torch.compression import galore as galore_mod  # noqa: E402
 from repro_torch.core import api, hierarchy, ranky, sparse  # noqa: E402
 from repro_torch.data import bipartite  # noqa: E402
+from repro_torch.data import tokens as data_mod  # noqa: E402
 from repro_torch.kernels import blockgram as bg_mod  # noqa: E402
 from repro_torch.kernels import build as kernel_build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
@@ -264,8 +298,12 @@ from repro_torch.kernels import ssd_scan as ss_mod  # noqa: E402
 from repro_torch.kernels import topk_score as tk_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import schema, transformer  # noqa: E402
+from repro_torch.optim import adamw as adamw_mod  # noqa: E402
+from repro_torch.optim import tree as ptree  # noqa: E402
 from repro_torch.serve import engine, kvquant, ranker  # noqa: E402
 from repro_torch.stream import state as stream_state  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train import step as train_step  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # float32 rate outside the tensor cores and the dense bf16 tensor-core rate.
@@ -1142,16 +1180,47 @@ def lm_randn(shape, gen, dtype):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
 
+# The kernel's log-sum-exp output against the plain version's, relative to
+# max|lse| over the rows that see a key (those that see none: -inf in both).
+LSE_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
 def flash_case(cases, case, b, hq, hkv, sq, sk, d, dtype, gen, **kw):
     q = lm_randn((b, hq, sq, d), gen, dtype)
     k = lm_randn((b, hkv, sk, d), gen, dtype)
     v = lm_randn((b, hkv, sk, d), gen, dtype)
     got = fa_mod.flash_attention(q, k, v, **kw)
-    want = fa_mod.flash_attention_ref(q, k, v, **kw)
+    want, want_lse = fa_mod.flash_attention_ref(q, k, v, return_lse=True,
+                                                **kw)
     hold = compare_bf16 if dtype == torch.bfloat16 else compare
     err = hold("flash_attention", got, want, 2e-5, cases, case)
     del want
+    flash_lse_case(cases, case, q, k, v, got, want_lse, kw)
     return q, k, v, got, err
+
+
+def flash_lse_case(cases, case, q, k, v, got, want_lse, kw) -> None:
+    """The kernel asked for its log-sum-exp too (what the training forward
+    asks): the same output bits, and lse against the plain version's."""
+    out, lse = fa_mod._forward(q, k, v, kw.get("causal", True),
+                               kw.get("window", 0), kw.get("softcap", 0.0),
+                               q.shape[-1] ** -0.5, True)
+    torch.cuda.synchronize()
+    check(torch.equal(out, got), f"flash_attention[{case}]: the output with "
+          f"lse asked for differs from the one without")
+    fin = torch.isfinite(want_lse)
+    check(torch.equal(fin, torch.isfinite(lse))
+          and bool((lse[~fin] == float("-inf")).all()),
+          f"flash_attention[{case}]: lse is not -inf exactly on the rows "
+          f"that see no key")
+    err = max_err(lse[fin], want_lse[fin])
+    top = float(want_lse[fin].abs().max()) if bool(fin.any()) else 0.0
+    limit = LSE_REL[q.dtype] * top
+    cases.append(dict(kernel="flash_attention", case=case + " lse",
+                      max_abs_err=err, limit=limit,
+                      rows_seeing_no_key=int((~fin).sum())))
+    check(err <= limit, f"flash_attention[{case}]: lse max abs err {err} > "
+          f"limit {limit}")
 
 
 def sdpa_ms(q, k, v, causal) -> float:
@@ -1235,8 +1304,18 @@ def flash_kernel_rows(cases, main) -> None:
     timed += flash_wide_rows(cases, gen)
     timed += flash_path_rows(cases, gen)
     timed += flash_whisper_rows(cases, gen)
-    main["flash_attention"] = dict(rows["bfloat16"], float32=rows["float32"],
-                                   timed_variants=timed)
+    lse = [c for c in cases if c["kernel"] == "flash_attention"
+           and c["case"].endswith(" lse")]
+    main["flash_attention"] = dict(
+        rows["bfloat16"], float32=rows["float32"], timed_variants=timed,
+        lse=dict(cases=len(lse),
+                 max_abs_err={tag: max(c["max_abs_err"] for c in lse
+                                       if f" {tag}" in c["case"])
+                              for tag in ("bfloat16", "float32")},
+                 worst_err_over_limit=max(c["max_abs_err"] / c["limit"]
+                                          for c in lse if c["limit"] > 0),
+                 limit="1e-5 (float32) / 1e-3 (bf16) x max|lse| of the "
+                       "plain version"))
 
 
 def flash_wide_rows(cases, gen) -> list:
@@ -3724,6 +3803,550 @@ def phase_lm_moe_encdec(state) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12d: training (gradients through both LM kernels, AdamW, GaLore,
+# the loop)
+# ---------------------------------------------------------------------------
+
+# (a) zamba2-2.7b at full width cut to 12 layers (2 shared-block groups),
+# float32, 2 x 256 tokens: every leaf's gradient through the kernels
+# against autograd of the plain versions (per leaf max|d| <= rel *
+# max|g|); the flash backward alone at gemma2-9b's local layer past its
+# window and at whisper's 448 queries over 1,500 (ragged) keys.
+TRAIN_GRAD = dict(layers=12, batch=2, seq=256, rel=1e-3)
+FLASH_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+FLASH_BWD_GEMMA_SEQ = 5120
+# (b) zamba2-2.7b at full depth: the launcher's defaults (global batch 8 x
+# seq 512, lr 3e-4, warmup max(10, steps // 20), remat "dots"), bf16
+# compute over float32 master weights, AdamW.
+LM_TRAIN = dict(batch=8, seq=512, steps=6, remat="dots")
+# (c) examples/gradient_compression.py's model, in float32, GaLore rank 16.
+GALORE_CARD = dict(steps=2, rel=1e-4)
+# (d) the loop on zamba2's smoke config: 2 x 5 steps with a restart
+# against 10 straight, the reference's tolerance.
+RESUME = dict(steps=10, half=5, rtol=1e-4, atol=1e-5, seq=64, batch=4)
+
+
+def galore_example_config(dtype="bfloat16"):
+    """examples/gradient_compression_torch.py's model (d_model 256, 4
+    layers, vocab 8,192)."""
+    return dataclasses.replace(
+        get_smoke_config("phi4-mini-3.8b"), num_layers=4, d_model=256,
+        num_heads=4, num_kv_heads=2, head_dim=64, d_ff=1024, vocab_size=8192,
+        dtype=dtype)
+
+
+@contextlib.contextmanager
+def plain_lm_kernels():
+    """Within: the models call the plain versions of both LM kernels
+    directly (autograd through their torch ops)."""
+    saved = kernel_ops.flash_attention, kernel_ops.ssd_scan
+    kernel_ops.flash_attention = fa_mod.flash_attention_ref
+    kernel_ops.ssd_scan = ss_mod.ssd_scan_ref
+    try:
+        yield
+    finally:
+        kernel_ops.flash_attention, kernel_ops.ssd_scan = saved
+
+
+@contextlib.contextmanager
+def event_timed(targets):
+    """Within: each ``(owner, attribute)`` of ``targets`` (label ->) timed
+    by a CUDA event pair around every call; at exit the dict yielded
+    holds {label: {calls, ms}}, the device time between the events summed
+    (a custom Function's ``backward`` is looked up at call time, so it is
+    timed too)."""
+    pairs = {label: [] for label in targets}
+    saved = {}
+    for label, (owner, attr) in targets.items():
+        saved[label] = owner.__dict__[attr]
+        fn = getattr(owner, attr)
+
+        def wrap(*a, _fn=fn, _label=label, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _fn(*a, **kw)
+            end.record()
+            pairs[_label].append((start, end))
+            return out
+
+        setattr(owner, attr,
+                staticmethod(wrap) if isinstance(owner, type) else wrap)
+    times = {}
+    try:
+        yield times
+    finally:
+        for label, (owner, attr) in targets.items():
+            setattr(owner, attr, saved[label])
+        torch.cuda.synchronize()
+        for label, ps in pairs.items():
+            times[label] = dict(calls=len(ps), ms=sum(
+                a.elapsed_time(b) for a, b in ps))
+
+
+def leaf_grads(cfg, params, batch, remat="none"):
+    """(loss, leaf paths, gradients) of ``train_loss`` over every
+    parameter leaf, as the train step takes them (zeros where the loss
+    does not reach a leaf)."""
+    loss, _, grads = train_step._grads(
+        cfg, train_step.TrainConfig(remat=remat), params, batch)
+    flat = ptree.flatten(grads)
+    return float(loss), [name for name, _ in flat], [g for _, g in flat]
+
+
+def grads_against(label, names, got, want, rel) -> dict:
+    """Per leaf max|got - want| / max|want|; the worst over ``rel``.  A
+    leaf with no gradient or an all-zero one fails the run."""
+    per_leaf = {}
+    for name, g, w in zip(names, got, want):
+        check(g is not None and w is not None,
+              f"{label}: {name} got no gradient")
+        check(bool(g.abs().max() > 0), f"{label}: {name}'s gradient is all "
+              f"zero")
+        per_leaf[name] = max_err(g, w) / float(w.abs().max())
+    worst = max(per_leaf, key=per_leaf.get)
+    return dict(worst_leaf=worst, worst_err_over_max=per_leaf[worst],
+                worst_over_limit=per_leaf[worst] / rel,
+                err_over_max=per_leaf)
+
+
+def train_grads_check(state) -> dict:
+    """(a): the 12-layer float32 model's gradients through the kernels
+    against the plain versions', and the control."""
+    tg = TRAIN_GRAD
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=tg["layers"],
+                              dtype="float32")
+    params = schema.init_params(cfg, torch.Generator(DEVICE).manual_seed(30),
+                                DEVICE)
+    dcfg = data_mod.DataConfig(cfg.vocab_size, tg["seq"], tg["batch"])
+    batch = data_mod.shard_batch(data_mod.batch_at(dcfg, 0), DEVICE)
+    groups = cfg.num_layers // cfg.hybrid_attn_every
+    reset_counts()
+    (loss_k, names, g_k), ms_k = synced_ms(
+        lambda: leaf_grads(cfg, params, batch))
+    counts = read_counts()
+    keep_counts(state, "lm_train[grads, 12 layers f32]", counts)
+    check(counts["flash_attention"] == groups
+          and counts["ssd_scan"] == cfg.num_layers,
+          f"lm_train: a float32 gradient launched {counts} (want "
+          f"flash_attention {groups}, ssd_scan {cfg.num_layers})")
+    with plain_lm_kernels():
+        (loss_p, _, g_p), ms_p = synced_ms(
+            lambda: leaf_grads(cfg, params, batch))
+    held = grads_against("lm_train[grads]", names, g_k, g_p, tg["rel"])
+    check(held["worst_over_limit"] <= 1.0,
+          f"lm_train: leaf {held['worst_leaf']}'s gradient through the "
+          f"kernels errs {held['worst_err_over_max']} of max > {tg['rel']}")
+    del g_k
+    with bf16_rounded_kernels():
+        _, _, g_c = leaf_grads(cfg, params, batch)
+    control = grads_against("lm_train[grads control]", names, g_c, g_p,
+                            tg["rel"])
+    check(control["worst_over_limit"] > 1.0,
+          f"lm_train: the control (bf16-rounded kernel inputs) stays within "
+          f"the limit ({control['worst_err_over_max']} of max): the check "
+          f"cannot tell")
+    del g_c, g_p, params
+    free_model()
+    return dict(model=f"{cfg.name} cut to {cfg.num_layers} layers float32",
+                tokens=[tg["batch"], tg["seq"]], leaves=len(names),
+                loss_kernels=loss_k, loss_plain=loss_p, launches=counts,
+                limit=f"per leaf max|d| <= {tg['rel']} x max|g|",
+                worst_leaf=held["worst_leaf"],
+                worst_err_over_max=held["worst_err_over_max"],
+                control_worst_leaf=control["worst_leaf"],
+                control_worst_err_over_max=control["worst_err_over_max"],
+                grads_ms=ms_k, plain_grads_ms=ms_p,
+                err_over_max_by_leaf=held["err_over_max"])
+
+
+def flash_bwd_checks(gen) -> list:
+    """The flash backward alone (through the Function, the kernel's
+    forward) against autograd of the plain version, float32 and bf16:
+    gemma2-9b's local layer past its window, whisper's cross-attention."""
+    g2, wh = get_config(WIDE_ATTN_ARCH), get_config(WHISPER["arch"])
+    specs = (
+        (f"{WIDE_ATTN_ARCH} 1 x {g2.padded_heads}/{g2.padded_kv_heads} x "
+         f"{FLASH_BWD_GEMMA_SEQ}, head dim {g2.head_dim}, window "
+         f"{g2.attn_window}, softcap {g2.logit_softcap:g}",
+         (1, g2.padded_heads, g2.padded_kv_heads, FLASH_BWD_GEMMA_SEQ,
+          FLASH_BWD_GEMMA_SEQ, g2.head_dim),
+         dict(window=g2.attn_window, softcap=g2.logit_softcap)),
+        (f"whisper-small cross {WHISPER['batch']} x {wh.padded_heads} x "
+         f"{WHISPER['seq']} over {wh.encoder_seq} keys, non-causal",
+         (WHISPER["batch"], wh.padded_heads, wh.padded_kv_heads,
+          WHISPER["seq"], wh.encoder_seq, wh.head_dim), dict(causal=False)))
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for name, (b, hq, hkv, sq, sk, d), kw in specs:
+            q = lm_randn((b, hq, sq, d), gen, dtype).requires_grad_()
+            k = lm_randn((b, hkv, sk, d), gen, dtype).requires_grad_()
+            v = lm_randn((b, hkv, sk, d), gen, dtype).requires_grad_()
+            dout = lm_randn((b, hq, sq, d), gen, dtype)
+            got = torch.autograd.grad(fa_mod.flash_attention(q, k, v, **kw),
+                                      (q, k, v), dout)
+            want = torch.autograd.grad(
+                fa_mod.flash_attention_ref(q, k, v, **kw), (q, k, v), dout)
+            errs = {x: max_err(g_, w_) / float(w_.abs().max())
+                    for x, g_, w_ in zip(("dq", "dk", "dv"), got, want)}
+            limit = FLASH_BWD_REL[dtype]
+            rows.append(dict(case=f"{name} {tag}", err_over_max=errs,
+                             limit=limit))
+            check(all(torch.isfinite(g_).all() for g_ in got)
+                  and max(errs.values()) <= limit,
+                  f"lm_train: flash backward [{name} {tag}] errs {errs} of "
+                  f"max > {limit}")
+            del q, k, v, dout, got, want
+            torch.cuda.empty_cache()
+    return rows
+
+
+def backward_rows(gen) -> dict:
+    """The two backwards (torch ops, not kernels) at zamba2's training
+    shape, timed beside their bound (2.5x the forward's operations at the
+    bf16 tensor-core peak), the plain versions' autograd and, for
+    attention, SDPA's backward."""
+    cfg = get_config(LM_ARCH)
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    dt = torch.bfloat16
+    q = lm_randn((b, cfg.padded_heads, s, cfg.head_dim), gen, dt)
+    k = lm_randn((b, cfg.padded_kv_heads, s, cfg.head_dim), gen, dt)
+    v = lm_randn((b, cfg.padded_kv_heads, s, cfg.head_dim), gen, dt)
+    dout = lm_randn(q.shape, gen, dt)
+    out, lse = fa_mod._forward(q, k, v, True, 0, 0.0,
+                               cfg.head_dim ** -0.5, True)
+    _, _, fwd_flops, _ = flash_bound(q, k)
+    ms = time_ms(lambda: fa_mod.flash_attention_bwd(q, k, v, out, lse, dout))
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    plain_out = fa_mod.flash_attention_ref(qr, kr, vr)
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        plain_out, (qr, kr, vr), dout, retain_graph=True), iters=3, warmup=1)
+    del plain_out
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vr, is_causal=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qr, kr, vr), dout, retain_graph=True))
+    del sdpa_out
+    flash = dict(name="flash_attention backward (torch ops, not a kernel)",
+                 source="src/repro_torch/kernels/flash_attention.py:"
+                        "flash_attention_bwd",
+                 shape=f"q, k, v {tuple(q.shape)} bf16 causal", ms=ms,
+                 plain_ms=plain_ms, bound_ms=2.5 * fwd_flops / BF16_FLOPS
+                 * 1e3, bound_by="operations (2.5x the forward's)",
+                 library_ms=library_ms,
+                 library="SDPA backward (K, V at the query heads' count)")
+    del q, k, v, dout, out, lse, qr, kr, vr
+    x, dtt, a, bm, cm = ssd_inputs(b, s, cfg.ssm_heads, cfg.ssm_groups,
+                                   cfg.ssm_head_dim, cfg.ssm_state, dt, gen)
+    ins = [t.requires_grad_() for t in (x, dtt, a, bm, cm)]
+    y, h_fin = ss_mod.ssd_scan(*ins)
+    gy = lm_randn(y.shape, gen, dt)
+    ms = time_ms(lambda: torch.autograd.grad(y, ins, gy, retain_graph=True))
+    y_r, _ = ss_mod.ssd_scan_ref(*ins)
+    plain_ms = time_ms(lambda: torch.autograd.grad(y_r, ins, gy,
+                                                   retain_graph=True),
+                       iters=2, warmup=1)
+    _, fwd_flops = ss_mod.work(b, s, cfg.ssm_heads, cfg.ssm_groups,
+                               cfg.ssm_head_dim, cfg.ssm_state, 2)
+    ssd = dict(name="ssd_scan backward (torch ops, not a kernel)",
+               source="src/repro_torch/kernels/ssd_scan.py:SSDScan.backward "
+                      "(ssd_scan_chunked recomputed under autograd)",
+               shape=f"x {tuple(x.shape)} bf16, G {cfg.ssm_groups}, N "
+                     f"{cfg.ssm_state}",
+               ms=ms, plain_ms=plain_ms,
+               bound_ms=2.5 * fwd_flops / BF16_FLOPS * 1e3,
+               bound_by="operations (2.5x the forward's)", library_ms=None)
+    del ins, y, h_fin, gy, y_r
+    free_model()
+    return dict(flash_attention=flash, ssd_scan=ssd)
+
+
+def kernel_category(name: str) -> str:
+    if "attn_kernel" in name:
+        return "flash_attention kernel"
+    if "ssd" in name:
+        return "ssd_scan kernel"
+    if "gemm" in name or "sm90_xmma" in name or "cutlass" in name \
+            or "cublas" in name.lower():
+        return "cuBLAS"
+    return "other"
+
+
+def profile_step(fn) -> dict:
+    """Device time by kernel over one call of ``fn`` (``torch.profiler``):
+    the kernels' own records, by category and the ten largest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = synced_ms(fn)
+    rows, by_cat = [], {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or \
+                ev.key.startswith("Command Buffer"):
+            continue
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        if dev > 0:
+            rows.append((dev, ev.key, ev.count))
+            cat = kernel_category(ev.key)
+            by_cat[cat] = by_cat.get(cat, 0.0) + dev
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows) if rows else None
+    return dict(kernel_ms_total=total, profiled_wall_ms=wall_ms,
+                device_ms_by_category=by_cat,
+                top=[dict(name=k[:80], device_ms=ms, calls=n)
+                     for ms, k, n in rows[:10]])
+
+
+def train_full_depth(state) -> dict:
+    """(b): zamba2-2.7b at full depth, 6 steps, launch counts a step
+    checked, then one step timed by part and one profiled."""
+    cfg = get_config(LM_ARCH)
+    lt = LM_TRAIN
+    tcfg = train_step.TrainConfig(remat=lt["remat"],
+                                  warmup_steps=max(10, 100 // 20),
+                                  total_steps=100)
+    gen = torch.Generator(DEVICE).manual_seed(31)
+    torch.cuda.reset_peak_memory_stats()
+    tstate, init_ms = synced_ms(
+        lambda: train_step.init_train_state(cfg, tcfg, gen, DEVICE))
+    n_params = schema.param_count_actual(tstate["params"])
+    after_init = torch.cuda.memory_allocated()
+    dcfg = data_mod.DataConfig(cfg.vocab_size, lt["seq"], lt["batch"])
+    step_fn = train_step.make_train_step(cfg, tcfg)
+    groups = cfg.num_layers // cfg.hybrid_attn_every
+    want = dict(flash_attention=2 * groups, ssd_scan=2 * cfg.num_layers)
+    steps = []
+    for i in range(lt["steps"]):
+        batch = data_mod.shard_batch(data_mod.batch_at(dcfg, i), DEVICE)
+        reset_counts()
+        (tstate, metrics), ms = synced_ms(lambda: step_fn(tstate, batch))
+        counts = read_counts()
+        if i == 0:
+            keep_counts(state, "lm_train[zamba2-2.7b step]", counts)
+        check(all(counts[kk] == vv for kk, vv in want.items()),
+              f"lm_train: step {i} launched {counts}, want {want} (forward + "
+              f"the remat's recompute)")
+        row = dict(step=i, ms=ms, **{kk: float(vv) for kk, vv in
+                                     metrics.items()})
+        check(all(np.isfinite(vv) for vv in row.values()),
+              f"lm_train: step {i} metrics not finite: {row}")
+        steps.append(row)
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median([r["ms"] for r in steps[1:]]))
+    batch = data_mod.shard_batch(data_mod.batch_at(dcfg, lt["steps"]),
+                                 DEVICE)
+    with event_timed({
+            "grads (forward + backward)": (train_step, "_grads"),
+            "flash_attention backward": (fa_mod.FlashAttention, "backward"),
+            "ssd_scan backward": (ss_mod.SSDScan, "backward"),
+            "adamw": (adamw_mod, "apply_updates")}) as parts:
+        (tstate, _), part_wall = synced_ms(lambda: step_fn(tstate, batch))
+    batch = data_mod.shard_batch(data_mod.batch_at(dcfg, lt["steps"] + 1),
+                                 DEVICE)
+    prof = profile_step(lambda: step_fn(tstate, batch))
+    del tstate, batch
+    free_model()
+    tokens = lt["batch"] * lt["seq"]
+    return dict(model=cfg.name, params=n_params, init_ms=init_ms,
+                tokens_a_step=tokens, remat=lt["remat"], optimizer="adamw",
+                compute_dtype=cfg.dtype, master_weights="float32",
+                steps=steps, ms_a_step_median_2_to_6=med,
+                tokens_per_s=tokens / med * 1e3,
+                losses=[r["loss"] for r in steps],
+                peak_bytes=peak, bytes_after_init=after_init,
+                launches_a_step=want,
+                parts_of_one_step=dict(wall_ms=part_wall, **parts),
+                backward_share_of_step=(
+                    parts["flash_attention backward"]["ms"]
+                    + parts["ssd_scan backward"]["ms"]) / part_wall,
+                profile=prof)
+
+
+@contextlib.contextmanager
+def basis_gaps(rank: int):
+    """Within: each GaLore basis computed also records the smallest gap
+    between its gram's top ``rank`` + 1 eigenvalues, over the largest
+    (what decides whether two eigh calls give the same columns)."""
+    gaps = []
+    basis = galore_mod._basis
+
+    def recording(gcfg, g, cols=None):
+        out = basis(gcfg, g, cols)
+        g32 = g.to(torch.float32)
+        ev = torch.linalg.eigvalsh(g32 @ g32.transpose(-1, -2)).flip(-1)
+        top = ev[..., : rank + 1]
+        gaps.append(float(((top[..., :-1] - top[..., 1:])
+                           / top[..., :1]).min()))
+        return out
+
+    galore_mod._basis = recording
+    try:
+        yield gaps
+    finally:
+        galore_mod._basis = basis
+
+
+def galore_on_card(state) -> dict:
+    """(c): GaLore on the card against the port's CPU run from the same
+    parameters; the repair columns are drawn on the CPU on both sides.
+    After the refresh step the bases are compared after a sign fix (each
+    column's sign set by its dot product with the CPU's), beside their
+    grams' eigenvalue gaps; then the CPU run's bases and moments are
+    carried to the card, so that the next step's parameters compare the
+    rest of the step (an eigh's columns are free inside a near-degenerate
+    eigenspace, and Adam's direction is not rotation-invariant)."""
+    cfg = galore_example_config("float32")
+    gc = GALORE_CARD
+    tcfg = train_step.TrainConfig(
+        optimizer="galore", remat="none",
+        adamw=adamw_mod.AdamWConfig(lr=1e-3),
+        galore=galore_mod.GaloreConfig(rank=16, update_every=20),
+        warmup_steps=10, total_steps=120)
+    card = train_step.init_train_state(
+        cfg, tcfg, torch.Generator(DEVICE).manual_seed(32), DEVICE)
+    cpu_params = ptree.tree_map(lambda p: p.cpu(), card["params"])
+    cpu = {"params": cpu_params,
+           "opt": train_step.init_opt_state(tcfg, cpu_params),
+           "seed": card["seed"]}
+    adam_bytes = sum(x.numel() * x.element_size() for x in ptree.leaves(
+        train_step.init_opt_state(dataclasses.replace(
+            tcfg, optimizer="adamw"), cpu_params)))
+    dcfg = data_mod.DataConfig(cfg.vocab_size, 256, 8, alphabet=32)
+    step_fn = train_step.make_train_step(cfg, tcfg)
+    rows = []
+    for i in range(gc["steps"]):
+        host = data_mod.batch_at(dcfg, i)
+        reset_counts()
+        with event_timed({"galore": (galore_mod, "apply_updates")}) as t:
+            (card, _), ms = synced_ms(lambda: step_fn(
+                card, data_mod.shard_batch(host, DEVICE)))
+        counts = read_counts()
+        t0 = time.perf_counter()
+        cpu, _ = step_fn(cpu, data_mod.shard_batch(host, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        params_err = {path: max_err(a.cpu(), b) / float(b.abs().max())
+                      for (path, a), b in zip(ptree.flatten(card["params"]),
+                                              ptree.leaves(cpu["params"]))}
+        refresh = i % tcfg.galore.update_every == 0
+        basis = {}
+        if refresh:
+            # the step's gradient again (the warmup's lr is 0 at step 0, so
+            # the parameters have not moved), its grams' eigenvalue gaps
+            g = train_step._grads(cfg, tcfg, card["params"],
+                                  data_mod.shard_batch(host, DEVICE))[2]
+            with basis_gaps(tcfg.galore.rank) as gaps:
+                for path, leaf in ptree.flatten(g):
+                    if galore_mod.eligible(tcfg.galore, leaf):
+                        m, n = leaf.shape[-2:]
+                        galore_mod._basis(tcfg.galore, leaf,
+                                          galore_mod.draw_cols(0, 0, m, n))
+            del g
+            eligible = [path for path, p in ptree.flatten(cpu["params"])
+                        if "p" in galore_mod._leaf_state(
+                            cpu["opt"]["leaves"], path)]
+            for path, gap in zip(eligible, gaps):
+                st_c = galore_mod._leaf_state(cpu["opt"]["leaves"], path)
+                st_g = galore_mod._leaf_state(card["opt"]["leaves"], path)
+                pc, pg = st_c["p"], st_g["p"].cpu()
+                sign = torch.sign((pc * pg).sum(dim=-2, keepdim=True))
+                basis[path] = dict(
+                    err_over_max=max_err(pg * sign, pc) / float(
+                        pc.abs().max()), min_top_eigengap=gap)
+                for key in ("p", "m", "v"):      # the CPU's bases carried
+                    st_g[key].copy_(st_c[key])
+        worst = max(params_err, key=params_err.get)
+        rows.append(dict(step=i, refresh=refresh, step_ms=ms,
+                         galore_apply_ms=t["galore"]["ms"],
+                         cpu_step_s=cpu_s, launches=counts,
+                         params_worst_leaf=worst,
+                         params_err_over_max=params_err[worst],
+                         basis_after_sign_fix=basis))
+        check(params_err[worst] <= gc["rel"],
+              f"lm_train[galore]: step {i}: parameters on the card err "
+              f"{params_err} of max against the CPU run > {gc['rel']}; "
+              f"bases {basis}")
+    gbytes = galore_mod.state_bytes(card["opt"])
+    check(rows[0]["launches"]["flash_attention"] >= 1,
+          "lm_train[galore]: the model launched no flash_attention")
+    del card, cpu
+    free_model()
+    return dict(model="examples/gradient_compression_torch.py's (d_model "
+                      "256, 4 layers, vocab 8,192) float32",
+                rank=16, steps=rows, refresh_ms=rows[0]["galore_apply_ms"],
+                no_refresh_ms=rows[1]["galore_apply_ms"],
+                galore_state_bytes=gbytes, adamw_state_bytes=adam_bytes,
+                limit=f"params per leaf max|d| <= {gc['rel']} x max|p|")
+
+
+def resume_on_card(state) -> dict:
+    """(d): the loop 2 x 5 steps with a restart against 10 straight."""
+    import tempfile
+    cfg = get_smoke_config(LM_ARCH)
+    rs = RESUME
+    tcfg = train_step.TrainConfig(remat="dots",
+                                  adamw=adamw_mod.AdamWConfig(lr=1e-3))
+    dcfg = data_mod.DataConfig(cfg.vocab_size, rs["seq"], rs["batch"])
+    logs = []
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, steps):
+            lcfg = train_loop.LoopConfig(steps=steps, ckpt_every=rs["half"],
+                                         ckpt_dir=os.path.join(tmp, name),
+                                         log_every=100)
+            return train_loop.train(cfg, tcfg, lcfg, dcfg, device=DEVICE,
+                                    log=logs.append)
+        straight = run("a", rs["steps"])
+        run("b", rs["half"])
+        resumed = run("b", rs["steps"])
+    counts = read_counts()
+    keep_counts(state, "lm_train[resume]", counts)
+    check("resumed from step 5" in logs, f"lm_train[resume]: {logs}")
+    worst, equal = 0.0, True
+    for a, b in zip(ptree.leaves(straight["params"]),
+                    ptree.leaves(resumed["params"])):
+        equal &= torch.equal(a, b)
+        ok = torch.allclose(a, b, rtol=rs["rtol"], atol=rs["atol"])
+        check(ok, f"lm_train[resume]: resumed params differ by "
+              f"{max_err(a, b)}")
+        worst = max(worst, max_err(a, b))
+    check(counts["flash_attention"] >= 1 and counts["ssd_scan"] >= 1,
+          f"lm_train[resume]: launches {counts}")
+    return dict(model=cfg.name, steps=f"{rs['half']} + {rs['half']} after a "
+                f"restart vs {rs['steps']} straight", max_abs_err=worst,
+                bits_equal=bool(equal), launches=counts,
+                limit=f"rtol {rs['rtol']}, atol {rs['atol']}")
+
+
+def phase_lm_train(state) -> None:
+    t_phase = time.perf_counter()
+    free_model()
+    gen = torch.Generator(DEVICE).manual_seed(33)
+    t0 = time.perf_counter()
+    grads = train_grads_check(state)
+    grads["flash_backward_checks"] = flash_bwd_checks(gen)
+    grads["backwards"] = backward_rows(gen)
+    state["backward_rows"] = grads["backwards"]
+    emit("lm_train", case="(a) gradients on the card", **grads,
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    emit("lm_train", case="(b) zamba2-2.7b full depth",
+         **train_full_depth(state), seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    emit("lm_train", case="(c) Ranky-GaLore", **galore_on_card(state),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    emit("lm_train", case="(d) resume", **resume_on_card(state),
+         seconds=time.perf_counter() - t0)
+    emit("lm_train_done", seconds=time.perf_counter() - t_phase,
+         clocks="host clock between device synchronizations unless a "
+                "field says device (CUDA events, torch.profiler); peaks are "
+                "torch.cuda.max_memory_allocated since the model's init")
+
+
+# ---------------------------------------------------------------------------
 # Phases 13-15: checkpoints, the observability layer, the example twins
 # ---------------------------------------------------------------------------
 
@@ -4849,11 +5472,17 @@ EXAMPLES = (
     ("distributed_svd_torch.py", (), ("sparse_gram",)),
     ("distributed_streaming_torch.py", (), ("sparse_gram", "blockgram")),
     ("elastic_ingest_torch.py", (), ("blockgram",)),
+    ("train_lm_torch.py", ("--steps", "60"), ("flash_attention",)),
+    ("gradient_compression_torch.py", ("--steps", "40"),
+     ("flash_attention",)),
 )
+# The trainers' loss criterion (tests/test_system.py's): the last logged
+# loss below this share of the first.
+EXAMPLE_LOSS_DROP = 0.85
 
 
 def phase_examples(state) -> None:
-    """The seven twins (the LM twin twice), each a process of its own on
+    """The nine twins (the LM twin twice), each a process of its own on
     the card."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
@@ -4888,6 +5517,13 @@ def phase_examples(state) -> None:
                   f"examples: {name}: topk_score launched "
                   f"{launches['topk_score']} times for "
                   f"{summary['waves']} + 4 waves")
+        trained = [summary] if "first_loss" in summary else \
+            list(summary.get("runs", {}).values())
+        for run in trained:
+            check(run["last_loss"] < EXAMPLE_LOSS_DROP * run["first_loss"],
+                  f"examples: {name}: the last logged loss {run['last_loss']}"
+                  f" is not below {EXAMPLE_LOSS_DROP} x the first "
+                  f"{run['first_loss']}")
         runs.append(dict(example=name, seconds=secs, **summary))
         keep_counts(state, f"examples[{name}]", launches)
     emit("examples", runs=runs,
@@ -4931,7 +5567,8 @@ def main() -> int:
                   phase_solve_scaled, phase_stream_exact, phase_stream_serve,
                   phase_serve_scaled, phase_hierarchical, phase_stream_window,
                   phase_merge_driver_ab, phase_lm_serve,
-                  phase_lm_families, phase_lm_moe_encdec, phase_checkpoint,
+                  phase_lm_families, phase_lm_moe_encdec, phase_lm_train,
+                  phase_checkpoint,
                   phase_observe, phase_lint, phase_trace,
                   phase_drift_stages, phase_distributed,
                   phase_ft, phase_examples):

@@ -40,7 +40,9 @@ load JAX).  Any other ``repro.*`` name raises ``TypeError``; other names
 resolve by import, as in the reference.  The state's integer ``seed`` is
 written as the reference's ``key = PRNGKey(seed)``, a ``uint32[2]`` array
 ``[seed >> 32, seed & 0xFFFFFFFF]`` (exactly ``PRNGKey(seed)`` for every
-seed below 2**32), and read back as ``hi << 32 | lo``.  Resume is
+seed below 2**32), and read back as ``hi << 32 | lo``; a train state's seed
+is written the same way, as its ``rng`` (``train/step.checkpoint_tree``).
+Resume is
 bit-identical within a package; across the packages the random draws of
 later batches differ by design (randomness is an input).
 
@@ -87,10 +89,12 @@ _U32 = 0xFFFFFFFF
 
 
 def _seed_to_key(seed: int) -> np.ndarray:
+    """An integer seed as the reference's ``uint32[2]`` key (exactly
+    ``PRNGKey(seed)`` below 2**32)."""
     if not 0 <= seed < 1 << 64:
         raise ValueError(
-            f"checkpointing a StreamingSVDState: seed {seed} does not fit "
-            f"the reference's uint32[2] key (0 <= seed < 2**64)")
+            f"checkpointing a seed: {seed} does not fit the reference's "
+            f"uint32[2] key (0 <= seed < 2**64)")
     return np.array([seed >> 32, seed & _U32], dtype=np.uint32)
 
 

@@ -13,6 +13,13 @@
 // key comes out as zeros.  Inputs are float32 or bfloat16, all sums are
 // float32, the output is in the input's type.
 //
+// Optionally (a non-null `lse`) it also writes each row's log-sum-exp in
+// float32, lse[b, h, i] = log sum_j exp(s_ij) over the keys the row sees
+// (natural log, on the scale of s above: scale and softcap applied), or
+// -inf for a row that sees no key: what a backward pass needs to rebuild
+// the softmax from recomputed scores.  Serving passes null and pays
+// nothing.
+//
 // What bounds it on an H100: at the LM path's shape (8, 32, 1024, 80) bf16,
 // causal, the work is 2 * 2 * B * H * D * (Sq * Sk / 2) = 43 GFLOP and the
 // bytes are q, k, v and the output once (168 MB): the bytes bound it
@@ -65,6 +72,7 @@ namespace {
 
 constexpr float NEG = -1e30f;       // the TPU kernel's finite sentinel
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // NT: bf16 terms of q, k, v; NP: bf16 terms of P; E: elements per 16
 // bytes.
@@ -252,9 +260,9 @@ __device__ __forceinline__ void put2(__nv_bfloat16* p, float x, float y) {
 template <typename T, int DP>
 __global__ void __launch_bounds__(32 * Cfg<T, DP>::W)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
-            int sq, int sk, int d, int causal, int window, float softcap,
-            float scale) {
+            const T* __restrict__ v, T* __restrict__ o,
+            float* __restrict__ lse, int hq, int hkv, int sq, int sk, int d,
+            int causal, int window, float softcap, float scale) {
   using C = Cfg<T, DP>;
   constexpr int NT = Terms<T>::NT;
   constexpr int NP = Terms<T>::NP;
@@ -451,10 +459,13 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (C::QSM)
     cp_wait<0>();                   // a block that sees no key still loaded Q
 
+  float row_lse[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // m is in log2 units (scale * log2 e, or softcap * log2 e, folded in)
+    row_lse[r] = l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : -INFINITY;
     if (l[r] == 0.f) l[r] = 1.f;    // no visible key -> zeros
   }
 #pragma unroll
@@ -462,6 +473,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + 16 * rg + g + 8 * r;
     if (qi >= sq) continue;
     T* orow = o + ((long long)bh * sq + qi) * d;
+    if (lse != nullptr && t == 0 && d0 == 0)    // one thread a row
+      lse[(long long)bh * sq + qi] = row_lse[r];
 #pragma unroll
     for (int nb = 0; nb < NBW; ++nb) {
       const int dd = d0 + 8 * nb + 2 * t;            // d is even
@@ -472,9 +485,9 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int hq, int hkv, int sq, int sk, int d, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int hq, int hkv, int sq, int sk, int d, int causal,
+           int window, float softcap, float scale, cudaStream_t stream) {
   using C = Cfg<T, DP>;
   const int smem = C::SMEM_ELEMS * (int)sizeof(T);
   auto kern = attn_kernel<T, DP>;
@@ -484,19 +497,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   dim3 grid((sq + C::BQ - 1) / C::BQ, batch * hq);
   kern<<<grid, 32 * C::W, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, sk, d,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, hq, hkv, sq, sk, d,
       causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int batch,
-             int hq, int hkv, int sq, int sk, int d, int causal, int window,
-             float softcap, float scale, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int batch, int hq, int hkv, int sq, int sk, int d,
+             int causal, int window, float softcap, float scale,
+             cudaStream_t stream) {
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;  // the wrapper pads
 #define RANKY_FA_CASE(N)                                                     \
   if (d <= N)                                                                \
-    return launch<T, N>(q, k, v, o, batch, hq, hkv, sq, sk, d, causal,       \
+    return launch<T, N>(q, k, v, o, lse, batch, hq, hkv, sq, sk, d, causal,  \
                         window, softcap, scale, stream);
   // Few instantiations keep the build short; 80 is zamba2's head dim, 256
   // gemma2-9b's.
@@ -511,16 +525,18 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int batch,
 
 }  // namespace
 
+// `lse` (B, Hq, Sq) float32, or null when it is not wanted.
 extern "C" int ranky_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int is_bf16,
-                                     int batch, int hq, int hkv, int sq,
-                                     int sk, int d, int causal, int window,
-                                     float softcap, float scale,
+                                     const void* v, void* o, void* lse,
+                                     int is_bf16, int batch, int hq, int hkv,
+                                     int sq, int sk, int d, int causal,
+                                     int window, float softcap, float scale,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, batch, hq, hkv, sq, sk, d,
+    return dispatch<__nv_bfloat16>(q, k, v, o, l, batch, hq, hkv, sq, sk, d,
                                    causal, window, softcap, scale, s);
-  return dispatch<float>(q, k, v, o, batch, hq, hkv, sq, sk, d, causal,
+  return dispatch<float>(q, k, v, o, l, batch, hq, hkv, sq, sk, d, causal,
                          window, softcap, scale, s);
 }

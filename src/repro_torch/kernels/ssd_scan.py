@@ -21,6 +21,22 @@ every length goes to the kernel.  The plain version ``ssd_scan_ref`` is the
 sequential recurrence of the reference's ``ref.ssd_scan``;
 ``ssd_scan`` takes it ONLY for tensors that lie on the CPU; for CUDA tensors
 it launches the kernel or raises.
+
+Gradients.  Where autograd needs them (grad mode on and an input that
+requires grad), ``ssd_scan`` goes through ``SSDScan``, a
+``torch.autograd.Function`` whose forward is the same kernel (the plain
+version on the CPU).  It saves its inputs, and its backward recomputes
+``ssd_scan_chunked`` (the port of the reference's own chunked twin of the
+kernel, ``ref.ssd_scan_chunked``) under autograd in float32 and returns
+its gradients for x, dt, a, B and C, given those of y and of the final
+state.  The reference has no Pallas backward kernel (its backward is
+autodiff of jnp), so this one is torch ops too.  Differences of form: the
+port always takes the chunked recompute (the reference picks the chunked
+scan with the ``REPRO_PERF=ssd_chunked`` switch; the port has no
+switches), and a length that is no multiple of the chunk is padded with
+x = 0 and dt = 0 (a step of decay exp(0) = 1 that adds nothing: y and the
+final state are unchanged), where the reference falls back to the
+sequential oracle.
 """
 from __future__ import annotations
 
@@ -43,6 +59,8 @@ launches = 0
 CHUNK = 64
 F32_CHUNK = 128
 F32_CHUNK_WIDE = 64
+# Steps per chunk of ``ssd_scan_chunked`` (the reference's default).
+BWD_CHUNK = 128
 MAX_HEAD_DIM = 128    # P
 MAX_STATE = 128       # N
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -125,17 +143,109 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, state
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b_mat: torch.Tensor, c_mat: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, L, H, P), final state (B, H, P, N) float32).  On the card:
-    P <= 128 and N <= 128, each a multiple of 4."""
-    global launches
-    _check(x, dt, a, b_mat, c_mat)
+def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     b_mat: torch.Tensor, c_mat: torch.Tensor, *,
+                     chunk: int = BWD_CHUNK
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD in torch ops, in float32: (y in x's dtype, final
+    state float32).  Per chunk of ``min(chunk, L)`` steps (a ragged length
+    padded with x = dt = 0): with la the cumulative sum of dt a in the
+    chunk, y_i = sum_{j <= i} (C_i . B_j) exp(la_i - la_j) dt_j x_j +
+    exp(la_i) C_i h_in, and the state carried to the next chunk h_out =
+    exp(la_last) h_in + sum_j exp(la_last - la_j) dt_j x_j outer B_j.  The
+    intra-chunk terms of every chunk are batched; only the (B, H, P, N)
+    state walks the chunks.  exp(la_i - la_j) for j > i is taken as
+    exp(-inf) = 0 (masked before the exponential), so that a large
+    positive difference makes no inf in the backward pass."""
+    bsz, seq, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    q = min(chunk, seq)
+    nc = -(-seq // q)
+    pad = nc * q - seq
+
+    def chunked(t):
+        t = t.float()
+        if pad:
+            t = torch.nn.functional.pad(
+                t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((bsz, nc, q) + t.shape[2:])
+
+    x32, dt32 = chunked(x), chunked(dt)                    # (B, c, Q, H[, P])
+    br = chunked(b_mat).repeat_interleave(rep, dim=3)      # (B, c, Q, H, N)
+    cr = chunked(c_mat).repeat_interleave(rep, dim=3)
+    la = torch.cumsum(dt32 * a.float(), dim=2)             # (B, c, Q, H)
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    lat = la.transpose(2, 3)                               # (B, c, H, Q)
+    diff = torch.where(tri, lat[..., :, None] - lat[..., None, :],
+                       float("-inf"))
+    cb = torch.einsum("bcihn,bcjhn->bchij", cr, br)
+    scores = cb * torch.exp(diff) * dt32.transpose(2, 3)[..., None, :]
+    y = torch.einsum("bchij,bcjhp->bcihp", scores, x32)
+    # each chunk's own contribution to the state it hands on
+    w = torch.exp(la[:, :, -1:] - la) * dt32               # (B, c, Q, H)
+    upd = torch.einsum("bcihp,bcihn->bchpn", x32 * w[..., None], br)
+    last = torch.exp(la[:, :, -1])                         # (B, c, H)
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(state)
+        state = last[:, c, :, None, None] * state + upd[:, c]
+    ch = torch.einsum("bcihn,bchpn->bcihp", cr, torch.stack(h_in, dim=1))
+    y = y + torch.exp(la)[..., None] * ch
+    y = y.reshape(bsz, nc * q, h, p)[:, :seq]
+    return y.to(x.dtype), state
+
+
+def _forward(x, dt, a, b_mat, c_mat):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, a, b_mat, c_mat)
     if x.device.type != "cuda":
         raise RuntimeError(f"ssd_scan: unsupported device {x.device}")
+    return _kernel(x, dt, a, b_mat, c_mat)
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with the chunked recompute backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat):
+        y, h_fin = _forward(x, dt, a, b_mat, c_mat)
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat)
+        return y, h_fin
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ssd_scan_chunked(*inputs, chunk=BWD_CHUNK)
+        pairs = [(o, g) for o, g in zip(outs, (gy, gh)) if g is not None]
+        if not pairs:
+            return (None,) * 5
+        grads = torch.autograd.grad([o for o, _ in pairs],
+                                    inputs, [g for _, g in pairs],
+                                    allow_unused=True)
+        return tuple(gr if need else None for gr, need
+                     in zip(grads, ctx.needs_input_grad))
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b_mat: torch.Tensor, c_mat: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, L, H, P), final state (B, H, P, N) float32).  On the card:
+    P <= 128 and N <= 128, each a multiple of 4.  Differentiable in every
+    input."""
+    _check(x, dt, a, b_mat, c_mat)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b_mat, c_mat)):
+        return SSDScan.apply(x, dt, a, b_mat, c_mat)
+    return _forward(x, dt, a, b_mat, c_mat)
+
+
+def _kernel(x, dt, a, b_mat, c_mat):
+    """The CUDA kernel: (y, final state)."""
+    global launches
     bsz, seq, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     if not (p % 4 == 0 and 4 <= p <= MAX_HEAD_DIM

@@ -10,8 +10,9 @@ three M-RoPE streams equal), ``hybrid`` (zamba2-2.7b) and ``moe``
 (phi3.5-moe-42b-a6.6b, qwen3-moe-235b-a22b) families.  whisper-small
 (``encdec``) raises ``ValueError``: its requests carry no encoder frames,
 as in the reference, whose launcher stops at the same point.
-``--model-parallel`` above 1 raises ``NotImplementedError`` (the LM's
-model mesh is ROADMAP.md item 16).
+``--model-parallel`` above 1 raises ``NotImplementedError``: the LM's
+model mesh, one slice for serving and training (``launch/train.py``), is
+ROADMAP.md item 16.
 """
 from __future__ import annotations
 

@@ -109,3 +109,20 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor, *,
     """x: (..., D) @ head (D, V) -> float32 logits."""
     logits = torch.matmul(x.float(), head.float())
     return softcap(logits, cap)
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+              real_vocab: int) -> torch.Tensor:
+    """Mean cross-entropy over the valid labels of a (possibly padded)
+    logits tensor (..., Vp): padded vocab slots are masked to -1e30,
+    labels < 0 are ignored."""
+    v = logits.shape[-1]
+    if real_vocab < v:
+        pad = torch.arange(v, device=logits.device) >= real_vocab
+        logits = torch.where(pad, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.long().clamp(min=0)[..., None])[..., 0]
+    nll = lse - gold
+    ok = (labels >= 0).to(torch.float32)
+    return torch.sum(nll * ok) / torch.clamp(torch.sum(ok), min=1.0)

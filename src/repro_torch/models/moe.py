@@ -22,8 +22,9 @@ differences of form, same numbers:
   (an index copy of token ids, then ``index_select``), the same values.
 
 The expert-parallel branch of the reference's ``moe_block`` (a
-``shard_map`` over the model mesh) belongs to the LM model mesh (ROADMAP.md
-item 16).  Capacity is reckoned over the tokens of the call: a decode step
+``shard_map`` over the model mesh) belongs to the LM model mesh, which
+serving and training share (ROADMAP.md item 16); on one device the block
+is differentiable (``train_loss``), its load-balance loss included.  Capacity is reckoned over the tokens of the call: a decode step
 of B tokens drops differently from a prefill of B * S, as in the
 reference.
 """

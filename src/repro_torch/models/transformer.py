@@ -23,21 +23,33 @@ The counterpart of ``repro.models.transformer`` on one device; the
 reference's ``lax.scan`` over stacked layers is a Python loop over the
 stacked parameters here.
 
+Training: ``train_loss`` (the cross-entropy of ``forward_logits`` plus the
+moe load-balance loss).  ``remat`` recomputes each layer body in the
+backward pass, the unit the reference's ``_maybe_remat`` wraps (a layer;
+gemma2's local + global pair; zamba2's group of the shared block and its
+Mamba-2 layers): ``"none"`` keeps every activation, ``"full"`` keeps only
+the body's inputs (``torch.utils.checkpoint``), ``"dots"`` also keeps the
+outputs of the matrix products without batch dims (a selective
+checkpoint; the counterpart of ``dots_with_no_batch_dims_saveable``).  The
+kernels are no dispatcher ops: a recomputed body launches them again.
+
 Compute dtype: the config's (``bfloat16`` unless a caller replaces it),
 with float32 master weights cast at each use, as the reference does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as torch_ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    activate, embed_lookup, gated, lm_logits, rms_norm,
+    activate, embed_lookup, gated, lm_logits, rms_norm, xent_loss,
 )
 from repro_torch.models.schema import require_ported
 
@@ -111,6 +123,35 @@ def _ssm_layer_fwd(cfg, p, x):
     return x + ssm_mod.ssm_block(cfg, p, h)
 
 
+_aten = torch.ops.aten
+REMAT_MODES = ("none", "dots", "full")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of matrix products without batch dims: ``mm``,
+    ``addmm``, and ``bmm`` over a batch of one (what ``torch.einsum`` makes
+    of a contraction with no batch dims); recompute everything else."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return torch_ckpt.CheckpointPolicy.MUST_SAVE
+    return torch_ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(torch_ckpt.checkpoint, fn,
+                                 use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            torch_ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                torch_ckpt.create_selective_checkpoint_contexts,
+                _dots_policy))
+    raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}")
+
+
 def layer_params(params: Dict, i: int,
                  stack: str = "layers") -> Dict[str, torch.Tensor]:
     """Layer ``i`` of a stacked subtree (``layers``, ``enc_layers``)."""
@@ -134,18 +175,23 @@ def _seq_positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def encoder(cfg: ModelConfig, params: Dict,
-            frames: torch.Tensor) -> torch.Tensor:
+def encoder(cfg: ModelConfig, params: Dict, frames: torch.Tensor, *,
+            remat: str = "none") -> torch.Tensor:
     """The encdec encoder over precomputed frame embeddings (B, S, D), in
     their dtype: learned positions, non-causal dense blocks, a final
     norm."""
     b, s, _ = frames.shape
     x = frames + params["enc_pos"][:s][None].to(frames.dtype)
     pos = _seq_positions(b, s, frames.device)
-    for li in range(cfg.encoder_layers):
+
+    def body(h, li):
         pl = layer_params(params, li, "enc_layers")
-        x = _dense_block(cfg, pl, x, lambda h: attn_mod.attention(
-            cfg, pl, h, pos, causal=False))
+        return _dense_block(cfg, pl, h, lambda hh: attn_mod.attention(
+            cfg, pl, hh, pos, causal=False))
+
+    body = _maybe_remat(body, remat)
+    for li in range(cfg.encoder_layers):
+        x = body(x, li)
     return rms_norm(x, params["enc_final_norm"], eps=cfg.norm_eps)
 
 
@@ -160,37 +206,52 @@ def _cross(cfg: ModelConfig, enc_out: torch.Tensor, pos: torch.Tensor,
         return_kv=return_kv)
 
 
+def _body_units(cfg: ModelConfig) -> Tuple[int, int]:
+    """(units, layers a unit) of the trunk: the bodies ``remat`` wraps."""
+    if cfg.family == "hybrid":
+        return _groups(cfg)
+    if cfg.family in _KV_FAMILIES and cfg.alt_local_global:
+        return cfg.num_layers // 2, 2
+    return cfg.num_layers, 1
+
+
 def trunk(cfg: ModelConfig, params: Dict, x: torch.Tensor,
           pos: torch.Tensor, *, enc_out: Optional[torch.Tensor] = None,
-          auxs: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+          auxs: Optional[List[torch.Tensor]] = None,
+          remat: str = "none") -> torch.Tensor:
     """Token embeddings (B, S, D) -> final hidden states.  encdec attends
     over ``enc_out``; moe appends each layer's load-balance loss to
-    ``auxs``."""
+    ``auxs``.  ``remat``: see the module docstring."""
     require_ported(cfg)
-    if cfg.family in _KV_FAMILIES:
-        for li in range(cfg.num_layers):
-            pl, win = layer_params(params, li), layer_window(cfg, li)
-            x = _dense_block(cfg, pl, x, lambda h: attn_mod.attention(
-                cfg, pl, h, pos, window=win), auxs)
-        return x
-    if cfg.family == "encdec":
-        cross = _cross(cfg, enc_out, pos)
-        for li in range(cfg.num_layers):
+    units, per = _body_units(cfg)
+    cross = _cross(cfg, enc_out, pos) if cfg.family == "encdec" else None
+
+    def body(h, ui):
+        """Unit ``ui``: (hidden, the moe layers' aux losses stacked, or
+        None)."""
+        unit_auxs: List[torch.Tensor] = []
+        if cfg.family == "hybrid":
+            sp = params["shared_attn"]
+            h = _dense_block(cfg, sp, h,
+                             lambda hh: attn_mod.attention(cfg, sp, hh, pos))
+        for li in range(ui * per, (ui + 1) * per):
             pl = layer_params(params, li)
-            x = _dec_block(cfg, pl, x, lambda h: attn_mod.attention(
-                cfg, pl, h, pos), cross)
-        return x
-    if cfg.family == "ssm":
-        for li in range(cfg.num_layers):
-            x = _ssm_layer_fwd(cfg, layer_params(params, li), x)
-        return x
-    groups, k = _groups(cfg)
-    sp = params["shared_attn"]
-    for gi in range(groups):
-        x = _dense_block(cfg, sp, x,
-                         lambda h: attn_mod.attention(cfg, sp, h, pos))
-        for li in range(gi * k, (gi + 1) * k):
-            x = _ssm_layer_fwd(cfg, layer_params(params, li), x)
+            if cfg.family in _KV_FAMILIES:
+                win = layer_window(cfg, li)
+                h = _dense_block(cfg, pl, h, lambda hh: attn_mod.attention(
+                    cfg, pl, hh, pos, window=win), unit_auxs)
+            elif cfg.family == "encdec":
+                h = _dec_block(cfg, pl, h, lambda hh: attn_mod.attention(
+                    cfg, pl, hh, pos), cross)
+            else:
+                h = _ssm_layer_fwd(cfg, pl, h)
+        return h, (torch.stack(unit_auxs) if unit_auxs else None)
+
+    body = _maybe_remat(body, remat)
+    for ui in range(units):
+        x, unit_aux = body(x, ui)
+        if unit_aux is not None and auxs is not None:
+            auxs.extend(unit_aux.unbind(0))
     return x
 
 
@@ -213,7 +274,8 @@ def _positions(cfg: ModelConfig, batch: Dict, b: int, s: int,
     return _seq_positions(b, s, device)
 
 
-def _decoder_in(cfg: ModelConfig, params: Dict, batch: Dict, dtype
+def _decoder_in(cfg: ModelConfig, params: Dict, batch: Dict, dtype,
+                remat: str = "none"
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The token embeddings (B, S, D) and, for encdec, the encoder's output
     over ``batch["frames"]`` in ``dtype``, the learned decoder positions
@@ -222,26 +284,40 @@ def _decoder_in(cfg: ModelConfig, params: Dict, batch: Dict, dtype
     x = _embed_in(cfg, params, tokens, dtype)
     if not cfg.is_encdec:
         return x, None
-    enc_out = encoder(cfg, params, batch["frames"].to(dtype))
+    enc_out = encoder(cfg, params, batch["frames"].to(dtype), remat=remat)
     s = tokens.shape[1]
     return x + params["dec_pos"][:s][None].to(dtype), enc_out
 
 
-def forward_logits(cfg: ModelConfig, params: Dict, batch: Dict
-                   ) -> Tuple[torch.Tensor, Any]:
+def forward_logits(cfg: ModelConfig, params: Dict, batch: Dict, *,
+                   remat: str = "none") -> Tuple[torch.Tensor, Any]:
     """Full-sequence logits (B, S, Vp) float32, and the auxiliary loss:
     for moe the layers' mean load-balance loss times ``AUX_LOSS_COEF``, a
     0-dim float32 tensor; 0.0 for the other families.  batch: tokens
     (B, S) [+ pos (B, S, 3) vlm] [+ frames (B, Se, D) encdec]."""
     require_ported(cfg)
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}")
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x, enc_out = _decoder_in(cfg, params, batch, compute_dtype(cfg))
+    x, enc_out = _decoder_in(cfg, params, batch, compute_dtype(cfg), remat)
     auxs: List[torch.Tensor] = []
     h = trunk(cfg, params, x, _positions(cfg, batch, b, s, tokens.device),
-              enc_out=enc_out, auxs=auxs)
+              enc_out=enc_out, auxs=auxs, remat=remat)
     aux = torch.stack(auxs).mean() * AUX_LOSS_COEF if auxs else 0.0
     return _head_out(cfg, params, h), aux
+
+
+def train_loss(cfg: ModelConfig, params: Dict, batch: Dict, *,
+               remat: str = "dots") -> Tuple[torch.Tensor, Dict]:
+    """(loss + aux, {"loss", "aux_loss"}): the mean cross-entropy of
+    ``forward_logits`` over the labels >= 0 (``batch["labels"]`` (B, S),
+    the padded vocab masked) plus the moe load-balance loss (0 for the
+    other families), every value a 0-dim float32 tensor."""
+    logits, aux = forward_logits(cfg, params, batch, remat=remat)
+    loss = xent_loss(logits, batch["labels"], real_vocab=cfg.vocab_size)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + aux, {"loss": loss, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------

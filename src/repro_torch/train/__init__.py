@@ -1,0 +1,4 @@
+"""The LM trainer: the train step and the loop."""
+from repro_torch.train.step import (  # noqa: F401
+    TrainConfig, init_train_state, make_train_step,
+)

@@ -1,0 +1,85 @@
+"""The training loop: the train step, periodic async checkpoints, resume
+from the latest one, straggler monitoring, metrics logging.
+
+The counterpart of ``repro.train.loop`` on one device.  Step times are on
+the host clock up to a synchronize (reading the step's loss waits for its
+work).  The reference's loop over a mesh (sharded state and batches)
+belongs to the LM model mesh (ROADMAP.md item 16): a mesh raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint.ckpt import Checkpointer, tree_signature
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data import tokens as data_mod
+from repro_torch.ft.straggler import StragglerConfig, StragglerMonitor
+from repro_torch.train.step import (
+    TrainConfig, checkpoint_tree, init_train_state, make_train_step,
+    state_from_checkpoint,
+)
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    log_every: int = 10
+    resume: bool = True
+
+
+def train(cfg: ModelConfig, tcfg: TrainConfig, lcfg: LoopConfig,
+          data_cfg: data_mod.DataConfig, *, device=None,
+          log: Callable[[str], None] = print,
+          state: Optional[Dict[str, Any]] = None,
+          mesh=None) -> Dict[str, Any]:
+    """Run the loop on ``device`` (default: the GPU); returns the final
+    state.  Without ``state``, a fresh one (parameters from a generator
+    seeded 0 on the device), or the latest checkpoint of
+    ``lcfg.ckpt_dir`` when ``lcfg.resume`` and one exists."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "train over a mesh: the LM model mesh is not ported yet "
+            "(ROADMAP.md item 16)")
+    device = resolve_device(device)
+    step_fn = make_train_step(cfg, tcfg)
+    ckpt = Checkpointer(lcfg.ckpt_dir) if lcfg.ckpt_dir else None
+    start_step = 0
+    if state is None:
+        state = init_train_state(
+            cfg, tcfg, torch.Generator(device).manual_seed(0), device)
+        if ckpt and lcfg.resume and ckpt.latest_step() is not None:
+            signature = tree_signature(checkpoint_tree(state))
+            state = None                  # free it before the restore
+            saved, meta = ckpt.restore(device=device,
+                                       expect_signature=signature)
+            state = state_from_checkpoint(saved)
+            start_step = meta["step"]
+            log(f"resumed from step {start_step}")
+
+    monitor = StragglerMonitor(StragglerConfig(), 1)
+    it = data_mod.iterate(data_cfg, start_step)
+    for step in range(start_step, lcfg.steps):
+        batch = data_mod.shard_batch(next(it), device)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])     # waits for the step's work
+        dt = time.perf_counter() - t0
+        monitor.observe({0: dt})
+
+        if step % lcfg.log_every == 0 or step == lcfg.steps - 1:
+            log(f"step {step:5d} loss={loss:.4f} "
+                f"gnorm={float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms")
+        if ckpt and ((step + 1) % lcfg.ckpt_every == 0
+                     or step == lcfg.steps - 1):
+            ckpt.save(step + 1, checkpoint_tree(state))
+    if ckpt:
+        ckpt.wait()
+    return state

@@ -13,6 +13,9 @@ import pytest
 from repro_torch import obs
 
 from conftest import REPO
+from test_torch_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _load(name):
@@ -42,6 +45,10 @@ CASES = [
     ("distributed_svd_torch", {}),
     ("distributed_streaming_torch", {}),
     ("elastic_ingest_torch", {}),
+    # the trainers at a few steps (short sequences, the embedding of
+    # GaLore's run cut so that its m-side gram is small on the CPU)
+    ("train_lm_torch", {"steps": 3, "seq": 32, "batch": 2}),
+    ("gradient_compression_torch", {"steps": 3, "vocab": 1024, "seq": 32}),
 ]
 
 

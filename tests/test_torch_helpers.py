@@ -5,6 +5,7 @@ a degenerate subspace).  The few tests here hold the helpers themselves."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from repro.core import randomized as jrandomized
@@ -251,3 +252,16 @@ def mrope_positions(b: int, s: int, grid: int = 4, start: int = 2
                 pos[r, i] = t
                 t += 1
     return pos
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's torch work on one CPU thread, then restore the count.
+    The suite runs in parallel workers; a torch op split over every core
+    then waits in OpenMP barriers for threads the other workers keep off
+    the cores, which makes loops of small ops (a train loop, a stream)
+    tens of times slower than alone."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
