@@ -238,6 +238,30 @@ What it does, one JSON line per phase:
    that pass the deadline, fail the phase.  (c) NCCL at world =
    ``torch.cuda.device_count()`` (1 on one card: a solve and an ingest at
    D = 1 in this process).
+16a. ``lm_mesh``: the LM model mesh (``models/layers.ShardCtx``).  (a)
+   phi3.5-moe-42b-a6.6b at full width, 2 layers, float32, capacity factor
+   8, served expert-parallel on 4 gloo ranks (data 2 x model 2) on the one
+   card: a prefill of 4 x 128 tokens and 8 teacher-forced decode steps,
+   the logits gathered over the vocab against one device's (rtol / atol
+   1e-3, the reference test's), every routing compared (a flipped one
+   reported, then the logits held with one device's routing pinned), the
+   greedy and sampled (``engine.generate``) tokens equal to one device's
+   rows and across a data shard's ranks; (b) zamba2-2.7b at full width, 6
+   layers, float32, AdamW with ZeRO-1 moments at the full lr from the
+   first step, remat ``dots``, 4 x 512 on the same ranks: the first
+   batch's gradients within 1e-4 of each leaf's max of one device's, every
+   leaf with a gradient; one ZeRO-1 update with one device's gradients,
+   every parameter block within rtol 2e-4 / atol 1e-5 of one device's
+   update (which moves every leaf past 10 x atol); 2 steps, each loss
+   within 1e-4, each leaf's params within 1e-3 of the norm of one device's
+   change (``LM_MESH`` says why not elementwise); flash 2 and ssd 12
+   launches a step exactly; ms a step, peak by rank; (c) zamba2 at 6
+   layers, one request, a cache of 8,192 positions over data 2 on 2
+   ranks, 4 decode steps across the slabs' boundary against the unsharded
+   decode (1e-3), only the owning slab written; (d) a (1, 1)
+   ``ProcessGroupMesh`` over NCCL in this process: (a) and (b) bit for
+   bit against the path without a mesh.  A rank that fails or passes the
+   deadline fails the phase.
 16b. ``ft``: fault tolerance on the paper rows (sparse batches of 64, rank
    16) over a ``LocalMesh`` of 8 slots: the unfaulted supervised stream
    against the same chunks of ``svd_stream`` (the same bits, one
@@ -260,7 +284,8 @@ What it does, one JSON line per phase:
    ``nvidia-smi`` names it, then the last line ``{"ok": true, "device":
    {...}}``.
 
-It takes no arguments, runs every phase, exits non-zero at the first phase
+Without arguments it runs every phase (``--only lm_mesh,...`` runs the
+named phases alone, for work on them), exits non-zero at the first phase
 that fails, and right away when no CUDA device is present: nothing here runs
 on the CPU instead.
 """
@@ -297,8 +322,10 @@ from repro_torch.kernels import sparse_gram as sg_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss_mod  # noqa: E402
 from repro_torch.kernels import topk_score as tk_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.layers import ShardCtx  # noqa: E402
 from repro_torch.models import schema, transformer  # noqa: E402
 from repro_torch.optim import adamw as adamw_mod  # noqa: E402
+from repro_torch.optim import schedule as schedule_mod  # noqa: E402
 from repro_torch.optim import tree as ptree  # noqa: E402
 from repro_torch.serve import engine, kvquant, ranker  # noqa: E402
 from repro_torch.stream import state as stream_state  # noqa: E402
@@ -3683,8 +3710,8 @@ def counted_drops():
     recs = []
     slots = moe_mod._slots
 
-    def counting(cfg, idx):
-        slot, valid, cap = slots(cfg, idx)
+    def counting(cfg, idx, *expert_range):
+        slot, valid, cap = slots(cfg, idx, *expert_range)
         recs.append((idx.shape[0], valid.numel(), (~valid).sum()))
         return slot, valid, cap
 
@@ -5317,6 +5344,639 @@ def phase_distributed(state) -> None:
                 "the per-device closed form")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16c: the LM model mesh (tensor, expert, data, sequence parallel,
+# ZeRO-1) over gloo ranks on the one card, and NCCL at world 1
+# ---------------------------------------------------------------------------
+
+# (a) serving, expert-parallel: phi3.5-moe at full width, 2 layers, float32,
+# capacity factor 8 (nothing drops), prompts of 128 tokens then 8 greedy
+# decode steps; the sampled generate of 4 tokens on the prompts' first 16.
+# (b) training, TP x DP x ZeRO-1: zamba2-2.7b at full width, 6 layers (one
+# shared-block group), float32, AdamW at the full lr from the first step
+# (no warmup), remat dots, 4 x 512 from batch_at.  Held in three parts:
+# the first batch's gradients (per leaf max |diff| <= grad_rel x max |g|);
+# one ZeRO-1 AdamW update from the drawn state with one device's gradient,
+# every element within rtol / atol (each element moves by about lr, 30 x
+# atol); the 2 steps' losses within loss_tol, and their params per leaf
+# within path_rel x the norm of one device's change.  Adam divides each
+# element's gradient by its own RMS, so a gradient near 0 (|g| <~ 1e-6 of
+# its leaf's max) moves its element by a share of lr that float32
+# rounding decides: the mesh sums in another order, and ~200 of a rank's
+# 255 M elements then end the 2 steps up to 6e-5 off, past atol, while
+# the leaf's change agrees to ~3e-4 of its norm.
+# (c) sequence-sharded decode: zamba2 at 6 layers, one request, a cache of
+# 8,192 over data 2; the prompt ends 2 tokens before the slabs' boundary,
+# so the 4 steps write 2 positions on each slab.
+# Limits: the reference tests' (tests/test_distributed.py: logits rtol /
+# atol 1e-3; loss 1e-4, params rtol 2e-4 / atol 1e-5).
+LM_MESH = dict(
+    serve=dict(arch="phi3.5-moe-42b-a6.6b", layers=2, cf=8.0, batch=4,
+               seq=128, decode=8, gen_prompt=16, gen_tokens=4,
+               temperature=0.8, rtol=1e-3, atol=1e-3),
+    train=dict(arch="zamba2-2.7b", layers=6, batch=4, seq=512, steps=2,
+               loss_tol=1e-4, rtol=2e-4, atol=1e-5, moved_atols=10,
+               grad_rel=1e-4, path_rel=1e-3,
+               launches=dict(flash_attention=2, ssd_scan=12)),
+    seq=dict(arch="zamba2-2.7b", layers=6, prompt=4094, max_seq=8192,
+             decode=4, rtol=1e-3, atol=1e-3),
+    mesh={"data": 2, "model": 2}, ranks=4, seq_ranks=2, timeout_s=300)
+
+
+def lm_mesh_cfg(case: str):
+    c = LM_MESH[case]
+    over = dict(num_layers=c["layers"], dtype="float32")
+    if "cf" in c:
+        over["capacity_factor"] = c["cf"]
+    return dataclasses.replace(get_config(c["arch"]), **over)
+
+
+@contextlib.contextmanager
+def routing_rows(log: list, mode: str, part: int, parts: int):
+    """``routing_log`` for a data shard: each recorded call's rows cut to
+    the ``part``-th of ``parts`` (the shard's tokens; a batch splits over
+    data in contiguous rows, b-major in the moe layer's (T, K))."""
+    def cut(x):
+        n = x.shape[0] // parts
+        return x[part * n:(part + 1) * n]
+
+    with routing_log([cut(x).to(DEVICE) for x in log], mode) as flips:
+        yield flips
+
+
+def lm_serve_steps(cfg, params, prompts, tokens, ctx, gather):
+    """prefill_forward of ``prompts`` then one decode step a column of
+    ``tokens`` (teacher-forced): (logits of each step gathered over the
+    vocab (steps, B, Vp), the greedy tokens of each step (steps, B))."""
+    from repro_torch.models.transformer import vocab_axes
+
+    v_ax = vocab_axes(cfg, ctx)
+    with torch.no_grad():
+        lg, cache = transformer.prefill_forward(
+            cfg, params, {"tokens": prompts},
+            max_seq=prompts.shape[1] + tokens.shape[1], ctx=ctx)
+        out = [gather(lg, v_ax)]
+        for t in range(tokens.shape[1] - 1):
+            lg, cache = transformer.decode_step(
+                cfg, params, cache, {"tokens": tokens[:, t:t + 1]}, ctx=ctx)
+            out.append(gather(lg, v_ax))
+    logits = torch.stack(out)
+    return logits, logits[..., :cfg.vocab_size].argmax(-1).to(torch.int32)
+
+
+def lm_serve_reference(tmp) -> dict:
+    """(a) on one device: the teacher-forced steps (greedy tokens fed
+    back), the routing of every moe call, the sampled generate; saved for
+    the ranks."""
+    c, cfg = LM_MESH["serve"], lm_mesh_cfg("serve")
+    gen = torch.Generator(DEVICE).manual_seed(61)
+    params = schema.init_params(cfg, gen, DEVICE)
+    prompts = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]),
+                            generator=gen, device=DEVICE, dtype=torch.int32)
+    with torch.no_grad():
+        lg, cache = transformer.prefill_forward(
+            cfg, params, {"tokens": prompts},
+            max_seq=c["seq"] + c["decode"])
+        toks = [lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)]
+        for _ in range(c["decode"] - 1):
+            lg, cache = transformer.decode_step(
+                cfg, params, cache, {"tokens": toks[-1][:, None]})
+            toks.append(lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32))
+    tokens = torch.stack(toks, 1)
+    log = []
+    with routing_log(log, "record"):
+        logits, greedy = lm_serve_steps(cfg, params, prompts, tokens,
+                                        ShardCtx(), lambda x, ax: x)
+    check(torch.equal(greedy.T, tokens), "lm_mesh(a): the teacher-forced "
+          "steps' greedy tokens are not the fed-back ones")
+    scfg = engine.ServeConfig(max_seq=c["gen_prompt"] + c["gen_tokens"],
+                              temperature=c["temperature"], seed=5)
+    sampled = engine.generate(cfg, params, prompts[:, :c["gen_prompt"]],
+                              scfg, c["gen_tokens"])
+    ref = dict(prompts=prompts.cpu(), tokens=tokens.cpu(),
+               logits=logits.cpu(), routing=[x.cpu() for x in log],
+               sampled=sampled.cpu())
+    torch.save(ref, os.path.join(tmp, "serve_ref.pt"))
+    return dict(ref, params=params)
+
+
+def lm_train_steps(cfg, tcfg, dcfg, ctx, mesh, steps: int):
+    """``steps`` AdamW steps from a fresh state drawn from a seeded
+    generator on the card (every rank draws the whole leaves and keeps its
+    blocks): (state, losses, host ms a step, flash / ssd launches a
+    step)."""
+    gen = torch.Generator(DEVICE).manual_seed(62)
+    state = train_step.init_train_state(cfg, tcfg, gen, DEVICE, ctx=ctx)
+    step = train_step.make_train_step(cfg, tcfg, ctx)
+    losses, ms, launches = [], [], []
+    for s in range(steps):
+        batch = data_mod.shard_batch(data_mod.batch_at(dcfg, s), DEVICE,
+                                     mesh)
+        reset_counts()
+        (state, m), t = synced_ms(lambda: step(state, batch))
+        launches.append({k: v for k, v in read_counts().items()
+                         if k in ("flash_attention", "ssd_scan")})
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    return state, losses, ms, launches
+
+
+def lm_train_setup():
+    c, cfg = LM_MESH["train"], lm_mesh_cfg("train")
+    # no warmup: each step moves the weights by about lr (3e-4), far past
+    # the params' atol (1e-5), so a missed update or ZeRO slice shows
+    return (cfg, train_step.TrainConfig(remat="dots", warmup_steps=0),
+            data_mod.DataConfig(cfg.vocab_size, c["seq"], c["batch"]))
+
+
+def lm_first_lr_scale(tcfg, opt):
+    return schedule_mod.warmup_cosine(opt["step"], warmup=tcfg.warmup_steps,
+                                      total=tcfg.total_steps)
+
+
+def lm_train_reference(tmp) -> dict:
+    """(b) on one device: the first batch's gradients and one AdamW update
+    with them from the drawn state (saved for the ranks), then the 2
+    steps (their params saved)."""
+    cfg, tcfg, dcfg = lm_train_setup()
+    c = LM_MESH["train"]
+    gen = torch.Generator(DEVICE).manual_seed(62)
+    st = train_step.init_train_state(cfg, tcfg, gen, DEVICE)
+    batch = data_mod.shard_batch(data_mod.batch_at(dcfg, 0), DEVICE)
+    _, _, grads = train_step._grads(cfg, tcfg, st["params"], batch)
+    torch.save({p: g.cpu() for p, g in ptree.flatten(grads)},
+               os.path.join(tmp, "train_ref_grads.pt"))
+    start = [x.clone() for x in ptree.leaves(st["params"])]
+    adamw_mod.apply_updates(tcfg.adamw, st["params"], grads, st["opt"],
+                            lr_scale=lm_first_lr_scale(tcfg, st["opt"]))
+    moved = min(float((x - x0).abs().max()) for x, x0 in zip(
+        ptree.leaves(st["params"]), start))
+    check(moved > c["moved_atols"] * c["atol"], f"lm_mesh(b): one AdamW "
+          f"update moved a leaf by at most {moved}, not past "
+          f"{c['moved_atols']} x atol {c['atol']}")
+    torch.save({p: x.cpu() for p, x in ptree.flatten(st["params"])},
+               os.path.join(tmp, "train_ref_update.pt"))
+    del st, grads, batch, start
+    free_model()
+    state, losses, ms, launches = lm_train_steps(
+        cfg, tcfg, dcfg, ShardCtx(), None, c["steps"])
+    torch.save({p: x.cpu() for p, x in ptree.flatten(state["params"])},
+               os.path.join(tmp, "train_ref.pt"))
+    torch.save(dict(losses=losses, least_leaf_move=moved),
+               os.path.join(tmp, "train_ref_meta.pt"))
+    return dict(state=state, losses=losses, ms=ms, launches=launches,
+                least_leaf_move=moved)
+
+
+def lm_mesh_nccl(state, tmp) -> dict:
+    """(d) A ProcessGroupMesh (1, 1) over NCCL in this process, (a) and
+    (b) at their sizes against the path without a mesh: the same bits
+    (the collectives of a group of one copy their input; the sharded
+    layers take their plain arithmetic at axis size 1)."""
+    import datetime
+    from repro_torch.core.collectives import ProcessGroupMesh
+
+    dist = torch.distributed
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "nccl_lm"),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    out = {}
+    try:
+        mesh = ProcessGroupMesh({"data": 1, "model": 1}, device=DEVICE)
+        ctx = ShardCtx(mesh=mesh)
+        # (a) serving
+        ref = lm_serve_reference(tmp)
+        cfg, c = lm_mesh_cfg("serve"), LM_MESH["serve"]
+        gen = torch.Generator(DEVICE).manual_seed(61)
+        params = schema.init_params(cfg, gen, DEVICE, ctx=ctx)
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            ptree.leaves(params), ptree.leaves(ref["params"])))
+        del ref["params"]
+        reset_counts()
+        logits, greedy = lm_serve_steps(
+            cfg, params, ref["prompts"].to(DEVICE),
+            ref["tokens"].to(DEVICE), ctx,
+            lambda x, ax: ctx.all_gather(x, ax, dim=-1))
+        counts = read_counts()
+        keep_counts(state, "lm_mesh[nccl serve]", counts)
+        scfg = engine.ServeConfig(max_seq=c["gen_prompt"] + c["gen_tokens"],
+                                  temperature=c["temperature"], seed=5)
+        sampled = engine.generate(
+            cfg, params, ref["prompts"][:, :c["gen_prompt"]].to(DEVICE),
+            scfg, c["gen_tokens"], ctx=ctx)
+        out["serve"] = dict(
+            params_bit_identical=same_params,
+            logits_bit_identical=bool(torch.equal(logits.cpu(),
+                                                  ref["logits"])),
+            logits_max_abs_diff=float((logits.cpu() - ref["logits"]).abs()
+                                      .max()),
+            tokens_equal=bool(torch.equal(greedy.T.cpu(), ref["tokens"])),
+            sampled_equal=bool(torch.equal(sampled.cpu(), ref["sampled"])),
+            launches=counts)
+        del params, logits
+        free_model()
+        # (b) training
+        tref = lm_train_reference(tmp)
+        cfg, tcfg, dcfg = lm_train_setup()
+        st, losses, ms, launches = lm_train_steps(
+            cfg, tcfg, dcfg, ctx, mesh, LM_MESH["train"]["steps"])
+        keep_counts(state, "lm_mesh[nccl train step]", dict(
+            read_counts(), **launches[-1]))
+        same = [bool(torch.equal(a, b)) for a, b in zip(
+            ptree.leaves(st["params"]), ptree.leaves(tref["state"]["params"]))]
+        out["train"] = dict(
+            losses=losses, losses_no_mesh=tref["losses"],
+            losses_bit_identical=losses == tref["losses"],
+            params_bit_identical=all(same),
+            leaves_differing=len(same) - sum(same),
+            ms_per_step=ms, ms_per_step_no_mesh=tref["ms"],
+            launches_per_step=launches[-1],
+            launches_per_step_no_mesh=tref["launches"][-1],
+            least_leaf_move_one_update_no_mesh=tref["least_leaf_move"])
+        for n in launches + tref["launches"]:
+            check(n == LM_MESH["train"]["launches"], f"lm_mesh(d) NCCL "
+                  f"world 1 train: kernel launches a step {n}, not "
+                  f"{LM_MESH['train']['launches']}")
+        out["collectives"] = dict(mesh.counts)
+        del st, tref
+        free_model()
+    finally:
+        dist.destroy_process_group()
+    for case in ("serve", "train"):
+        for key, val in out[case].items():
+            if key.endswith(("bit_identical", "_equal")):
+                check(val, f"lm_mesh(d) NCCL world 1 {case}: {key} is "
+                      f"False")
+    return out
+
+
+def spawn_lm_ranks(world: int, case: str, tmp: str) -> list:
+    """``world`` processes running :func:`lm_mesh_rank` of ``case`` over a
+    gloo group (CUDA tensors on the one card), joined with a deadline
+    (every rank is killed when it passes): each rank's saved result."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"chip_smoke.lm_mesh_rank()")
+    outs = [os.path.join(tmp, f"{case}_rank{r}.pt") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(world), case, tmp],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + LM_MESH["timeout_s"]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"lm_mesh: the {case} ranks did not "
+                                   f"finish within {LM_MESH['timeout_s']} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0 and os.path.exists(outs[r]),
+              f"lm_mesh: {case} rank {r} exited {p.returncode}:\n"
+              f"{logs[r][1][-3000:]}")
+    return [torch.load(path, weights_only=False) for path in outs]
+
+
+def lm_mesh_rank() -> None:
+    """One rank of phase ``lm_mesh`` (a process of :func:`spawn_lm_ranks`):
+    argv rank, world, case, the shared directory."""
+    import datetime
+    from repro_torch.core.collectives import ProcessGroupMesh
+
+    rank, world, case, tmp = (int(sys.argv[1]), int(sys.argv[2]),
+                              sys.argv[3], sys.argv[4])
+    torch.cuda.set_device(0)
+    dist = torch.distributed
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(tmp, f"init_{case}"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=240))
+    try:
+        if case == "seq":
+            mesh = ProcessGroupMesh({"data": world, "model": 1},
+                                    device=DEVICE)
+            out = lm_seq_rank(ShardCtx(mesh=mesh))
+        else:
+            mesh = ProcessGroupMesh(LM_MESH["mesh"], device=DEVICE)
+            ctx = ShardCtx(mesh=mesh)
+            out = dict(serve=lm_serve_rank(ctx, tmp))
+            free_model()
+            out["train"] = lm_train_rank(ctx, mesh, tmp)
+        out.update(rank=rank, coords=mesh.coords(rank),
+                   collectives=dict(mesh.counts))
+        torch.save(out, os.path.join(tmp, f"{case}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_gap(got, want, rtol, atol) -> dict:
+    diff = (got.double() - want.double()).abs()
+    excess = float((diff - atol - rtol * want.double().abs()).max())
+    return dict(max_abs_diff=float(diff.max()), max_excess=excess,
+                within=excess <= 0)
+
+
+def lm_serve_rank(ctx, tmp) -> dict:
+    c, cfg = LM_MESH["serve"], lm_mesh_cfg("serve")
+    ref = torch.load(os.path.join(tmp, "serve_ref.pt"), weights_only=False)
+    b_ax = ctx.axes("batch")
+    part, parts = ctx.index(b_ax), ctx.size(b_ax)
+    rows = slice(part * c["batch"] // parts, (part + 1) * c["batch"] // parts)
+    gen = torch.Generator(DEVICE).manual_seed(61)
+    params = schema.init_params(cfg, gen, DEVICE, ctx=ctx)
+    prompts = ref["prompts"][rows].to(DEVICE)
+    tokens = ref["tokens"][rows].to(DEVICE)
+
+    def gather(x, ax):
+        return ctx.all_gather(x, ax, dim=-1)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with routing_rows(ref["routing"], "compare", part, parts) as flips:
+        (logits, greedy), ms = synced_ms(lambda: lm_serve_steps(
+            cfg, params, prompts, tokens, ctx, gather))
+    launches = read_counts()
+    want = ref["logits"][:, rows]
+    free = lm_gap(logits.cpu(), want, c["rtol"], c["atol"])
+    out = dict(rows=[rows.start, rows.stop], ms=ms, launches=launches,
+               flipped_routings=int(sum(flips)), free=free,
+               tokens_equal=bool(torch.equal(greedy.T.cpu(),
+                                             ref["tokens"][rows])),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if out["flipped_routings"]:
+        with routing_rows(ref["routing"], "pin", part, parts):
+            logits, greedy = lm_serve_steps(cfg, params, prompts, tokens,
+                                            ctx, gather)
+        out["pinned"] = lm_gap(logits.cpu(), want, c["rtol"], c["atol"])
+        out["tokens_equal_pinned"] = bool(torch.equal(
+            greedy.T.cpu(), ref["tokens"][rows]))
+    scfg = engine.ServeConfig(max_seq=c["gen_prompt"] + c["gen_tokens"],
+                              temperature=c["temperature"], seed=5)
+    sampled = engine.generate(cfg, params, prompts[:, :c["gen_prompt"]],
+                              scfg, c["gen_tokens"], ctx=ctx)
+    out["sampled"] = sampled.cpu()
+    out["sampled_equal"] = bool(torch.equal(sampled.cpu(),
+                                            ref["sampled"][rows]))
+    out["greedy"] = greedy.T.cpu()
+    return out
+
+
+def lm_excess(x, ref, c) -> torch.Tensor:
+    """Each element's |x - ref| past atol + rtol |ref| (<= 0: within)."""
+    return (x - ref).abs() - c["atol"] - c["rtol"] * ref.abs()
+
+
+def lm_train_rank(ctx, mesh, tmp) -> dict:
+    """(b) on one of the 4 ranks (see ``LM_MESH``): the first batch's
+    gradients, psummed over data, against one device's; one ZeRO-1 AdamW
+    update with one device's gradients against one device's update; the
+    2 steps against one device's."""
+    c = LM_MESH["train"]
+    cfg, tcfg, dcfg = lm_train_setup()
+    specs = [sp for _, sp in ptree.flatten(schema.param_specs(cfg, ctx),
+                                           dicts_only=True)]
+
+    def load(name):
+        return torch.load(os.path.join(tmp, name), mmap=True,
+                          weights_only=True)
+
+    gen = torch.Generator(DEVICE).manual_seed(62)
+    st = train_step.init_train_state(cfg, tcfg, gen, DEVICE, ctx=ctx)
+    start = {p: x.clone() for p, x in ptree.flatten(st["params"])}
+    batch = data_mod.shard_batch(data_mod.batch_at(dcfg, 0), DEVICE, mesh)
+    _, _, grads = train_step._grads(cfg, tcfg, st["params"], batch, ctx)
+    grads = train_step._psum_tree(grads, ctx, ctx.axes("batch"))
+    zero, grad_rel, grad_leaf = [], 0.0, None
+    want = load("train_ref_grads.pt")
+    mine = []
+    for (path, g), sp in zip(ptree.flatten(grads), specs):
+        if float(g.abs().max()) == 0.0:
+            zero.append(path)
+        ref = ctx.local(want[path], sp).to(DEVICE)
+        rel = float((g - ref).abs().max()) / max(
+            float(want[path].abs().max()), 1e-30)
+        if rel > grad_rel:
+            grad_rel, grad_leaf = rel, path
+        mine.append(ref)
+    del grads, batch, want
+    # one ZeRO-1 update with one device's gradients
+    sh = train_step.state_shardings(cfg, tcfg, ctx)
+    adamw_mod.apply_updates(
+        tcfg.adamw, st["params"], ptree.unflatten(st["params"], mine),
+        st["opt"], lr_scale=lm_first_lr_scale(tcfg, st["opt"]), ctx=ctx,
+        specs=sh["params"], mspecs=sh["opt"]["m"])
+    del mine
+    want = load("train_ref_update.pt")
+    update_excess, update_leaf = -float("inf"), None
+    for (path, x), sp in zip(ptree.flatten(st["params"]), specs):
+        ref = ctx.local(want[path], sp).to(DEVICE)
+        excess = float(lm_excess(x, ref, c).max())
+        if excess > update_excess:
+            update_excess, update_leaf = excess, path
+    del st, want
+    free_model()
+    # the 2 steps
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, ms, launches = lm_train_steps(cfg, tcfg, dcfg, ctx, mesh,
+                                                 c["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    want = load("train_ref.pt")
+    path_rel, path_leaf, over, elements = 0.0, None, 0, 0
+    for (path, x), sp in zip(ptree.flatten(state["params"]), specs):
+        ref = ctx.local(want[path], sp).to(DEVICE)
+        rel = float((x - ref).norm() / (ref - start[path]).norm().clamp_min(
+            1e-30))
+        if rel > path_rel:
+            path_rel, path_leaf = rel, path
+        over += int((lm_excess(x, ref, c) > 0).sum())
+        elements += x.numel()
+    return dict(losses=losses, ms_per_step=ms, launches_per_step=launches,
+                peak_bytes=peak, leaves_without_gradient=zero,
+                grad_max_rel=grad_rel, grad_worst_leaf=grad_leaf,
+                update_max_excess=update_excess,
+                update_worst_leaf=update_leaf,
+                path_max_rel=path_rel, path_worst_leaf=path_leaf,
+                path_elements_past_rtol_atol=over, path_elements=elements,
+                local_param_count=schema.param_count_actual(state["params"]))
+
+
+def lm_seq_rank(ctx) -> dict:
+    """(c) on one of two ranks: the prompt prefilled on one device's
+    layout (every rank the same), its cache cut to this rank's slab of
+    positions, then the decode steps sharded against the unsharded
+    ones."""
+    c, cfg = LM_MESH["seq"], lm_mesh_cfg("seq")
+    gen = torch.Generator(DEVICE).manual_seed(63)
+    params = schema.init_params(cfg, gen, DEVICE)
+    toks = torch.randint(0, cfg.vocab_size, (1, c["prompt"] + c["decode"]),
+                         generator=gen, device=DEVICE, dtype=torch.int32)
+    with torch.no_grad():
+        reset_counts()
+        _, cache = transformer.prefill_forward(
+            cfg, params, {"tokens": toks[:, :c["prompt"]]},
+            max_seq=c["max_seq"])
+        prefill_launches = read_counts()
+        mine = transformer.local_cache(cfg, cache, ctx, seq_sharded=True)
+        slab = mine["k"].shape[3]
+        lo = ctx.index(ctx.axes("seq_shard")) * slab
+        want, got, changed, ms = [], [], [], []
+        for t in range(c["prompt"], c["prompt"] + c["decode"]):
+            step = {"tokens": toks[:, t:t + 1]}
+            lg, cache = transformer.decode_step(cfg, params, cache, step)
+            want.append(lg.cpu())
+            before = mine["k"].clone()
+            (lg, mine), t_ms = synced_ms(lambda: transformer.decode_step(
+                cfg, params, mine, step, ctx=ctx, seq_sharded=True))
+            ms.append(t_ms)
+            got.append(lg.cpu())
+            diff = (mine["k"] != before).any(dim=(0, 1, 2, 4))
+            changed.append(diff.nonzero()[:, 0].add(lo).tolist())
+    gap = lm_gap(torch.stack(got), torch.stack(want), c["rtol"], c["atol"])
+    owned = [[t] if lo <= t < lo + slab else []
+             for t in range(c["prompt"], c["prompt"] + c["decode"])]
+    return dict(gap=gap, slab=[lo, lo + slab], changed=changed,
+                owned=owned, writes_owned_only=changed == owned,
+                ms_per_step=ms, prefill_launches=prefill_launches)
+
+
+def phase_lm_mesh(state) -> None:
+    """The LM model mesh: (a) serving and (b) training on 4 gloo ranks
+    (data 2 x model 2) on the one card against the single-device port;
+    (c) the sequence-sharded decode on 2 ranks; (d) NCCL at world 1 in
+    this process, bit for bit against the path without a mesh."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    free_model()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        nccl = lm_mesh_nccl(state, tmp)
+        emit("lm_mesh", case="(d) NCCL world 1, (1, 1) mesh", **nccl,
+             seconds=time.perf_counter() - t0)
+        ref_train = torch.load(os.path.join(tmp, "train_ref_meta.pt"))
+        t0 = time.perf_counter()
+        ranks = spawn_lm_ranks(LM_MESH["ranks"], "ab", tmp)
+        ab_s = time.perf_counter() - t0
+        ref = torch.load(os.path.join(tmp, "serve_ref.pt"),
+                         weights_only=False)
+        t0 = time.perf_counter()
+        seq = spawn_lm_ranks(LM_MESH["seq_ranks"], "seq", tmp)
+        seq_s = time.perf_counter() - t0
+
+    # (a) serving
+    c = LM_MESH["serve"]
+    per_rank = []
+    for r in ranks:
+        s = r["serve"]
+        what = f"lm_mesh(a) rank {r['rank']} {r['coords']}"
+        held = s.get("pinned", s["free"])
+        check(held["within"], f"{what}: logits exceed rtol {c['rtol']}, "
+              f"atol {c['atol']} of one device's by {held['max_excess']} "
+              f"({'routing pinned' if 'pinned' in s else 'free'})")
+        check(s.get("tokens_equal_pinned", s["tokens_equal"]),
+              f"{what}: greedy tokens differ from one device's")
+        check(s["sampled_equal"], f"{what}: sampled tokens differ from one "
+              f"device's rows")
+        check(s["launches"]["flash_attention"] == c["layers"],
+              f"{what}: flash_attention launched "
+              f"{s['launches']['flash_attention']} times")
+        per_rank.append(dict(
+            rank=r["rank"], coords=r["coords"], rows=s["rows"],
+            ms_prefill_and_decode=s["ms"], launches=s["launches"],
+            flipped_routings=s["flipped_routings"], free=s["free"],
+            pinned=s.get("pinned"), tokens_equal=s["tokens_equal"],
+            sampled_equal=s["sampled_equal"], peak_bytes=s["peak_bytes"]))
+    by_data = {}
+    for r in ranks:
+        by_data.setdefault(r["coords"]["data"], []).append(r["serve"])
+    for d, group in by_data.items():
+        check(all(torch.equal(g["sampled"], group[0]["sampled"])
+                  and torch.equal(g["greedy"], group[0]["greedy"])
+                  for g in group), f"lm_mesh(a): the ranks of data shard "
+              f"{d} emit different tokens")
+    emit("lm_mesh", case="(a) serving, expert parallel, 4 gloo ranks",
+         arch=c["arch"], layers=c["layers"], dtype="float32",
+         capacity_factor=c["cf"], mesh=LM_MESH["mesh"],
+         prompts=[c["batch"], c["seq"]], decode_steps=c["decode"],
+         limits=dict(rtol=c["rtol"], atol=c["atol"]),
+         reference_tokens=ref["tokens"].tolist(), per_rank=per_rank,
+         ranks_wall_s=ab_s)
+
+    # (b) training
+    c = LM_MESH["train"]
+    per_rank = []
+    for r in ranks:
+        t = r["train"]
+        what = f"lm_mesh(b) rank {r['rank']} {r['coords']}"
+        for a, b in zip(t["losses"], ref_train["losses"]):
+            check(abs(a - b) <= c["loss_tol"], f"{what}: loss {a} against "
+                  f"one device's {b} (limit {c['loss_tol']})")
+        check(t["grad_max_rel"] <= c["grad_rel"], f"{what}: the first "
+              f"batch's gradients differ from one device's by "
+              f"{t['grad_max_rel']} of the leaf's max at "
+              f"{t['grad_worst_leaf']} (limit {c['grad_rel']})")
+        check(t["update_max_excess"] <= 0, f"{what}: the ZeRO-1 update "
+              f"with one device's gradients exceeds rtol {c['rtol']}, atol "
+              f"{c['atol']} by {t['update_max_excess']} at "
+              f"{t['update_worst_leaf']}")
+        check(t["path_max_rel"] <= c["path_rel"], f"{what}: the params "
+              f"after {c['steps']} steps differ from one device's by "
+              f"{t['path_max_rel']} of its change's norm at "
+              f"{t['path_worst_leaf']} (limit {c['path_rel']})")
+        check(not t["leaves_without_gradient"], f"{what}: leaves without a "
+              f"gradient: {t['leaves_without_gradient']}")
+        for n in t["launches_per_step"]:
+            check(n == c["launches"], f"{what}: kernel launches a step "
+                  f"{n}, not {c['launches']}")
+        per_rank.append(dict(rank=r["rank"], coords=r["coords"], **{
+            k: v for k, v in t.items() if k != "leaves_without_gradient"}))
+    keep_counts(state, "lm_mesh[gloo train step, rank 0]", dict(
+        {name: 0 for name in KERNEL_MODULES},
+        **ranks[0]["train"]["launches_per_step"][-1]))
+    keep_counts(state, "lm_mesh[gloo serve, rank 0]",
+                ranks[0]["serve"]["launches"])
+    emit("lm_mesh", case="(b) training, TP x DP x ZeRO-1, 4 gloo ranks",
+         arch=c["arch"], layers=c["layers"], dtype="float32",
+         optimizer="adamw", remat="dots", mesh=LM_MESH["mesh"],
+         batch=[c["batch"], c["seq"]], steps=c["steps"],
+         losses_one_device=ref_train["losses"],
+         least_leaf_move_one_update=ref_train["least_leaf_move"],
+         limits=dict(loss=c["loss_tol"], rtol=c["rtol"], atol=c["atol"],
+                     grad_rel=c["grad_rel"], path_rel=c["path_rel"]),
+         per_rank=per_rank,
+         collectives_by_rank=[r["collectives"] for r in ranks])
+
+    # (c) sequence-sharded decode
+    c = LM_MESH["seq"]
+    for r in seq:
+        what = f"lm_mesh(c) rank {r['rank']}"
+        check(r["gap"]["within"], f"{what}: logits exceed rtol "
+              f"{c['rtol']}, atol {c['atol']} of the unsharded decode by "
+              f"{r['gap']['max_excess']}")
+        check(r["writes_owned_only"], f"{what}: positions written "
+              f"{r['changed']}, owned {r['owned']}")
+    emit("lm_mesh", case="(c) sequence-sharded decode, 2 gloo ranks",
+         arch=c["arch"], layers=c["layers"], dtype="float32",
+         prompt=c["prompt"], max_seq=c["max_seq"], decode_steps=c["decode"],
+         mesh={"data": LM_MESH["seq_ranks"], "model": 1},
+         limits=dict(rtol=c["rtol"], atol=c["atol"]),
+         per_rank=[{k: v for k, v in r.items()} for r in seq],
+         ranks_wall_s=seq_s)
+    emit("lm_mesh_done", seconds=time.perf_counter() - t_phase,
+         clocks="host clock between device synchronizations; ranks: "
+                "processes on the one card over gloo (CUDA tensors staged "
+                "through host memory); peaks are each rank's "
+                "torch.cuda.max_memory_allocated")
+
+
+
 FT_RANK = 16
 FT_SLOTS = 8
 
@@ -5531,7 +6191,18 @@ def phase_examples(state) -> None:
                 "kernel library's load included")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """No arguments: every phase (the contract's run).  ``--only a,b``
+    runs the named phases alone (their ``phase_`` names without the
+    prefix), prints no ``kernels`` line and ends with ``{"only": [...],
+    "ok": true}``: for working on a phase, not a whole run."""
+    argv = sys.argv[1:] if argv is None else argv
+    only = set()
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = set(argv[1].split(","))
+    elif argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script only "
               "runs on the GPU", file=sys.stderr)
@@ -5570,10 +6241,15 @@ def main() -> int:
                   phase_lm_families, phase_lm_moe_encdec, phase_lm_train,
                   phase_checkpoint,
                   phase_observe, phase_lint, phase_trace,
-                  phase_drift_stages, phase_distributed,
+                  phase_drift_stages, phase_distributed, phase_lm_mesh,
                   phase_ft, phase_examples):
+        if only and phase.__name__[len("phase_"):] not in only:
+            continue
         phase(state)
         torch.cuda.synchronize()
+    if only:
+        print(json.dumps({"only": sorted(only), "ok": True}), flush=True)
+        return 0
 
     by_solve = state["launches_by_solve"]
     kernels = []

@@ -60,6 +60,13 @@ sharded, any other onto the mesh's device gathered; a file saved on 8
 slots restores onto 1, and the other way round.  Without ``shardings``
 a rebuilt state re-shards itself onto the active stream pool when that
 has one slot a block (``StreamingSVDState.reshard_for_restore``).
+
+An LM train state on the model mesh (``ctx``, ``models/layers.ShardCtx``)
+holds each rank's blocks; ``save(shardings=, ctx=)`` takes its spec tree
+(``train.step.state_shardings``), gathers every leaf to its full value
+(every rank calls it) and rank 0 writes, so the file is the one device's,
+format and signature included; ``restore(shardings=, ctx=)`` reads the
+file and keeps each rank's block.
 """
 from __future__ import annotations
 
@@ -280,12 +287,35 @@ def _decode_leaf(v):
     return v
 
 
-def tree_signature(tree) -> str:
+def _spec_map(fn, tree, shardings):
+    """``fn(leaf, spec)`` over the tensors of ``tree`` by ``shardings`` (a
+    spec tree: nested dicts, specs as tuples); a tensor it does not name
+    takes the spec ``()`` (whole)."""
+    if isinstance(tree, dict):
+        sub = shardings if isinstance(shardings, dict) else {}
+        return {k: _spec_map(fn, v, sub.get(k)) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, shardings if isinstance(shardings, tuple) else ())
+    return tree
+
+
+def _sharded(shardings, ctx) -> bool:
+    return ctx is not None and ctx.mesh is not None and shardings is not None
+
+
+def tree_signature(tree, *, shardings=None, ctx=None) -> str:
     """Structure hash: array shapes / numpy dtype names plus — for the
     containers — the type and aux CONTENT (aux is static structure, so
     e.g. a state with different counters signs differently, deliberately;
     string leaves hash by value).  A port tree signs the same as the
-    reference tree it is written as."""
+    reference tree it is written as.  A tree of a rank's blocks
+    (``shardings`` and ``ctx``) signs as its full value."""
+    if _sharded(shardings, ctx):
+        def full(x, spec):
+            shape = [d * ctx.size(ax) for d, ax in zip(
+                x.shape, tuple(spec) + (None,) * x.dim())]
+            return torch.empty(shape, dtype=x.dtype, device="meta")
+        tree = _spec_map(full, tree, shardings)
     flat = _flatten(tree)
 
     def desc(k, v):
@@ -321,11 +351,16 @@ class Checkpointer:
 
     # -- save ----------------------------------------------------------
     def save(self, step: int, tree, *, blocking: bool = False,
-             extra_meta: Optional[dict] = None) -> str:
+             extra_meta: Optional[dict] = None, shardings=None,
+             ctx=None) -> str:
         """Write ``tree`` as step ``step``; returns the step's directory.
         Every tensor is on the host before this returns; the file is
-        written in the background unless ``blocking``."""
+        written in the background unless ``blocking``.  A tree of a rank's
+        blocks (``shardings``: its spec tree, ``ctx``: the mesh's
+        ``ShardCtx``) is gathered first, every rank calling."""
         self.wait()
+        if _sharded(shardings, ctx):
+            tree = _spec_map(ctx.gather, tree, shardings)
         flat = _flatten(tree)
         host = {k: _encode_leaf(k, v) for k, v in flat.items()}
         path = os.path.join(self.directory, f"step_{step:08d}")
@@ -383,16 +418,20 @@ class Checkpointer:
 
     def restore(self, step: Optional[int] = None, *, device=None,
                 expect_signature: Optional[str] = None,
-                reshard: bool = True, shardings=None):
+                reshard: bool = True, shardings=None, ctx=None):
         """Load a checkpoint (the latest when ``step`` is None) onto
         ``device`` (``None``: the mesh's device when ``shardings`` is a
         mesh, else the GPU).  Returns ``(tree, meta)``.  ``shardings``
-        places the tree over a block mesh (see the module docstring);
+        places the tree over a block mesh (see the module docstring), or
+        with ``ctx`` is a spec tree: each rank keeps its blocks;
         ``reshard=False`` skips a rebuilt container's own re-placement
         hook (``reshard_for_restore``)."""
         if device is None and isinstance(shardings, collectives.BlockMesh):
             device = shardings.device
+        if device is None and ctx is not None and ctx.mesh is not None:
+            device = ctx.mesh.device
         device = resolve_device(device)
+        blocks = _sharded(shardings, ctx)
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -408,16 +447,21 @@ class Checkpointer:
             flat = {k: _decode_leaf(arrs[k]) for k in arrs.files}
 
         def put(x):
-            # Type/aux marker strings stay on the host.
+            # Type/aux marker strings stay on the host; a rank's blocks
+            # are cut on the host.
             if x is None or (isinstance(x, np.ndarray)
                              and x.dtype.kind == "U"):
                 return x
-            return torch.as_tensor(x, device=device)
+            return torch.as_tensor(x, device="cpu" if blocks else device)
 
         tree = _unflatten({k: put(v) for k, v in flat.items()})
         # Rebuild the containers LAST, once every array child is placed
         # (markers are consumed here), then place them over the meshes.
-        return _place(_rebuild(tree, reshard), shardings), meta
+        tree = _rebuild(tree, reshard)
+        if blocks:
+            return _spec_map(lambda x, sp: ctx.local(x, sp).to(
+                device, copy=True), tree, shardings), meta
+        return _place(tree, shardings), meta
 
 
 def _place(node, sh):

@@ -6,9 +6,9 @@ Markov chain over a small alphabet lifted into the vocab, so that a small
 model trained for a few hundred steps shows a cleanly falling loss.  The
 arrays are the reference's (``repro.data.tokens``) bit for bit.
 
-``shard_batch`` puts a host batch on one device.  The reference's sharded
-loader (global arrays over a mesh) belongs to the LM model mesh
-(ROADMAP.md item 16): a mesh raises ``NotImplementedError``.
+``shard_batch`` puts a host batch on one device, or on the model mesh
+this rank's rows of it (the reference's sharded loader builds global
+arrays from each host's slice; here each rank holds its block).
 """
 from __future__ import annotations
 
@@ -64,12 +64,29 @@ def iterate(cfg: DataConfig, start_step: int = 0
         step += 1
 
 
-def shard_batch(batch: Dict[str, np.ndarray], device, mesh=None
-                ) -> Dict[str, torch.Tensor]:
-    """The host batch as tensors on ``device`` (dtypes kept)."""
+def shard_batch(batch: Dict[str, np.ndarray], device, mesh=None,
+                batch_axes=("pod", "data")) -> Dict[str, torch.Tensor]:
+    """The host batch as tensors on ``device`` (dtypes kept).  With
+    ``mesh`` (a ``BlockMesh`` of one slot in this process) each leaf's
+    first dim splits over the mesh's ``batch_axes`` and this rank takes
+    its rows (flat index over those axes, in their order)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch over a mesh: the LM model mesh is not ported yet "
-            "(ROADMAP.md item 16)")
+        if mesh.n_local != 1:
+            raise ValueError(
+                f"shard_batch: {mesh!r} holds {mesh.n_local} slots in this "
+                f"process; the LM runs one slot a process")
+        axes = tuple(a for a in batch_axes if a in mesh.axis_names)
+        n = mesh.axis_size(axes) if axes else 1
+        i = mesh.flat_index(mesh.local_slots[0], axes) if axes else 0
+
+        def rows(v):
+            if v.shape[0] % n:
+                raise ValueError(
+                    f"shard_batch: {v.shape[0]} rows do not split over "
+                    f"{axes} ({n} ranks)")
+            step = v.shape[0] // n
+            return v[i * step:(i + 1) * step]
+
+        batch = {k: rows(v) for k, v in batch.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}

@@ -162,30 +162,35 @@ def recover(checkpointer, cfg=None, tcfg=None, survivors: Sequence = (), *,
     Returns ``(mesh, ctx, state, meta)``.
 
     ``survivors`` is the BlockMesh of the surviving slots (every slot of it
-    survives).  ``shardings_fn(ctx) -> shardings`` builds the restore
-    placement for the new mesh (``Checkpointer.restore(shardings=)``: a
-    BlockMesh, or dicts of them keyed like the tree).  The port has no
-    model sharding context, so ``ctx`` is the new mesh itself.  The train
-    path of the reference (``shardings_fn`` omitted: the train stack's
-    state shardings) waits for the port's train stack, so here
-    ``shardings_fn`` is required; nothing of a training module is ever
-    imported.
+    survives); ``ctx`` is ``ShardCtx(mesh)``, the LM's context on the new
+    mesh (so a ``LocalMesh`` of survivors must plan to one slot: the LM
+    runs one slot a process).  ``shardings_fn(ctx) -> shardings`` builds
+    the restore placement for the new mesh (``Checkpointer.restore(
+    shardings=)``: a BlockMesh, or dicts of them keyed like the tree) and
+    the module never touches the train stack (the tests run without it).
+    When omitted, the train path: ``train.step.state_shardings(cfg, tcfg,
+    ctx)``, imported here, and the state restored as each rank's blocks of
+    it (``restore(shardings=, ctx=)``).  Every rank of the pool calls
+    this; one outside the plan gets ``mesh`` None and a full state.
     """
+    from repro_torch.models.layers import ShardCtx
+
     if not isinstance(survivors, collectives.BlockMesh):
         if not survivors:
             raise ValueError("recover needs a non-empty survivor list")
         raise TypeError(
             f"recover takes the survivors as a BlockMesh (LocalMesh / "
             f"ProcessGroupMesh); got {type(survivors)}")
-    if shardings_fn is None:
-        raise NotImplementedError(
-            "recover needs shardings_fn=: the restore shardings of a "
-            "training state come from the train stack, which the port "
-            "does not have yet")
     plan = plan_mesh(survivors.size, model_parallel=model_parallel)
     mesh = build_mesh(plan, survivors)
-    ctx = mesh
-    shardings = shardings_fn(ctx)
+    ctx = ShardCtx(mesh=mesh)
+    device = survivors.device if mesh is None else mesh.device
+    if shardings_fn is not None:
+        state, meta = checkpointer.restore(device=device,
+                                           shardings=shardings_fn(ctx))
+        return mesh, ctx, state, meta
+    from repro_torch.train.step import state_shardings
+
     state, meta = checkpointer.restore(
-        device=None if mesh is None else mesh.device, shardings=shardings)
+        device=device, shardings=state_shardings(cfg, tcfg, ctx), ctx=ctx)
     return mesh, ctx, state, meta

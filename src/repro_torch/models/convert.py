@@ -18,9 +18,14 @@ from repro_torch.models import schema
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
-                      device=None) -> Dict[str, Any]:
+                      device=None, ctx=None) -> Dict[str, Any]:
     """Numpy pytree -> tensors on ``device`` (default: the GPU), dtype
-    kept.  Raises on a missing, extra or mis-shaped leaf."""
+    kept.  Raises on a missing, extra or mis-shaped leaf.  On a model mesh
+    (``ctx``, a ``layers.ShardCtx``) this rank's blocks of them
+    (``schema.shard_params``)."""
+    if ctx is not None and ctx.mesh is not None:
+        return schema.shard_params(params_from_numpy(cfg, tree, device),
+                                   cfg, ctx)
     device = resolve_device(device)
     shapes = schema.param_shapes(cfg)
 

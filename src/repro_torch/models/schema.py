@@ -22,7 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import gated
+from repro_torch.models.layers import ShardCtx, gated
 
 PORTED_FAMILIES = ("hybrid", "ssm", "dense", "vlm", "moe", "encdec")
 
@@ -37,9 +37,10 @@ def require_ported(cfg: ModelConfig) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class PD:
-    """Param descriptor: shape and init rule."""
+    """Param descriptor: shape, logical axes, init rule."""
 
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"   # normal | zeros | ones | a_log | dt_bias | embed | conv
     fan_in: Optional[int] = None
 
@@ -48,23 +49,25 @@ def _attn(cfg: ModelConfig) -> Dict[str, PD]:
     d, hp, hkv, dh = (cfg.d_model, cfg.padded_heads, cfg.padded_kv_heads,
                       cfg.head_dim)
     return {
-        "wq": PD((d, hp, dh), fan_in=d),
-        "wk": PD((d, hkv, dh), fan_in=d),
-        "wv": PD((d, hkv, dh), fan_in=d),
-        "wo": PD((hp, dh, d), fan_in=hp * dh),
+        "wq": PD((d, hp, dh), (None, "heads", None), fan_in=d),
+        "wk": PD((d, hkv, dh), (None, "kv_heads", None), fan_in=d),
+        "wv": PD((d, hkv, dh), (None, "kv_heads", None), fan_in=d),
+        "wo": PD((hp, dh, d), ("heads", None, None), fan_in=hp * dh),
     }
 
 
 def _mlp(cfg: ModelConfig) -> Dict[str, PD]:
     d, f = cfg.d_model, cfg.d_ff
-    out = {"w_up": PD((d, f), fan_in=d), "w_down": PD((f, d), fan_in=f)}
+    out = {"w_up": PD((d, f), (None, "mlp"), fan_in=d),
+           "w_down": PD((f, d), ("mlp", None), fan_in=f)}
     if gated(cfg.activation):
-        out["w_gate"] = PD((d, f), fan_in=d)
+        out["w_gate"] = PD((d, f), (None, "mlp"), fan_in=d)
     return out
 
 
 def _norm(cfg: ModelConfig) -> PD:
-    return PD((cfg.d_model,), init="zeros" if cfg.sandwich_norm else "ones")
+    return PD((cfg.d_model,), (None,),
+              init="zeros" if cfg.sandwich_norm else "ones")
 
 
 def _dense_layer(cfg: ModelConfig) -> Dict[str, PD]:
@@ -79,10 +82,10 @@ def _moe_layer(cfg: ModelConfig) -> Dict[str, PD]:
     d, e, f = cfg.d_model, cfg.num_experts, cfg.d_ff
     return {
         "ln1": _norm(cfg), "ln2": _norm(cfg), **_attn(cfg),
-        "router": PD((d, e), fan_in=d),
-        "w_gate": PD((e, d, f), fan_in=d),
-        "w_up": PD((e, d, f), fan_in=d),
-        "w_down": PD((e, f, d), fan_in=f),
+        "router": PD((d, e), (None, None), fan_in=d),
+        "w_gate": PD((e, d, f), ("expert", None, None), fan_in=d),
+        "w_up": PD((e, d, f), ("expert", None, None), fan_in=d),
+        "w_down": PD((e, f, d), ("expert", None, None), fan_in=f),
     }
 
 
@@ -98,20 +101,20 @@ def _ssm_layer(cfg: ModelConfig) -> Dict[str, PD]:
     g, n, h = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     w = cfg.ssm_conv_width
     return {
-        "ln": PD((d,), init="ones"),
-        "wz": PD((d, di), fan_in=d),
-        "wx": PD((d, di), fan_in=d),
-        "wbc": PD((d, 2 * g * n), fan_in=d),
-        "wdt": PD((d, h), fan_in=d),
-        "conv_x_w": PD((w, di), init="conv"),
-        "conv_x_b": PD((di,), init="zeros"),
-        "conv_bc_w": PD((w, 2 * g * n), init="conv"),
-        "conv_bc_b": PD((2 * g * n,), init="zeros"),
-        "dt_bias": PD((h,), init="dt_bias"),
-        "a_log": PD((h,), init="a_log"),
-        "d_skip": PD((h,), init="ones"),
-        "norm_w": PD((di,), init="ones"),
-        "out_proj": PD((di, d), fan_in=di),
+        "ln": PD((d,), (None,), init="ones"),
+        "wz": PD((d, di), (None, "mlp"), fan_in=d),
+        "wx": PD((d, di), (None, "mlp"), fan_in=d),
+        "wbc": PD((d, 2 * g * n), (None, None), fan_in=d),
+        "wdt": PD((d, h), (None, "ssm_heads"), fan_in=d),
+        "conv_x_w": PD((w, di), (None, "mlp"), init="conv"),
+        "conv_x_b": PD((di,), ("mlp",), init="zeros"),
+        "conv_bc_w": PD((w, 2 * g * n), (None, None), init="conv"),
+        "conv_bc_b": PD((2 * g * n,), (None,), init="zeros"),
+        "dt_bias": PD((h,), ("ssm_heads",), init="dt_bias"),
+        "a_log": PD((h,), ("ssm_heads",), init="a_log"),
+        "d_skip": PD((h,), ("ssm_heads",), init="ones"),
+        "norm_w": PD((di,), ("mlp",), init="ones"),
+        "out_proj": PD((di, d), ("mlp", None), fan_in=di),
     }
 
 
@@ -121,11 +124,11 @@ def param_schema(cfg: ModelConfig) -> Dict[str, Any]:
     require_ported(cfg)
     d, vp = cfg.d_model, cfg.padded_vocab
     schema: Dict[str, Any] = {
-        "embed": PD((vp, d), init="embed"),
+        "embed": PD((vp, d), ("vocab", "embed"), init="embed"),
         "final_norm": _norm(cfg),
     }
     if not cfg.tie_embeddings:
-        schema["lm_head"] = PD((d, vp), fan_in=d)
+        schema["lm_head"] = PD((d, vp), ("embed", "vocab"), fan_in=d)
     if cfg.family in ("dense", "vlm"):
         schema["layers"] = _dense_layer(cfg)
     elif cfg.family == "moe":
@@ -135,8 +138,9 @@ def param_schema(cfg: ModelConfig) -> Dict[str, Any]:
     elif cfg.family == "encdec":
         # learned positions; the decoder's sized for the reference's
         # largest decode shape (32,768), past whisper's published 448
-        schema["enc_pos"] = PD((cfg.encoder_seq, d), init="embed")
-        schema["dec_pos"] = PD((32_768, d), init="embed")
+        schema["enc_pos"] = PD((cfg.encoder_seq, d), (None, "embed"),
+                               init="embed")
+        schema["dec_pos"] = PD((32_768, d), (None, "embed"), init="embed")
         schema["enc_layers"] = _dense_layer(cfg)
         schema["enc_final_norm"] = _norm(cfg)
         schema["layers"] = _encdec_dec_layer(cfg)
@@ -202,13 +206,82 @@ def _init_leaf(pd: PD, shape, gen: torch.Generator, dtype) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
-                dtype=torch.float32) -> Dict[str, Any]:
+                dtype=torch.float32, *, ctx: Optional[ShardCtx] = None
+                ) -> Dict[str, Any]:
     """Materialised parameters (float32 master weights by default) on
     ``device`` (default: the GPU).  Random leaves are drawn on the
-    generator's device, in schema order, then moved."""
+    generator's device, in schema order, then moved.  On a mesh
+    (``ctx``) each leaf is drawn whole, as on one device, and this rank
+    keeps its block of it (``param_specs``)."""
     device = resolve_device(device)
-    return map_schema(cfg, lambda pd, shape, path: _init_leaf(
-        pd, shape, generator, dtype).to(device))
+    specs = param_specs(cfg, ctx) if ctx is not None else None
+
+    def build(pd, shape, path):
+        leaf = _init_leaf(pd, shape, generator, dtype).to(device)
+        if specs is None or ctx.mesh is None:
+            return leaf
+        return ctx.local(leaf, _at(specs, path)).clone()
+
+    return map_schema(cfg, build)
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32) -> Dict[str, Any]:
+    """The parameters' shapes and dtype on the ``meta`` device (no
+    storage): the counterpart of the reference's ShapeDtypeStructs."""
+    return map_schema(cfg, lambda pd, shape, path: torch.empty(
+        shape, dtype=dtype, device="meta"))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def param_specs(cfg: ModelConfig, ctx: ShardCtx):
+    """The spec tree (a spec: one entry a dim, None or a tuple of mesh
+    axes; stacked subtrees get a leading replicated dim).  Dims whose size
+    doesn't divide the assigned mesh axes fall back to replicated (e.g. 10
+    KV heads on a 16-way model axis)."""
+
+    def build(pd: PD, shape, path):
+        axes = tuple(ctx.checked(lg, s)
+                     for lg, s in zip(pd.logical, pd.shape))
+        if len(shape) > len(pd.shape):
+            axes = (None,) + axes
+        return axes
+
+    return map_schema(cfg, build)
+
+
+def param_shardings(cfg: ModelConfig, ctx: ShardCtx):
+    """The spec tree on a mesh, None without one (the reference's
+    NamedShardings are specs over its mesh; here the mesh is ctx's)."""
+    if ctx.mesh is None:
+        return None
+    return param_specs(cfg, ctx)
+
+
+def map_specs(fn: Callable, specs, *trees):
+    """``fn(spec, *leaves)`` over a spec tree and trees of its nesting
+    (dicts; a spec is a tuple, so the trees' own ``tree_map`` would walk
+    into it)."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v, *(t[k] for t in trees))
+                for k, v in specs.items()}
+    return fn(specs, *trees)
+
+
+def shard_params(params, cfg: ModelConfig, ctx: ShardCtx):
+    """Full parameters -> this rank's blocks (copies)."""
+    return map_specs(lambda sp, x: ctx.local(x, sp).clone(),
+                     param_specs(cfg, ctx), params)
+
+
+def gather_params(params, cfg: ModelConfig, ctx: ShardCtx):
+    """This rank's blocks -> the full parameters (every rank)."""
+    return map_specs(lambda sp, x: ctx.gather(x, sp),
+                     param_specs(cfg, ctx), params)
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:

@@ -6,15 +6,18 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 
-def flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+def flatten(tree, prefix: str = "", *, dicts_only: bool = False
+            ) -> List[Tuple[str, Any]]:
     """[(path, leaf)] in the reference's leaf order: dict keys sorted,
-    lists and tuples in order."""
+    lists and tuples in order (``dicts_only``: lists and tuples are leaves,
+    as the specs of a spec tree are)."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out += flatten(tree[k], f"{prefix}/{k}" if prefix else str(k))
+            out += flatten(tree[k], f"{prefix}/{k}" if prefix else str(k),
+                           dicts_only=dicts_only)
         return out
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not dicts_only:
         out = []
         for i, v in enumerate(tree):
             out += flatten(v, f"{prefix}/{i}" if prefix else str(i))
@@ -22,8 +25,8 @@ def flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix, tree)]
 
 
-def leaves(tree) -> List[Any]:
-    return [leaf for _, leaf in flatten(tree)]
+def leaves(tree, *, dicts_only: bool = False) -> List[Any]:
+    return [leaf for _, leaf in flatten(tree, dicts_only=dicts_only)]
 
 
 def tree_map(fn: Callable, tree, *rest):

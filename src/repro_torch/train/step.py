@@ -1,16 +1,22 @@
 """The training step: loss and gradients (with micro-batched
 accumulation), the LR schedule, then AdamW or Ranky-GaLore.
 
-The counterpart of ``repro.train.step`` on one device.  The train state is
+The counterpart of ``repro.train.step``.  The train state is
 {"params", "opt", "seed"}: the reference's ``rng`` key becomes an integer
 ``seed``, the root of a seed chain (step t's GaLore repair draws come
 from ``derive_seed(seed, t)``), as ``StreamingSVDState`` chains its own;
 ``checkpoint_tree`` writes it as the reference's ``uint32[2]`` key, so a
 train-state file crosses between the two packages.  Gradients are
 ``torch.autograd.grad`` over the parameter leaves; the update writes the
-parameters and moments in place (``optim/adamw.py``).  The reference's
-``abstract_train_state`` and ``state_shardings`` (ZeRO-sharded moments)
-belong to the LM model mesh (ROADMAP.md item 16).
+parameters and moments in place (``optim/adamw.py``).
+
+On the model mesh (``ctx``, ``models/layers.ShardCtx``) the state holds
+the rank's blocks: the parameters by ``param_specs``, the AdamW moments
+by ``state_shardings`` (ZeRO-1 over ``opt_shard``).  The step's gradients
+are the rank's blocks of the global loss's (the model's collectives carry
+the tensor-parallel part) and are ``psum``med over the batch axes.
+GaLore over a mesh waits for the next slice: its basis needs each leaf's
+whole gradient (``make_train_step`` raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ from repro_torch.checkpoint.ckpt import _key_to_seed, _seed_to_key
 from repro_torch.compression import galore as galore_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ranky import derive_seed
-from repro_torch.models.schema import init_params
+from repro_torch.models.layers import ShardCtx
+from repro_torch.models.schema import abstract_params, init_params, \
+    map_specs, param_specs
 from repro_torch.models.transformer import train_loss
 from repro_torch.optim import adamw, schedule, tree
 
@@ -45,20 +53,74 @@ class TrainConfig:
     galore: galore_mod.GaloreConfig = galore_mod.GaloreConfig()
 
 
-def init_opt_state(tcfg: TrainConfig, params) -> Dict[str, Any]:
+_NO_MESH = ShardCtx()
+
+
+def init_opt_state(tcfg: TrainConfig, params, cfg: ModelConfig = None,
+                   ctx: ShardCtx = _NO_MESH) -> Dict[str, Any]:
     if tcfg.optimizer == "galore":
+        _no_galore_mesh(tcfg, ctx)
         return galore_mod.init_state(params, tcfg.galore)
-    return adamw.init_state(params)
+    if ctx.mesh is None:
+        return adamw.init_state(params)
+    sh = state_shardings(cfg, tcfg, ctx)
+    return adamw.init_state(params, ctx=ctx, specs=sh["params"],
+                            mspecs=sh["opt"]["m"])
 
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig,
                      gen: torch.Generator, device=None, *,
-                     seed: int = DEFAULT_TRAIN_SEED) -> Dict[str, Any]:
+                     seed: int = DEFAULT_TRAIN_SEED,
+                     ctx: ShardCtx = _NO_MESH) -> Dict[str, Any]:
     """Float32 parameters drawn from ``gen`` onto ``device`` (default: the
-    GPU), the optimizer's state and the seed."""
-    params = init_params(cfg, gen, resolve_device(device))
-    return {"params": params, "opt": init_opt_state(tcfg, params),
+    GPU), the optimizer's state and the seed; on a mesh the rank's
+    blocks (the parameters drawn whole, as on one device, then cut)."""
+    params = init_params(cfg, gen, resolve_device(device), ctx=ctx)
+    return {"params": params, "opt": init_opt_state(tcfg, params, cfg, ctx),
             "seed": seed}
+
+
+def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig
+                         ) -> Dict[str, Any]:
+    """The train state's shapes on the ``meta`` device, in the
+    reference's layout (``rng`` a uint32[2] key)."""
+    params = abstract_params(cfg)
+    if tcfg.optimizer == "galore":
+        opt = galore_mod.init_state(params, tcfg.galore)
+    else:
+        opt = adamw.abstract_state(params)
+    return {"params": params, "opt": opt,
+            "rng": torch.empty((2,), dtype=torch.uint32, device="meta")}
+
+
+def state_shardings(cfg: ModelConfig, tcfg: TrainConfig, ctx: ShardCtx):
+    """The spec tree of the train state (None without a mesh): parameters
+    by ``param_specs``; AdamW's moments further ZeRO-split over
+    ``opt_shard`` on their first unsharded, divisible dim (``adamw.
+    zero_spec``); GaLore's state leaves ZeRO-split alone; ``step`` and
+    ``rng`` replicated."""
+    if ctx.mesh is None:
+        return None
+    pspecs = param_specs(cfg, ctx)
+    state = abstract_train_state(cfg, tcfg)
+    if tcfg.optimizer == "galore":
+        opt = {"leaves": tree.tree_map(
+            lambda x: adamw.zero_spec((), x.shape, ctx),
+            state["opt"]["leaves"]), "step": ()}
+    else:
+        m = map_specs(lambda sp, x: adamw.zero_spec(sp, x.shape, ctx),
+                      pspecs, state["opt"]["m"])
+        opt = {"m": m, "v": m, "step": ()}
+    return {"params": pspecs, "opt": opt, "rng": ()}
+
+
+def _no_galore_mesh(tcfg: TrainConfig, ctx: ShardCtx) -> None:
+    if tcfg.optimizer == "galore" and ctx.mesh is not None \
+            and ctx.mesh.size > 1:
+        raise NotImplementedError(
+            "GaLore over a mesh: its basis needs each leaf's whole "
+            "gradient; it is the next slice of the port (ROADMAP.md "
+            "Queue A item 16)")
 
 
 def checkpoint_tree(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -106,7 +168,22 @@ def _restack(live_params, grads):
             for key, sub in live_params.items()}
 
 
-def _grads(cfg: ModelConfig, tcfg: TrainConfig, params, batch
+def _psum_tree(grads, ctx: ShardCtx, axes):
+    """Every leaf ``psum``med over ``axes``, in one collective (float32)."""
+    if ctx.mesh is None or not axes:
+        return grads
+    flat = tree.leaves(grads)
+    buf = ctx.psum(torch.cat([g.reshape(-1).to(torch.float32)
+                              for g in flat]), axes)
+    out, at = [], 0
+    for g in flat:
+        out.append(buf[at: at + g.numel()].view(g.shape).to(g.dtype))
+        at += g.numel()
+    return tree.unflatten(grads, out)
+
+
+def _grads(cfg: ModelConfig, tcfg: TrainConfig, params, batch,
+           ctx: ShardCtx = _NO_MESH
            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
     """(loss + aux, metrics, grads): gradients of every parameter leaf (a
     leaf the loss does not reach gets zeros).  With ``microbatches`` n > 1
@@ -117,7 +194,8 @@ def _grads(cfg: ModelConfig, tcfg: TrainConfig, params, batch
     live = tree.leaves(live_params)
 
     def value_and_grad(b):
-        total, metrics = train_loss(cfg, live_params, b, remat=tcfg.remat)
+        total, metrics = train_loss(cfg, live_params, b, remat=tcfg.remat,
+                                    ctx=ctx)
         gs = torch.autograd.grad(total, live, allow_unused=True)
         return total.detach(), metrics, _restack(live_params, gs)
 
@@ -143,15 +221,24 @@ def _grads(cfg: ModelConfig, tcfg: TrainConfig, params, batch
         tree.unflatten(params, grads)
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    ctx: ShardCtx = _NO_MESH) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``: the loss, the
     gradients, the schedule's scale at the optimizer's step, then AdamW or
     GaLore (clipping first), in place.  Metrics: ``loss``, ``aux_loss``,
-    ``grad_norm``, ``lr_scale`` (0-dim tensors)."""
+    ``grad_norm``, ``lr_scale`` (0-dim tensors).  On a mesh ``state`` and
+    ``batch`` are the rank's blocks (``state_shardings``,
+    ``data.tokens.shard_batch``)."""
+    _no_galore_mesh(tcfg, ctx)
+    sh = state_shardings(cfg, tcfg, ctx) if tcfg.optimizer == "adamw" \
+        else None
+    mesh_kw = {} if sh is None else dict(
+        ctx=ctx, specs=sh["params"], mspecs=sh["opt"]["m"])
 
     def step(state, batch):
         params = state["params"]
-        _, metrics, grads = _grads(cfg, tcfg, params, batch)
+        _, metrics, grads = _grads(cfg, tcfg, params, batch, ctx)
+        grads = _psum_tree(grads, ctx, ctx.axes("batch"))
         opt = state["opt"]
         lr_scale = schedule.warmup_cosine(
             opt["step"], warmup=tcfg.warmup_steps, total=tcfg.total_steps)
@@ -162,7 +249,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
                 lr_scale=lr_scale, seed=step_seed)
         else:
             _, _, om = adamw.apply_updates(tcfg.adamw, params, grads, opt,
-                                           lr_scale=lr_scale)
+                                           lr_scale=lr_scale, **mesh_kw)
         metrics = dict(metrics)
         metrics.update(om)
         metrics["lr_scale"] = lr_scale

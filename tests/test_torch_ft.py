@@ -374,7 +374,7 @@ def test_recover_with_shardings_fn_skips_train(tmp_path):
     mesh, ctx, state, meta = tft.recover(ck, survivors=survivors,
                                          shardings_fn=shardings_fn,
                                          model_parallel=1)
-    assert seen["ctx"] is ctx is mesh
+    assert seen["ctx"] is ctx and ctx.mesh is mesh
     assert mesh.shape == {"data": 1, "model": 1} and mesh.device == \
         survivors.device
     assert torch.equal(state["w"], tree["w"]) and meta["step"] == 3
@@ -382,8 +382,21 @@ def test_recover_with_shardings_fn_skips_train(tmp_path):
     assert not any("train" in m for m in new), new
     with pytest.raises(ValueError, match="survivor"):
         tft.recover(ck, survivors=[])
-    with pytest.raises(NotImplementedError, match="shardings_fn"):
-        tft.recover(ck, survivors=survivors)
+    # without shardings_fn: the train path, a train state restored by
+    # state_shardings on the survivors' mesh
+    from repro_torch.configs import base as tbase
+    from repro_torch.train import step as tstep
+    cfg = tbase.get_smoke_config("phi4-mini-3.8b")
+    tcfg = tstep.TrainConfig()
+    st = tstep.init_train_state(cfg, tcfg, torch.Generator().manual_seed(0),
+                                CPU)
+    ck.save(4, tstep.checkpoint_tree(st), blocking=True)
+    mesh, ctx, saved, meta = tft.recover(ck, cfg, tcfg, survivors=survivors,
+                                         model_parallel=1)
+    back = tstep.state_from_checkpoint(saved)
+    assert ctx.mesh is mesh and meta["step"] == 4 and back["seed"] == 1
+    assert torch.equal(back["params"]["embed"], st["params"]["embed"])
+    assert back["opt"]["m"]["embed"].shape == st["params"]["embed"].shape
 
 
 def test_solveconfig_recovery_knobs_validate():

@@ -87,13 +87,16 @@ dist.destroy_process_group()
 """
 
 
-def spawn_gloo(body: str, world: int, tmp_path, *, timeout: float = 60.0):
+def spawn_gloo(body: str, world: int, tmp_path, *, timeout: float = 60.0,
+               while_waiting=None):
     """Run ``body`` (which defines ``main(rank, world)``; ``torch`` and
     ``dist`` are imported, the gloo group of ``world`` ranks initialized
     through a ``file://`` store in ``tmp_path``) in ``world`` processes on
-    the CPU.  Returns each rank's ``main`` result, in rank order.  A rank
-    that raises, or a group that has not finished within ``timeout``
-    seconds (every rank is then killed), fails the calling test."""
+    the CPU.  Returns each rank's ``main`` result, in rank order (with
+    ``while_waiting``, a function called here while the ranks run: (the
+    results, its result)).  A rank that raises, or a group that has not
+    finished within ``timeout`` seconds (every rank is then killed), fails
+    the calling test."""
     import os
     import pickle
     import subprocess
@@ -113,8 +116,10 @@ def spawn_gloo(body: str, world: int, tmp_path, *, timeout: float = 60.0):
          str(tmp_path)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(world)]
     deadline = time.monotonic() + timeout
-    logs = []
+    logs, extra = [], None
     try:
+        if while_waiting is not None:
+            extra = while_waiting()
         for p in procs:
             left = max(0.1, deadline - time.monotonic())
             try:
@@ -138,7 +143,7 @@ def spawn_gloo(body: str, world: int, tmp_path, *, timeout: float = 60.0):
         if got["error"] is not None:
             pytest.fail(f"rank {r} raised:\n{got['error']}")
         results.append(got["result"])
-    return results
+    return results if while_waiting is None else (results, extra)
 
 
 def reference_omega(key, l, m) -> torch.Tensor:

@@ -455,12 +455,35 @@ def test_batch_requests_equal_the_reference(lists):
 
 
 def test_launcher_serves_the_smoke_config_on_the_cpu(capsys):
-    tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                  "--requests", "2", "--tokens", "3"])
-    assert "2 requests x 3 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                      "--model-parallel", "2"])
+    one = tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                        "--requests", "2", "--tokens", "3"])
+    out = capsys.readouterr().out.splitlines()
+    assert "2 requests x 3 tokens" in out[0] and out[0].endswith(
+        "mesh (1, 1)")
+    assert out[1] == f"tokens: {one.tolist()}" and one.shape == (2, 3)
+    # --model-parallel 2 in one process plans the (1, 1) mesh, as the
+    # reference does on one device, logs it, and serves the same tokens
+    two = tlaunch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                        "--requests", "2", "--tokens", "3",
+                        "--model-parallel", "2"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "mesh: (1, 1) ('data', 'model') (0 devices idle)"
+    assert "2 requests x 3 tokens" in out[1] and out[1].endswith(
+        "mesh (1, 1)")
+    assert torch.equal(one, two)
+    # ... which are engine.generate's without a mesh on the same requests
+    cfg = tbase.get_smoke_config(ARCH)
+    rng = np.random.default_rng(0)
+    prompts, _ = tengine.batch_requests(
+        [list(rng.integers(1, cfg.vocab_size, size=rng.integers(2, 12)))
+         for _ in range(2)])
+    want = tengine.generate(
+        cfg, tschema.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu"),
+        torch.from_numpy(prompts),
+        tengine.ServeConfig(max_seq=prompts.shape[1] + 3, temperature=0.8),
+        3)
+    assert torch.equal(one, want)
 
 
 # ---------------------------------------------------------------------------

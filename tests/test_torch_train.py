@@ -36,6 +36,7 @@ from repro.train import step as jstep
 
 from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.configs import base as tbase
+from repro_torch.core import collectives as tcol
 from repro_torch.data import tokens as ttokens
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import convert
@@ -241,8 +242,15 @@ def test_batch_at_is_the_references_bit_for_bit(kw):
     on = ttokens.shard_batch(ttokens.batch_at(tcfg, 0), "cpu")
     assert on["labels"].dtype == torch.int32 and on["tokens"].device.type \
         == "cpu"
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttokens.shard_batch(ttokens.batch_at(tcfg, 0), "cpu", mesh=object())
+    # on a mesh of one slot the rank's rows are the whole batch; a layout
+    # mesh's rank of (data 2, model 2) would take its half
+    mesh = tcol.LocalMesh({"data": 1, "model": 1}, "cpu")
+    one = ttokens.shard_batch(ttokens.batch_at(tcfg, 0), "cpu", mesh=mesh)
+    for k in on:
+        assert torch.equal(one[k], on[k])
+    with pytest.raises(ValueError, match="one slot a process"):
+        ttokens.shard_batch(ttokens.batch_at(tcfg, 0), "cpu",
+                            mesh=tcol.LocalMesh(2, "cpu"))
 
 
 def test_schedule_and_clipping_match_reference():
@@ -323,14 +331,14 @@ def test_io_batches_match_reference(arch):
 # The loop, checkpoints, the launcher
 # ---------------------------------------------------------------------------
 
-def _smoke_train(tmp_path, name, steps, log=None, lr=1e-3):
+def _smoke_train(tmp_path, name, steps, log=None, lr=1e-3, mesh=None):
     cfg = tbase.get_smoke_config("phi4-mini-3.8b")
     tcfg = tstep.TrainConfig(remat="none", adamw=tadamw.AdamWConfig(lr=lr))
     dcfg = ttokens.DataConfig(cfg.vocab_size, 32, 4)
     lcfg = tloop.LoopConfig(steps=steps, ckpt_every=5,
                             ckpt_dir=str(tmp_path / name), log_every=100)
     return tloop.train(cfg, tcfg, lcfg, dcfg, device="cpu",
-                       log=log or (lambda s: None))
+                       log=log or (lambda s: None), mesh=mesh)
 
 
 def test_loop_resume_matches_straight_run(tmp_path):
@@ -346,11 +354,13 @@ def test_loop_resume_matches_straight_run(tmp_path):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-5)
     assert int(resumed["opt"]["step"]) == 10
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tloop.train(tbase.get_smoke_config("phi4-mini-3.8b"),
-                    tstep.TrainConfig(), tloop.LoopConfig(steps=1),
-                    ttokens.DataConfig(512, 8, 2), device="cpu",
-                    mesh=object())
+    # the loop over a (1, 1) mesh runs the mesh path and lands on the
+    # straight run's bits
+    on_mesh = _smoke_train(tmp_path, "c", 10, mesh=tcol.LocalMesh(
+        {"data": 1, "model": 1}, "cpu"))
+    for a, b in zip(tree.leaves(straight["params"]),
+                    tree.leaves(on_mesh["params"])):
+        assert torch.equal(a, b)
 
 
 def test_loss_falls_over_40_steps(tmp_path):
@@ -403,16 +413,38 @@ def test_train_state_checkpoints_cross_the_packages(tmp_path):
                                       np.asarray(jstate["params"]["embed"]))
 
 
-def test_launcher_trains_on_the_cpu_and_guards_the_mesh():
+def test_launcher_trains_on_the_cpu_and_guards_the_mesh(tmp_path):
     lines = []
     state = tlaunch.main(["--arch", "zamba2-2.7b", "--smoke", "--steps", "2",
                           "--seq", "16", "--global-batch", "2",
                           "--device", "cpu"], log=lines.append)
     assert int(state["opt"]["step"]) == 2 and len(lines) == 2
-    for extra in (["--model-parallel", "2"], ["--coordinator", "h:1"]):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tlaunch.main(["--arch", "zamba2-2.7b", "--smoke", "--device",
-                          "cpu", *extra])
+    # --model-parallel 2 alone plans (1, 1); --coordinator joins a process
+    # group (here of one gloo rank) and trains on its mesh
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for extra in (["--model-parallel", "2"],
+                  ["--model-parallel", "2", "--coordinator",
+                   f"localhost:{port}", "--num-hosts", "1", "--host-id",
+                   "0"]):
+        got = []
+        state = tlaunch.main(["--arch", "zamba2-2.7b", "--smoke", "--steps",
+                              "2", "--seq", "16", "--global-batch", "2",
+                              "--device", "cpu", *extra], log=got.append)
+        assert got[0] == "mesh: (1, 1) ('data', 'model') (0 devices idle)"
+        assert int(state["opt"]["step"]) == 2 and len(got) == 3
+    assert not torch.distributed.is_initialized()
+    # what the mesh path still refuses: GaLore over a mesh of more than
+    # one slot, and a LocalMesh of several slots for the LM
+    cfg = tbase.get_smoke_config("zamba2-2.7b")
+    with pytest.raises(NotImplementedError, match="GaLore over a mesh"):
+        tstep.make_train_step(cfg, tstep.TrainConfig(optimizer="galore"),
+                              tlayers.ShardCtx(tlayers.layout_mesh(
+                                  {"data": 2, "model": 2})))
+    with pytest.raises(ValueError, match="one mesh slot a process"):
+        tlayers.ShardCtx(tcol.LocalMesh({"data": 2, "model": 1}, "cpu"))
 
 
 NEW_MODULES = ("optim/tree.py", "optim/schedule.py", "optim/adamw.py",
