@@ -260,8 +260,23 @@ What it does, one JSON line per phase:
    ranks, 4 decode steps across the slabs' boundary against the unsharded
    decode (1e-3), only the owning slab written; (d) a (1, 1)
    ``ProcessGroupMesh`` over NCCL in this process: (a) and (b) bit for
-   bit against the path without a mesh.  A rank that fails or passes the
-   deadline fails the phase.
+   bit against the path without a mesh; (e) GaLore over the mesh:
+   zamba2-2.7b at full width, 2 layers with the shared block, float32,
+   rank 32 refreshed every step, no warmup, on the 4 ranks: one device's
+   gradients cut to the blocks give each leaf's gram within 1e-5 of its
+   max of one device's and the same lonely-row masks, and one update with
+   one device's bases every parameter within rtol 2e-4 / atol 1e-5; then
+   2 steps of ``make_train_step``: the bases the same bits on every rank,
+   flash 2 and ssd 4 launches a step as one device's, ms a step, GaLore's
+   apply ms and peak by rank; a (1, 1) NCCL mesh's GaLore step bit for
+   bit against one device's.  A rank that fails or passes the deadline
+   fails the phase.
+16a'. ``launch``: the dry run's cost counter (``launch/hlocost.py``) on
+   ``meta`` prices the zamba2-2.7b train step of ``lm_train`` (b) (on the
+   host mesh (1, 1)) and the gemma2-9b prefill of ``lm_families``: the
+   bound max(t_compute, t_memory) of ``launch/roofline.py``'s H100 model
+   beside the measured time, and not above it; then ``dryrun.run_cell``
+   of phi4-mini ``train_4k`` on the 16 x 16 counting mesh.
 16b. ``ft``: fault tolerance on the paper rows (sparse batches of 64, rank
    16) over a ``LocalMesh`` of 8 slots: the unfaulted supervised stream
    against the same chunks of ``svd_stream`` (the same bits, one
@@ -291,6 +306,7 @@ on the CPU instead.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -1170,21 +1186,14 @@ def peak_for(dtype) -> float:
 
 
 def flash_bound(q, k, *, causal=True, window=0):
-    """(bound_ms, bound_by, operations, bytes).  Bytes: q, k, v and the
-    output once; operations: a multiply and an add per head dim for q.k and
-    for p.v, per (query, key) pair that this mask shows, per query head."""
+    """(bound_ms, bound_by, operations, bytes) of ``fa_mod.work`` (the dry
+    run's charge too): q, k, v and the output once; a multiply and an add
+    per head dim for q.k and for p.v, per (query, key) pair that the mask
+    shows, per query head."""
     b, hq, sq, d = q.shape
-    sk = k.shape[2]
-    qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    ki = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qi >= ki
-    if window > 0:
-        mask &= (qi - ki) < window
-    pairs = float(mask.sum())
-    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-    flops = 4.0 * b * hq * d * pairs
+    nbytes, flops = fa_mod.work(b, hq, k.shape[1], sq, k.shape[2], d,
+                                q.element_size(), causal=causal,
+                                window=window)
     return (*bound(nbytes, flops, peak_for(q.dtype)), flops, nbytes)
 
 
@@ -3406,6 +3415,8 @@ def family_serve(state, cfg, params, gen, *, batch, seq, decode,
     _, warm_ms = synced_ms(
         lambda: transformer.prefill_forward(cfg, params, inputs,
                                             max_seq=max_seq))
+    state.setdefault("measured", {})[f"{label} prefill"] = dict(
+        ms=warm_ms, batch=batch, seq=seq, max_seq=max_seq)
     return dict(prompts=batch, prompt_tokens=seq, max_seq=max_seq,
                 decode_steps=decode, dtype=cfg.dtype,
                 launches_per_prefill=dict(
@@ -4163,6 +4174,9 @@ def train_full_depth(state) -> dict:
         steps.append(row)
     peak = torch.cuda.max_memory_allocated()
     med = float(np.median([r["ms"] for r in steps[1:]]))
+    state.setdefault("measured", {})[f"{cfg.name} train step"] = dict(
+        ms=med, least_ms=min(r["ms"] for r in steps[1:]),
+        batch=lt["batch"], seq=lt["seq"], tcfg=tcfg)
     batch = data_mod.shard_batch(data_mod.batch_at(dcfg, lt["steps"]),
                                  DEVICE)
     with event_timed({
@@ -4198,10 +4212,10 @@ def basis_gaps(rank: int):
     between its gram's top ``rank`` + 1 eigenvalues, over the largest
     (what decides whether two eigh calls give the same columns)."""
     gaps = []
-    basis = galore_mod._basis
+    basis = galore_mod.mesh_basis
 
-    def recording(gcfg, g, cols=None):
-        out = basis(gcfg, g, cols)
+    def recording(gcfg, g, spec=(), ctx=None, cols=None):
+        out = basis(gcfg, g, spec, ctx, cols)
         g32 = g.to(torch.float32)
         ev = torch.linalg.eigvalsh(g32 @ g32.transpose(-1, -2)).flip(-1)
         top = ev[..., : rank + 1]
@@ -4209,11 +4223,11 @@ def basis_gaps(rank: int):
                            / top[..., :1]).min()))
         return out
 
-    galore_mod._basis = recording
+    galore_mod.mesh_basis = recording
     try:
         yield gaps
     finally:
-        galore_mod._basis = basis
+        galore_mod.mesh_basis = basis
 
 
 def galore_on_card(state) -> dict:
@@ -4268,8 +4282,9 @@ def galore_on_card(state) -> dict:
                 for path, leaf in ptree.flatten(g):
                     if galore_mod.eligible(tcfg.galore, leaf):
                         m, n = leaf.shape[-2:]
-                        galore_mod._basis(tcfg.galore, leaf,
-                                          galore_mod.draw_cols(0, 0, m, n))
+                        galore_mod.mesh_basis(
+                            tcfg.galore, leaf,
+                            cols=galore_mod.draw_cols(0, 0, m, n))
             del g
             eligible = [path for path, p in ptree.flatten(cpu["params"])
                         if "p" in galore_mod._leaf_state(
@@ -5380,6 +5395,10 @@ LM_MESH = dict(
                launches=dict(flash_attention=2, ssd_scan=12)),
     seq=dict(arch="zamba2-2.7b", layers=6, prompt=4094, max_seq=8192,
              decode=4, rtol=1e-3, atol=1e-3),
+    galore=dict(arch="zamba2-2.7b", layers=2, attn_every=2, batch=4,
+                seq=512, steps=2, rank=32, update_every=1, rtol=2e-4,
+                atol=1e-5, gram_rel=1e-5,
+                launches=dict(flash_attention=2, ssd_scan=4)),
     mesh={"data": 2, "model": 2}, ranks=4, seq_ranks=2, timeout_s=300)
 
 
@@ -5663,6 +5682,10 @@ def lm_mesh_rank() -> None:
             mesh = ProcessGroupMesh({"data": world, "model": 1},
                                     device=DEVICE)
             out = lm_seq_rank(ShardCtx(mesh=mesh))
+        elif case == "galore":
+            mesh = ProcessGroupMesh(LM_MESH["mesh"], device=DEVICE)
+            out = dict(galore=lm_galore_rank(ShardCtx(mesh=mesh), mesh,
+                                             tmp))
         else:
             mesh = ProcessGroupMesh(LM_MESH["mesh"], device=DEVICE)
             ctx = ShardCtx(mesh=mesh)
@@ -5846,6 +5869,227 @@ def lm_seq_rank(ctx) -> dict:
                 ms_per_step=ms, prefill_launches=prefill_launches)
 
 
+def lm_galore_setup():
+    """(e): zamba2-2.7b at full width cut to 2 layers with the shared
+    block opening them (``hybrid_attn_every`` 2, so that every leaf has a
+    gradient and flash runs), float32, GaLore at rank 32 refreshed every
+    step, no warmup, remat ``dots``."""
+    c = LM_MESH["galore"]
+    cfg = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"],
+                              hybrid_attn_every=c["attn_every"],
+                              dtype="float32")
+    tcfg = train_step.TrainConfig(
+        optimizer="galore", remat="dots", warmup_steps=0,
+        galore=galore_mod.GaloreConfig(rank=c["rank"],
+                                       update_every=c["update_every"]))
+    return cfg, tcfg, data_mod.DataConfig(cfg.vocab_size, c["seq"],
+                                          c["batch"])
+
+
+def galore_cols(cfg, tcfg, params, seed: int) -> dict:
+    """The repair columns that step 0 of ``make_train_step`` draws (its
+    seed chain), by path: (m,) over each eligible leaf's global (m, n)."""
+    out = {}
+    shapes = dict(ptree.flatten(schema.param_shapes(cfg), dicts_only=True))
+    for i, (path, _) in enumerate(ptree.flatten(params)):
+        shape = shapes[path]
+        if galore_mod.eligible(tcfg.galore, shape):
+            out[path] = galore_mod.draw_cols(ranky.derive_seed(seed, 0), i,
+                                             *shape[-2:])
+    return out
+
+
+def lm_galore_reference(state, tmp) -> dict:
+    """(e) on one device: the first batch's gradients and the grams and
+    lonely masks of every eligible leaf (saved for the ranks), step 0's
+    GaLore update (its bases and parameters saved), step 1 timed; then a
+    (1, 1) NCCL mesh's step 0 bit for bit against it."""
+    cfg, tcfg, dcfg = lm_galore_setup()
+    gen = torch.Generator(DEVICE).manual_seed(64)
+    st = train_step.init_train_state(cfg, tcfg, gen, DEVICE)
+    batch = data_mod.shard_batch(data_mod.batch_at(dcfg, 0), DEVICE)
+    reset_counts()
+    _, _, grads = train_step._grads(cfg, tcfg, st["params"], batch)
+    launches0 = {k: v for k, v in read_counts().items()
+                 if k in ("flash_attention", "ssd_scan")}
+    cols = galore_cols(cfg, tcfg, st["params"], st["seed"])
+    grams, lonely = {}, {}
+    for path, g in ptree.flatten(grads):
+        if path in cols:
+            gram, mask, _ = galore_mod.mesh_gram(tcfg.galore, g, (),
+                                                 ShardCtx(), cols[path])
+            grams[path], lonely[path] = gram.cpu(), mask.cpu()
+    torch.save(grams, os.path.join(tmp, "galore_grams.pt"))
+    torch.save(dict(lonely=lonely, cols=cols),
+               os.path.join(tmp, "galore_cols.pt"))
+    del grams
+    torch.save({p: g.cpu() for p, g in ptree.flatten(grads)},
+               os.path.join(tmp, "galore_grads.pt"))
+    seed0 = ranky.derive_seed(st["seed"], 0)
+    with event_timed({"galore": (galore_mod, "apply_updates")}) as t:
+        galore_mod.apply_updates(tcfg.adamw, tcfg.galore, st["params"],
+                                 grads, st["opt"],
+                                 lr_scale=lm_first_lr_scale(tcfg, st["opt"]),
+                                 seed=seed0)
+    refresh_ms = t["galore"]["ms"]
+    del grads
+    bases = {path: galore_mod._leaf_state(st["opt"]["leaves"],
+                                          path)["p"].cpu() for path in cols}
+    params1 = {p: x.clone() for p, x in ptree.flatten(st["params"])}
+    torch.save(bases, os.path.join(tmp, "galore_bases.pt"))
+    torch.save({p: x.cpu() for p, x in params1.items()},
+               os.path.join(tmp, "galore_params1.pt"))
+    step = train_step.make_train_step(cfg, tcfg)
+    batch = data_mod.shard_batch(data_mod.batch_at(dcfg, 1), DEVICE)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (st, _), ms = synced_ms(lambda: step(st, batch))
+    launches1 = {k: v for k, v in read_counts().items()
+                 if k in ("flash_attention", "ssd_scan")}
+    peak = torch.cuda.max_memory_allocated()
+    del st
+    free_model()
+    nccl = lm_galore_nccl(cfg, tcfg, dcfg, params1, tmp)
+    del params1
+    free_model()
+    return dict(launches_a_step=[launches0, launches1], ms_step_1=ms,
+                refresh_ms_step_0=refresh_ms, peak_bytes=peak,
+                eligible_leaves=len(cols), nccl_1x1=nccl)
+
+
+def lm_galore_nccl(cfg, tcfg, dcfg, params1, tmp) -> dict:
+    """A (1, 1) ``ProcessGroupMesh`` over NCCL: step 0 of
+    ``make_train_step`` (the mesh's GaLore path) against one device's."""
+    import datetime
+    from repro_torch.core.collectives import ProcessGroupMesh
+
+    dist = torch.distributed
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "nccl_galore"),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = ProcessGroupMesh({"data": 1, "model": 1}, device=DEVICE)
+        ctx = ShardCtx(mesh=mesh)
+        gen = torch.Generator(DEVICE).manual_seed(64)
+        st = train_step.init_train_state(cfg, tcfg, gen, DEVICE, ctx=ctx)
+        batch = data_mod.shard_batch(data_mod.batch_at(dcfg, 0), DEVICE,
+                                     mesh)
+        train_step.make_train_step(cfg, tcfg, ctx)(st, batch)
+        same = {p: bool(torch.equal(x, params1[p]))
+                for p, x in ptree.flatten(st["params"])}
+        del st
+    finally:
+        dist.destroy_process_group()
+    check(all(same.values()), f"lm_mesh(e) NCCL (1, 1): GaLore's step "
+          f"differs from one device's in "
+          f"{[p for p, ok in same.items() if not ok]}")
+    return dict(params_bit_identical=all(same.values()), leaves=len(same))
+
+
+def lm_galore_rank(ctx, mesh, tmp) -> dict:
+    """(e) on one of the 4 ranks: one device's gradients cut to the
+    rank's blocks, their grams and masks against one device's, one update
+    with one device's bases against one device's; then 2 steps of
+    ``make_train_step`` (its own gradients and bases, the bases' digests
+    kept), timed, launches and peak."""
+    import hashlib
+
+    c = LM_MESH["galore"]
+    cfg, tcfg, dcfg = lm_galore_setup()
+    gcfg = tcfg.galore
+    sh = train_step.state_shardings(cfg, tcfg, ctx)
+    specs = dict(ptree.flatten(sh["params"], dicts_only=True))
+
+    def load(name):
+        return torch.load(os.path.join(tmp, name), mmap=True,
+                          weights_only=True)
+
+    want = load("galore_grads.pt")
+    gen = torch.Generator(DEVICE).manual_seed(64)
+    st = train_step.init_train_state(cfg, tcfg, gen, DEVICE, ctx=ctx)
+    grads = ptree.unflatten(st["params"], [
+        ctx.local(want[p], specs[p]).to(DEVICE)
+        for p, _ in ptree.flatten(st["params"])])
+    del want
+    # the grams and masks of one device's gradients
+    cl = load("galore_cols.pt")
+    one = load("galore_grams.pt")
+    gram_rel, gram_leaf, masks_equal = 0.0, None, True
+    for path, g in ptree.flatten(grads):
+        if path not in cl["cols"]:
+            continue
+        sp = galore_mod._full(specs[path], g.dim())
+        gram, lonely, _ = galore_mod.mesh_gram(gcfg, g, sp, ctx,
+                                               cl["cols"][path])
+        lead = sp[:-2] + (None, None)
+        ref = ctx.local(one[path], lead).to(DEVICE)
+        rel = float((gram - ref).abs().max() / ref.abs().max())
+        if rel > gram_rel:
+            gram_rel, gram_leaf = rel, path
+        # an n-side gram's mask covers the rank's row block
+        rows = sp[-2] if galore_mod.n_side(*galore_mod.global_shape(
+            g.shape, sp, ctx)[-2:]) else None
+        masks_equal &= bool(torch.equal(
+            lonely.cpu(), ctx.local(cl["lonely"][path], sp[:-2] + (rows,))))
+        del gram, ref
+    del one
+    # one update with one device's bases
+    bases = load("galore_bases.pt")
+    galore_mod.apply_updates(
+        tcfg.adamw, gcfg, st["params"], grads, st["opt"],
+        lr_scale=lm_first_lr_scale(tcfg, st["opt"]), bases=bases, ctx=ctx,
+        specs=sh["params"])
+    del grads, bases
+    want = load("galore_params1.pt")
+    update_excess, update_leaf = -float("inf"), None
+    for path, x in ptree.flatten(st["params"]):
+        ref = ctx.local(want[path], specs[path]).to(DEVICE)
+        excess = float(lm_excess(x, ref, c).max())
+        if excess > update_excess:
+            update_excess, update_leaf = excess, path
+    del st, want
+    free_model()
+    # 2 steps of the train step, bases from the whole gradient
+    digests = []
+    basis = galore_mod.mesh_basis
+
+    def recording(gcfg_, g, spec, ctx_, cols=None):
+        out = basis(gcfg_, g, spec, ctx_, cols)
+        full = galore_mod._full(spec, g.dim())
+        whole = ctx_.gather(out.contiguous(), full[:-2] + (None, None))
+        digests.append(hashlib.sha256(
+            whole.cpu().numpy().tobytes()).hexdigest())
+        return out
+
+    gen = torch.Generator(DEVICE).manual_seed(64)
+    st = train_step.init_train_state(cfg, tcfg, gen, DEVICE, ctx=ctx)
+    step = train_step.make_train_step(cfg, tcfg, ctx)
+    torch.cuda.reset_peak_memory_stats()
+    ms, launches, refresh, losses = [], [], [], []
+    galore_mod.mesh_basis = recording
+    try:
+        for s in range(c["steps"]):
+            batch = data_mod.shard_batch(data_mod.batch_at(dcfg, s), DEVICE,
+                                         mesh)
+            reset_counts()
+            with event_timed({"galore": (galore_mod, "apply_updates")}) as t:
+                (st, m), t_ms = synced_ms(lambda: step(st, batch))
+            launches.append({k: v for k, v in read_counts().items()
+                             if k in ("flash_attention", "ssd_scan")})
+            ms.append(t_ms)
+            refresh.append(t["galore"]["ms"])
+            losses.append(float(m["loss"]))
+    finally:
+        galore_mod.mesh_basis = basis
+    return dict(gram_max_rel=gram_rel, gram_worst_leaf=gram_leaf,
+                lonely_masks_equal=masks_equal,
+                update_max_excess=update_excess,
+                update_worst_leaf=update_leaf, ms_per_step=ms,
+                galore_apply_ms=refresh, launches_per_step=launches,
+                losses=losses, peak_bytes=torch.cuda.max_memory_allocated(),
+                basis_digests=digests)
+
+
 def phase_lm_mesh(state) -> None:
     """The LM model mesh: (a) serving and (b) training on 4 gloo ranks
     (data 2 x model 2) on the one card against the single-device port;
@@ -5869,6 +6113,13 @@ def phase_lm_mesh(state) -> None:
         t0 = time.perf_counter()
         seq = spawn_lm_ranks(LM_MESH["seq_ranks"], "seq", tmp)
         seq_s = time.perf_counter() - t0
+        free_model()
+        t0 = time.perf_counter()
+        galore_one = lm_galore_reference(state, tmp)
+        galore_one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        galore = spawn_lm_ranks(LM_MESH["ranks"], "galore", tmp)
+        galore_s = time.perf_counter() - t0
 
     # (a) serving
     c = LM_MESH["serve"]
@@ -5969,12 +6220,148 @@ def phase_lm_mesh(state) -> None:
          limits=dict(rtol=c["rtol"], atol=c["atol"]),
          per_rank=[{k: v for k, v in r.items()} for r in seq],
          ranks_wall_s=seq_s)
+    # (e) GaLore on the mesh
+    c = LM_MESH["galore"]
+    want_launches = galore_one["launches_a_step"]
+    check(all(n == c["launches"] for n in want_launches),
+          f"lm_mesh(e): one device's GaLore step launched {want_launches}, "
+          f"not {c['launches']}")
+    digests = galore[0]["galore"]["basis_digests"]
+    check(len(digests) == 2 * galore_one["eligible_leaves"],
+          f"lm_mesh(e): {len(digests)} bases in 2 refreshes of "
+          f"{galore_one['eligible_leaves']} leaves")
+    per_rank = []
+    for r in galore:
+        g = r["galore"]
+        what = f"lm_mesh(e) rank {r['rank']} {r['coords']}"
+        check(g["gram_max_rel"] <= c["gram_rel"], f"{what}: the gram of "
+              f"{g['gram_worst_leaf']} differs from one device's by "
+              f"{g['gram_max_rel']} of its max (limit {c['gram_rel']})")
+        check(g["lonely_masks_equal"], f"{what}: lonely-row masks differ "
+              f"from one device's")
+        check(g["update_max_excess"] <= 0, f"{what}: the update with one "
+              f"device's bases exceeds rtol {c['rtol']}, atol {c['atol']} by "
+              f"{g['update_max_excess']} at {g['update_worst_leaf']}")
+        check(g["basis_digests"] == digests, f"{what}: its bases differ in "
+              f"their bits from rank 0's")
+        for n in g["launches_per_step"]:
+            check(n == want_launches[0], f"{what}: kernel launches a step "
+                  f"{n}, one device's {want_launches[0]}")
+        per_rank.append(dict(rank=r["rank"], coords=r["coords"], **{
+            k: v for k, v in g.items() if k != "basis_digests"}))
+    keep_counts(state, "lm_mesh[gloo galore step, rank 0]", dict(
+        {name: 0 for name in KERNEL_MODULES},
+        **galore[0]["galore"]["launches_per_step"][-1]))
+    emit("lm_mesh", case="(e) GaLore over the mesh, 4 gloo ranks",
+         arch=c["arch"], layers=c["layers"],
+         hybrid_attn_every=c["attn_every"], dtype="float32",
+         optimizer="galore", rank=c["rank"], update_every=c["update_every"],
+         remat="dots", mesh=LM_MESH["mesh"], batch=[c["batch"], c["seq"]],
+         steps=c["steps"], one_device=galore_one,
+         limits=dict(gram_rel=c["gram_rel"], rtol=c["rtol"],
+                     atol=c["atol"]),
+         bases_bit_identical_on_every_rank=True,
+         bases_compared=len(digests), per_rank=per_rank,
+         one_device_s=galore_one_s, ranks_wall_s=galore_s)
     emit("lm_mesh_done", seconds=time.perf_counter() - t_phase,
          clocks="host clock between device synchronizations; ranks: "
                 "processes on the one card over gloo (CUDA tensors staged "
                 "through host memory); peaks are each rank's "
                 "torch.cuda.max_memory_allocated")
 
+
+
+# ---------------------------------------------------------------------------
+# Phase launch: the dry run's counter against this run's times
+# ---------------------------------------------------------------------------
+
+# The runs of this script the counter prices: zamba2-2.7b's train step of
+# phase lm_train (b) and gemma2-9b's prefill of phase lm_families; then
+# one production cell of the dry run.
+LAUNCH = dict(train="zamba2-2.7b train step",
+              prefill="gemma2-9b prefill",
+              cell=("phi4-mini-3.8b", "train_4k"))
+
+
+def priced(label, fn, args, measured_ms) -> dict:
+    """``fn(*args)`` on ``meta`` under the cost counter, its roofline
+    bound max(t_compute, t_memory) on the H100 model beside the time this
+    script measured for the same work on the card."""
+    from repro_torch.launch import hlocost
+    from repro_torch.launch import roofline as rl
+
+    t0 = time.perf_counter()
+    cost = hlocost.analyze(fn, *args)
+    t_compute = cost.flops / rl.PEAK_FLOPS * 1e3
+    t_memory = cost.bytes / rl.HBM_BW * 1e3
+    bound_ms = max(t_compute, t_memory)
+    check(bound_ms <= measured_ms, f"launch: {label}: the counter's bound "
+          f"{bound_ms:.1f} ms is above the measured {measured_ms:.1f} ms, "
+          f"so its count is wrong")
+    return dict(run=label, flops=cost.flops, bytes=cost.bytes,
+                t_compute_ms=t_compute, t_memory_ms=t_memory,
+                bound_ms=bound_ms, measured_ms=measured_ms,
+                bound_over_measured=bound_ms / measured_ms,
+                kernel_calls=cost.kernel_calls,
+                temp_peak_bytes=cost.peak_bytes,
+                count_host_s=time.perf_counter() - t0)
+
+
+def phase_launch(state) -> None:
+    """(a) The dry run's counter (``launch/hlocost.py``) prices two runs
+    this script timed on the card, each on ``meta`` in this process: the
+    bound max(t_compute, t_memory) of ``launch/roofline.py``'s H100 model
+    must not be above the measured time.  (b) ``dryrun.run_cell`` of one
+    production cell on the 16 x 16 counting mesh."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.io import train_batch
+
+    t_phase = time.perf_counter()
+    measured = state.get("measured", {})
+    for key, phase in (("train", "lm_train (b)"), ("prefill", "lm_families")):
+        check(LAUNCH[key] in measured,
+              f"launch: needs {phase} in the same run, for {LAUNCH[key]}")
+    rows = []
+    # zamba2-2.7b's train step of lm_train (b), on the host mesh (1, 1)
+    m = measured[LAUNCH["train"]]
+    cfg = get_config(LM_ARCH)
+    tcfg = m["tcfg"]
+    ctx = ShardCtx(mesh=make_host_mesh(1, "meta"))
+    params = schema.abstract_params(cfg)
+    tstate = {"params": params,
+              "opt": train_step.init_opt_state(tcfg, params, cfg, ctx),
+              "seed": 1}
+    batch = train_batch(cfg, m["batch"], m["seq"], abstract=True)
+    rows.append(dict(priced(
+        f"{LAUNCH['train']} {m['batch']} x {m['seq']}, host mesh (1, 1)",
+        train_step.make_train_step(cfg, tcfg, ctx), (tstate, batch),
+        m["ms"]), measured_least_ms=m["least_ms"]))
+    del tstate, params
+    # gemma2-9b's prefill of lm_families
+    m = measured[LAUNCH["prefill"]]
+    cfg = get_config(WIDE_ATTN_ARCH)
+    params = schema.abstract_params(cfg)
+    batch = train_batch(cfg, m["batch"], m["seq"], abstract=True)
+    batch.pop("labels")
+
+    def prefill(params, batch):
+        with torch.no_grad():
+            return transformer.prefill_forward(cfg, params, batch,
+                                               max_seq=m["max_seq"])
+
+    rows.append(priced(f"{LAUNCH['prefill']} {m['batch']} x {m['seq']}",
+                       prefill, (params, batch), m["ms"]))
+    emit("launch", case="(a) the counter's bound beside the card's time",
+         hardware_model="H100 SXM: 989e12 bf16 FLOP/s, 3.35e12 B/s",
+         rows=rows)
+    t0 = time.perf_counter()
+    row = dryrun.run_cell(*LAUNCH["cell"], multi_pod=False, verbose=False)
+    check(row["ok"], f"launch(b): the dry-run cell failed: "
+          f"{row.get('error')}")
+    emit("launch", case="(b) dry-run cell on the 16 x 16 counting mesh",
+         row=row, host_s=time.perf_counter() - t0)
+    emit("launch_done", seconds=time.perf_counter() - t_phase)
 
 
 FT_RANK = 16
@@ -6136,24 +6523,36 @@ EXAMPLES = (
     ("gradient_compression_torch.py", ("--steps", "40"),
      ("flash_attention",)),
 )
+# Example processes on the card at once (the card's host has 8 cores).
+EXAMPLE_WORKERS = 4
 # The trainers' loss criterion (tests/test_system.py's): the last logged
 # loss below this share of the first.
 EXAMPLE_LOSS_DROP = 0.85
 
 
+def run_example(root, env, script, args):
+    """(the finished process, its wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "examples", script), *args],
+        env=env, capture_output=True, text=True, timeout=600)
+    return proc, time.perf_counter() - t0
+
+
 def phase_examples(state) -> None:
     """The nine twins (the LM twin twice), each a process of its own on
-    the card."""
+    the card, ``EXAMPLE_WORKERS`` of them at once (each is smoke-sized;
+    most of a process's wall is its start: the interpreter, torch, the
+    kernel library)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     runs = []
     torch.cuda.empty_cache()
-    for script, args, kernels in EXAMPLES:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, os.path.join(root, "examples", script), *args],
-            env=env, capture_output=True, text=True, timeout=600)
-        secs = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+        done = [pool.submit(run_example, root, env, script, args)
+                for script, args, _ in EXAMPLES]
+        results = [f.result() for f in done]
+    for (script, args, kernels), (proc, secs) in zip(EXAMPLES, results):
         name = " ".join((script,) + args)
         check(proc.returncode == 0, f"examples: {name} exited "
               f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
@@ -6186,9 +6585,9 @@ def phase_examples(state) -> None:
                   f"{run['first_loss']}")
         runs.append(dict(example=name, seconds=secs, **summary))
         keep_counts(state, f"examples[{name}]", launches)
-    emit("examples", runs=runs,
+    emit("examples", runs=runs, workers=EXAMPLE_WORKERS,
          clocks="wall seconds of each process, interpreter start and the "
-                "kernel library's load included")
+                "kernel library's load included, beside the others")
 
 
 def main(argv=None) -> int:
@@ -6233,6 +6632,7 @@ def main(argv=None) -> int:
          num_blocks=NUM_BLOCKS, ell_capacity=list(state["ell"].capacity),
          host_seconds=time.perf_counter() - t0)
 
+    phase_seconds = {}
     for phase in (phase_kernels, phase_solve_sparse_exact,
                   phase_solve_dense_exact, phase_solve_randomized,
                   phase_solve_scaled, phase_stream_exact, phase_stream_serve,
@@ -6242,11 +6642,14 @@ def main(argv=None) -> int:
                   phase_checkpoint,
                   phase_observe, phase_lint, phase_trace,
                   phase_drift_stages, phase_distributed, phase_lm_mesh,
-                  phase_ft, phase_examples):
+                  phase_launch, phase_ft, phase_examples):
         if only and phase.__name__[len("phase_"):] not in only:
             continue
+        t_phase = time.perf_counter()
         phase(state)
         torch.cuda.synchronize()
+        phase_seconds[phase.__name__[len("phase_"):]] = \
+            time.perf_counter() - t_phase
     if only:
         print(json.dumps({"only": sorted(only), "ok": True}), flush=True)
         return 0
@@ -6263,6 +6666,7 @@ def main(argv=None) -> int:
                                for solve, counts in by_solve.items()},
             **{key: value for key, value in state["kernel_main"][name]
                .items() if key != "checked"}))
+    emit("phase_seconds", **phase_seconds)
     emit("stage_summary", **state["stage_summary"])
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

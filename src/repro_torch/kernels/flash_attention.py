@@ -20,7 +20,10 @@ that both stay within the plain version's limits (see the source).  The
 plain version is ``flash_attention_ref`` (the reference's
 ``ref.flash_attention``, with zeros instead of NaN for rows that see no
 key); ``flash_attention`` takes it ONLY for tensors that lie on the CPU;
-for CUDA tensors it launches the kernel or raises.
+for CUDA tensors it launches the kernel or raises.  On the ``meta`` device
+(the dry run, ``launch/dryrun.py``) it runs nothing: it returns empty
+outputs of the kernel's shapes and charges the open cost counters the
+kernel's ``work`` once.  Any other device raises.
 
 Gradients.  Where autograd needs them (grad mode on and an input that
 requires grad), ``flash_attention`` goes through ``FlashAttention``, a
@@ -40,10 +43,11 @@ gives such a row P = 1 over every key).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import build
 
 # Number of kernel launches made by ``flash_attention`` in this process.
@@ -84,6 +88,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
     if window < 0 or softcap < 0:
         raise ValueError(f"flash_attention: window={window} and "
                          f"softcap={softcap} must be >= 0")
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs that the mask shows (``_mask`` over all sk
+    keys, summed), in closed form a query: query i sits at key position
+    i + sk - sq and sees keys [max(0, pos - window + 1), min(pos, sk -
+    1)] under ``causal`` and a ``window`` (either bound dropped without
+    it)."""
+    total = 0
+    for pos in range(sk - sq, sk):
+        hi = min(pos, sk - 1) if causal else sk - 1
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def work(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+         itemsize: int, *, causal: bool = True, window: int = 0,
+         lse: bool = False) -> Tuple[float, float]:
+    """The least work of one call, (bytes, operations), whatever the
+    kernel's tiling: q, k, v read once and the output written once at
+    ``itemsize`` bytes (and the float32 ``lse`` where it is wanted); a
+    multiply and an add per head dim for q.k and for p.v, per visible
+    (query, key) pair, per query head.  The softmax's exponentials, under
+    1/(4 d) of the operations, are left out."""
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * itemsize
+    if lse:
+        nbytes += 4 * b * hq * sq
+    return float(nbytes), 4.0 * b * hq * d * visible_pairs(sq, sk, causal,
+                                                            window)
 
 
 def _mask(sq: int, k0: int, k1: int, sk: int, causal: bool, window: int,
@@ -156,14 +190,30 @@ def _kernel(q, k, v, causal, window, softcap, scale, want_lse):
     return (out if dp == d else out[..., :d].contiguous()), lse
 
 
+def _meta(q, k, causal, window, want_lse):
+    """On ``meta``: empty outputs of the kernel's shapes, and the kernel's
+    ``work`` charged to the open cost counters (``kernels.charge_meta``);
+    nothing runs."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    kernels.charge_meta("flash_attention", *work(
+        b, hq, hkv, sq, sk, d, q.element_size(), causal=causal,
+        window=window, lse=want_lse))
+    lse = torch.empty((b, hq, sq), dtype=torch.float32,
+                      device="meta") if want_lse else None
+    return torch.empty_like(q), lse
+
+
 def _forward(q, k, v, causal, window, softcap, scale, want_lse):
     """(out, lse or None): the kernel on a CUDA tensor, the plain version
-    on a CPU one."""
+    on a CPU one, the kernel's shapes and charge on ``meta``."""
     if q.device.type == "cpu":
         out = flash_attention_ref(q, k, v, causal=causal, window=window,
                                   softcap=softcap, scale=scale,
                                   return_lse=want_lse)
         return out if want_lse else (out, None)
+    if q.device.type == "meta":
+        return _meta(q, k, causal, window, want_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: unsupported device {q.device}")
     return _kernel(q, k, v, causal, window, softcap, scale, want_lse)

@@ -20,7 +20,10 @@ sequential oracle when ``L % chunk != 0`` does not carry over: on the card
 every length goes to the kernel.  The plain version ``ssd_scan_ref`` is the
 sequential recurrence of the reference's ``ref.ssd_scan``;
 ``ssd_scan`` takes it ONLY for tensors that lie on the CPU; for CUDA tensors
-it launches the kernel or raises.
+it launches the kernel or raises.  On the ``meta`` device (the dry run,
+``launch/dryrun.py``) it runs nothing: it returns empty outputs of the
+kernel's shapes and charges the open cost counters the kernel's ``work``
+once.  Any other device raises.
 
 Gradients.  Where autograd needs them (grad mode on and an input that
 requires grad), ``ssd_scan`` goes through ``SSDScan``, a
@@ -45,6 +48,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import build
 
 # Number of kernel launches made by ``ssd_scan`` in this process.
@@ -197,10 +201,26 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def _meta(x, b_mat):
+    """On ``meta``: empty outputs of the kernel's shapes, and the kernel's
+    ``work`` charged to the open cost counters (``kernels.charge_meta``);
+    nothing runs."""
+    bsz, seq, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    kernels.charge_meta("ssd_scan", *work(bsz, seq, h, g, p, n,
+                                          x.element_size()))
+    return torch.empty_like(x), torch.empty((bsz, h, p, n),
+                                            dtype=torch.float32,
+                                            device="meta")
+
+
 def _forward(x, dt, a, b_mat, c_mat):
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    """The kernel on a CUDA tensor, the plain version on a CPU one, the
+    kernel's shapes and charge on ``meta``."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, a, b_mat, c_mat)
+    if x.device.type == "meta":
+        return _meta(x, b_mat)
     if x.device.type != "cuda":
         raise RuntimeError(f"ssd_scan: unsupported device {x.device}")
     return _kernel(x, dt, a, b_mat, c_mat)

@@ -12,11 +12,11 @@ parameters and moments in place (``optim/adamw.py``).
 
 On the model mesh (``ctx``, ``models/layers.ShardCtx``) the state holds
 the rank's blocks: the parameters by ``param_specs``, the AdamW moments
-by ``state_shardings`` (ZeRO-1 over ``opt_shard``).  The step's gradients
-are the rank's blocks of the global loss's (the model's collectives carry
-the tensor-parallel part) and are ``psum``med over the batch axes.
-GaLore over a mesh waits for the next slice: its basis needs each leaf's
-whole gradient (``make_train_step`` raises ``NotImplementedError``).
+and the GaLore state by ``state_shardings`` (ZeRO-1 over ``opt_shard``).
+The step's gradients are the rank's blocks of the global loss's (the
+model's collectives carry the tensor-parallel part) and are ``psum``med
+over the batch axes; GaLore forms each basis from the whole gradient
+(``compression/galore.py``).
 """
 from __future__ import annotations
 
@@ -58,12 +58,13 @@ _NO_MESH = ShardCtx()
 
 def init_opt_state(tcfg: TrainConfig, params, cfg: ModelConfig = None,
                    ctx: ShardCtx = _NO_MESH) -> Dict[str, Any]:
-    if tcfg.optimizer == "galore":
-        _no_galore_mesh(tcfg, ctx)
-        return galore_mod.init_state(params, tcfg.galore)
-    if ctx.mesh is None:
-        return adamw.init_state(params)
     sh = state_shardings(cfg, tcfg, ctx)
+    if tcfg.optimizer == "galore":
+        return galore_mod.init_state(
+            params, tcfg.galore, ctx=ctx,
+            specs=None if sh is None else sh["params"])
+    if sh is None:
+        return adamw.init_state(params)
     return adamw.init_state(params, ctx=ctx, specs=sh["params"],
                             mspecs=sh["opt"]["m"])
 
@@ -112,15 +113,6 @@ def state_shardings(cfg: ModelConfig, tcfg: TrainConfig, ctx: ShardCtx):
                       pspecs, state["opt"]["m"])
         opt = {"m": m, "v": m, "step": ()}
     return {"params": pspecs, "opt": opt, "rng": ()}
-
-
-def _no_galore_mesh(tcfg: TrainConfig, ctx: ShardCtx) -> None:
-    if tcfg.optimizer == "galore" and ctx.mesh is not None \
-            and ctx.mesh.size > 1:
-        raise NotImplementedError(
-            "GaLore over a mesh: its basis needs each leaf's whole "
-            "gradient; it is the next slice of the port (ROADMAP.md "
-            "Queue A item 16)")
 
 
 def checkpoint_tree(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -229,11 +221,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``grad_norm``, ``lr_scale`` (0-dim tensors).  On a mesh ``state`` and
     ``batch`` are the rank's blocks (``state_shardings``,
     ``data.tokens.shard_batch``)."""
-    _no_galore_mesh(tcfg, ctx)
-    sh = state_shardings(cfg, tcfg, ctx) if tcfg.optimizer == "adamw" \
-        else None
-    mesh_kw = {} if sh is None else dict(
-        ctx=ctx, specs=sh["params"], mspecs=sh["opt"]["m"])
+    sh = state_shardings(cfg, tcfg, ctx)
+    mesh_kw = {} if sh is None else dict(ctx=ctx, specs=sh["params"])
+    if sh is not None and tcfg.optimizer == "adamw":
+        mesh_kw["mspecs"] = sh["opt"]["m"]
 
     def step(state, batch):
         params = state["params"]
@@ -246,7 +237,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             step_seed = derive_seed(state["seed"], int(opt["step"]))
             _, _, om = galore_mod.apply_updates(
                 tcfg.adamw, tcfg.galore, params, grads, opt,
-                lr_scale=lr_scale, seed=step_seed)
+                lr_scale=lr_scale, seed=step_seed, **mesh_kw)
         else:
             _, _, om = adamw.apply_updates(tcfg.adamw, params, grads, opt,
                                            lr_scale=lr_scale, **mesh_kw)

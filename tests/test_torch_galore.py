@@ -70,7 +70,7 @@ def test_basis_subspace_given_the_references_draws():
     want = np.asarray(jax.jit(jax.vmap(lambda gm: jgalore._basis(
         jgalore.GaloreConfig(rank=8, min_dim=32), gm, key)))(jnp.asarray(g)))
     cols = torch.from_numpy(np.array(jax.random.randint(key, (96,), 0, 80)))
-    got = tgalore._basis(gcfg, torch.from_numpy(g), cols).numpy()
+    got = tgalore.mesh_basis(gcfg, torch.from_numpy(g), cols=cols).numpy()
     assert got.shape == want.shape == (3, 96, 8)
     for i in range(3):
         assert projector_gap(got[i], want[i]) < 1e-4
@@ -177,8 +177,8 @@ def test_galore_basis_stable_with_repair():
     g[:8] = rng.standard_normal((8, 64))
     gcfg = tgalore.GaloreConfig(rank=8, repair=True)
     cols = tgalore.draw_cols(0, 0, 32, 64)
-    p1 = tgalore._basis(gcfg, torch.from_numpy(g), cols).numpy()
-    p2 = tgalore._basis(gcfg, torch.from_numpy(g), cols).numpy()
+    p1 = tgalore.mesh_basis(gcfg, torch.from_numpy(g), cols=cols).numpy()
+    p2 = tgalore.mesh_basis(gcfg, torch.from_numpy(g), cols=cols).numpy()
     np.testing.assert_allclose(p1, p2, atol=1e-6)
     np.testing.assert_allclose(p1 @ p1.T @ g, g, atol=1e-3)
     assert torch.equal(cols, tgalore.draw_cols(0, 0, 32, 64))

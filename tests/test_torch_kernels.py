@@ -22,6 +22,7 @@ rounds its float32 result to bf16 once: one bf16 ulp is 2**-8 relative).
 """
 import subprocess
 import sys
+import types
 
 import numpy as np
 import jax.numpy as jnp
@@ -620,10 +621,13 @@ def test_wrappers_validate_their_inputs():
                       bc[:, :, :2], bc[:, :, :2])
 
 
-def test_cuda_request_without_cuda_raises_instead_of_plain_version():
+def test_cuda_request_without_cuda_raises_instead_of_plain_version(
+        monkeypatch):
     """No hidden fallback: asking for the GPU where there is none raises, and
     a tensor that lies neither on the CPU nor on a CUDA device never reaches
-    the plain version through a wrapper."""
+    the plain version through a wrapper.  The two LM kernels take ``meta``
+    tensors (the dry run): there they return the kernel's shapes without
+    reaching the plain version; any other device raises."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the no-CUDA refusal cannot "
                     "be shown here")
@@ -647,14 +651,25 @@ def test_cuda_request_without_cuda_raises_instead_of_plain_version():
     with pytest.raises(RuntimeError, match="unsupported device"):
         tops.topk_score(torch.zeros((2, 3), device="meta"),
                         torch.zeros((5, 3), device="meta"), 2)
+    def plain(*args, **kwargs):
+        raise AssertionError("a meta tensor reached the plain version")
+
+    monkeypatch.setattr(tfa, "flash_attention_ref", plain)
+    monkeypatch.setattr(tss, "ssd_scan_ref", plain)
     q = torch.zeros((1, 2, 4, 16), device="meta")
-    with pytest.raises(RuntimeError, match="unsupported device"):
-        tops.flash_attention(q, q, q)
+    out = tops.flash_attention(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape
     bc = torch.zeros((1, 8, 1, 16), device="meta")
+    y, h = tops.ssd_scan(torch.zeros((1, 8, 2, 16), device="meta"),
+                         torch.zeros((1, 8, 2), device="meta"),
+                         torch.zeros((2,), device="meta"), bc, bc)
+    assert y.device.type == h.device.type == "meta"
+    assert h.shape == (1, 2, 16, 16)
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(RuntimeError, match="unsupported device"):
-        tops.ssd_scan(torch.zeros((1, 8, 2, 16), device="meta"),
-                      torch.zeros((1, 8, 2), device="meta"),
-                      torch.zeros((2,), device="meta"), bc, bc)
+        tfa._forward(other, q, q, True, 0, 0.0, 1.0, False)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tss._forward(other, None, None, None, None)
 
 
 def test_launch_counters_do_not_move_on_the_cpu():

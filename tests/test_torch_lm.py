@@ -17,6 +17,7 @@ configs, schemas and the padding of requests are compared exactly.
 import dataclasses
 import subprocess
 import sys
+import types
 
 import numpy as np
 import jax
@@ -528,10 +529,12 @@ def test_every_family_runs_on_the_cpu(arch):
         ttr.forward_logits(other, params, batch)
 
 
-def test_a_cuda_request_without_cuda_raises():
+def test_a_cuda_request_without_cuda_raises(monkeypatch):
     """The entry points default to the GPU and never fall back to the
     CPU; the kernel wrappers raise for a device they have no kernel for,
-    before any launch is counted."""
+    before any launch is counted.  On ``meta`` (the dry run) they return
+    the kernel's shapes, count no launch and never reach the plain
+    version."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = tbase.get_smoke_config(ARCH)
@@ -544,15 +547,25 @@ def test_a_cuda_request_without_cuda_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlaunch.main(["--arch", ARCH, "--smoke"])
     before = (tfa.launches, tss.launches)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a meta tensor reached the plain version")
+
+    monkeypatch.setattr(tfa, "flash_attention_ref", plain)
+    monkeypatch.setattr(tss, "ssd_scan_ref", plain)
     q = torch.zeros((1, 2, 4, 16), device="meta")
-    with pytest.raises(RuntimeError, match="unsupported device"):
-        tfa.flash_attention(q, q, q)
+    assert tfa.flash_attention(q, q, q).device.type == "meta"
     x = torch.zeros((1, 8, 2, 16), device="meta")
     dt = torch.zeros((1, 8, 2), device="meta")
     a = torch.zeros((2,), device="meta")
     bc = torch.zeros((1, 8, 1, 16), device="meta")
+    y, h = tss.ssd_scan(x, dt, a, bc, bc)
+    assert y.shape == x.shape and h.device.type == "meta"
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(RuntimeError, match="unsupported device"):
-        tss.ssd_scan(x, dt, a, bc, bc)
+        tfa._forward(other, q, q, True, 0, 0.0, 1.0, False)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tss._forward(other, x, dt, a, bc)
     assert (tfa.launches, tss.launches) == before
 
 

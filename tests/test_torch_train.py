@@ -436,13 +436,25 @@ def test_launcher_trains_on_the_cpu_and_guards_the_mesh(tmp_path):
         assert got[0] == "mesh: (1, 1) ('data', 'model') (0 devices idle)"
         assert int(state["opt"]["step"]) == 2 and len(got) == 3
     assert not torch.distributed.is_initialized()
-    # what the mesh path still refuses: GaLore over a mesh of more than
-    # one slot, and a LocalMesh of several slots for the LM
-    cfg = tbase.get_smoke_config("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="GaLore over a mesh"):
-        tstep.make_train_step(cfg, tstep.TrainConfig(optimizer="galore"),
-                              tlayers.ShardCtx(tlayers.layout_mesh(
-                                  {"data": 2, "model": 2})))
+    # --optimizer galore trains on the mesh too: the same losses as
+    # without a coordinator (a group of one copies its collectives' input)
+    logs = {}
+    for name, extra in (("alone", []),
+                        ("mesh", ["--coordinator", f"localhost:{port}",
+                                  "--num-hosts", "1", "--host-id", "0"])):
+        got = []
+        state = tlaunch.main(["--arch", "zamba2-2.7b", "--smoke", "--steps",
+                              "2", "--seq", "16", "--global-batch", "2",
+                              "--device", "cpu", "--optimizer", "galore",
+                              "--model-parallel", "2", *extra],
+                             log=got.append)
+        assert int(state["opt"]["step"]) == 2 and len(got) == 3
+        assert "p" in state["opt"]["leaves"]["embed"]
+        logs[name] = [ln.split()[:3] for ln in got[1:]]
+    assert logs["mesh"] == logs["alone"]
+    assert not torch.distributed.is_initialized()
+    # what the mesh path still refuses: a LocalMesh of several slots for
+    # the LM
     with pytest.raises(ValueError, match="one mesh slot a process"):
         tlayers.ShardCtx(tcol.LocalMesh({"data": 2, "model": 1}, "cpu"))
 
