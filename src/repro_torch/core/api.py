@@ -632,11 +632,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _observe(config: Optional[SolveConfig]) -> None:
+    """``config.observe=True`` stickily enables the full obs layer."""
+    if config is not None and config.observe and not obs.enabled():
+        obs.enable()
+
+
 class _CallTimer:
     """Wall/compile/run split + obs digests for one front-door call, the
     device synchronized at both ends.
 
-    ``config.observe=True`` stickily enables the full obs layer.  The
+    The call's config turns obs on first (:func:`_observe`).  The
     compile side is the obs clock's compile seconds (the kernels' build)
     that appeared during the call, clamped so that ``run_time_s`` can
     never go negative.  The span digest covers the spans appended since
@@ -645,8 +651,7 @@ class _CallTimer:
     """
 
     def __init__(self, config: Optional[SolveConfig], device: torch.device):
-        if config is not None and config.observe and not obs.enabled():
-            obs.enable()
+        _observe(config)
         self._device = device
         _sync(device)
         self._mark = obs.trace.mark()
@@ -704,7 +709,15 @@ def svd(a: MatrixInput, config: Optional[SolveConfig] = None, *,
             f"mesh= was provided but config.backend={config.backend!r}; a "
             f"mesh only applies to backend='shard_map' (or 'auto')")
     device = mesh.device if mesh is not None else resolve_device(device)
+    _observe(config)
+    # The call's root span, from the clock's first sync to the end of the
+    # diagnostics: every span of the call carries its id.
+    with obs.span("svd.call"):
+        return _svd(a, config, mesh, block_axes, device, draws, omega)
 
+
+def _svd(a, config: SolveConfig, mesh, block_axes, device, draws, omega):
+    """The body of :func:`svd`, inside the call's root span."""
     timer = _CallTimer(config, device)
     with obs.span("describe_and_plan"):
         d, note = _resolve_num_blocks(a, config, device, mesh, block_axes)

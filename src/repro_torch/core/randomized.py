@@ -260,9 +260,11 @@ def _stack_ops(blocks, *, summed: bool = True):
     through row and repair indexes sorted once here for every pass."""
     if isinstance(blocks, sparse.RepairedSparseBlocks):
         ell = blocks.ell
-        rep_seg = repair_col_segments(blocks)
-        row_seg = [slot_row_segments(ell.col_rows[d], ell.col_vals[d], ell.m)
-                   for d in range(ell.num_blocks)]
+        with obs.span("sketch_index"):
+            rep_seg = repair_col_segments(blocks)
+            row_seg = [slot_row_segments(ell.col_rows[d], ell.col_vals[d],
+                                         ell.m)
+                       for d in range(ell.num_blocks)]
 
         def sketch(om):
             return sketch_stack_sparse(om, blocks, repair_segments=rep_seg)

@@ -2,11 +2,12 @@
 
 ``span("ingest.window", bucket=..., batches=...)`` is a context manager
 that records one complete trace event — name, start, duration, thread,
-nesting depth, and small key=value args — into a process-local ring
-buffer.  The buffer is bounded (``obs.enable(ring_capacity=...)``) with
-a DROP-OLDEST overflow policy: a long-lived stream keeps the most
-recent window of events and counts what it shed (``dropped()``), so
-tracing can stay on for days without growing.
+nesting depth, small key=value args, and its place in the call tree —
+into a process-local ring buffer.  The buffer is bounded
+(``obs.enable(ring_capacity=...)``) with a DROP-OLDEST overflow policy:
+a long-lived stream keeps the most recent window of events and counts
+what it shed (``dropped()``), so tracing can stay on for days without
+growing.
 
 Recording discipline:
 
@@ -24,7 +25,18 @@ Recording discipline:
   ``Event.query()`` says the end event has completed (checked, never
   waited for, as later spans are appended) — so a span adds no host
   sync to the code it wraps.  On the CPU the obs clock gives the
-  duration at the span's exit.
+  duration at the span's exit;
+* every record carries a ``span_id`` (unique in the process), its
+  ``parent`` (the span open around it on its thread, None at the top of
+  the thread's stack) and its ``call``: the ``span_id`` of the root of
+  its tree, so that every span of one front-door call (``api.svd`` opens
+  the root ``svd.call``) carries that call's id, and a reader can take a
+  span's self time as its duration less its children's;
+* while ``torch.profiler`` records, a span also opens a profiler range
+  of its own name (``record_function``) around its body, so the span
+  stands on the profiler's timeline beside the device's work, and an
+  idle gap there can be put down to the innermost span open over it.
+  With the profiler off that is one check; with obs off, none.
 
 A span's body may register ``sp.then(fn)`` (``with span(...) as sp:``):
 ``fn(dur_us)`` runs once the duration is known (how ``serve_topk`` folds
@@ -38,6 +50,7 @@ or chrome://tracing.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import threading
 from collections import deque
@@ -59,6 +72,9 @@ class TraceEvent:
     tid: int
     depth: int                   # span nesting depth on its thread
     args: Tuple[Tuple[str, object], ...]
+    span_id: int                 # unique in the process
+    parent: Optional[int]        # the enclosing span's id; None at the top
+    call: int                    # the span_id of the root of its tree
 
 
 class _Pending:
@@ -170,6 +186,7 @@ class TraceBuffer:
 
 _BUFFER = TraceBuffer(gate.ring_capacity())
 _TLS = threading.local()
+_IDS = itertools.count(1)
 
 
 def buffer() -> TraceBuffer:
@@ -206,11 +223,22 @@ def clear() -> None:
     _BUFFER.clear()
 
 
-def _depth_stack() -> list:
+def _span_stack() -> list:
+    """The spans open on this thread, outermost first."""
     st = getattr(_TLS, "stack", None)
     if st is None:
         st = _TLS.stack = []
     return st
+
+
+def _place(stack: list) -> Tuple[int, Optional[int], int]:
+    """(span_id, parent, call) of a record made inside the open spans
+    ``stack``."""
+    sid = next(_IDS)
+    if not stack:
+        return sid, None, sid
+    top = stack[-1]
+    return sid, top.span_id, top.call
 
 
 def _capturing() -> bool:
@@ -233,10 +261,21 @@ def _timing_event():
     return ev
 
 
+def _profiler_range(name: str):
+    """An open ``torch.profiler`` range named ``name`` while the profiler
+    records; None otherwise."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _Span:
     """One open span (see :func:`span`)."""
 
-    __slots__ = ("name", "args", "callbacks", "_t0", "_ev0", "_depth")
+    __slots__ = ("name", "args", "callbacks", "span_id", "parent", "call",
+                 "_t0", "_ev0", "_depth", "_range")
 
     def __init__(self, name: str, args: Dict[str, object]):
         self.name = name
@@ -248,9 +287,11 @@ class _Span:
         self.callbacks.append(fn)
 
     def __enter__(self) -> "_Span":
-        stack = _depth_stack()
+        stack = _span_stack()
         self._depth = len(stack)
-        stack.append(self.name)
+        self.span_id, self.parent, self.call = _place(stack)
+        stack.append(self)
+        self._range = _profiler_range(self.name)
         self._t0 = clock.now_us()
         self._ev0 = _timing_event() if torch.cuda.is_initialized() else None
         return self
@@ -258,10 +299,13 @@ class _Span:
     def __exit__(self, *exc) -> bool:
         end = _timing_event() if self._ev0 is not None else None
         host_dur = clock.now_us() - self._t0
-        _depth_stack().pop()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        _span_stack().pop()
         fields = dict(name=self.name, ph="X", ts_us=self._t0,
                       tid=threading.get_ident(), depth=self._depth,
-                      args=_norm_args(self.args))
+                      args=_norm_args(self.args), span_id=self.span_id,
+                      parent=self.parent, call=self.call)
         if end is not None:
             _BUFFER.append(_Pending(fields, self._ev0, end, self.callbacks))
         else:
@@ -298,25 +342,28 @@ def span(name: str, **args):
     return _Span(name, args)
 
 
+def _append_inside(name: str, ph: str, ts_us: float, dur_us: float,
+                   args: Dict[str, object]) -> None:
+    """Append a record made now inside this thread's open spans."""
+    stack = _span_stack()
+    sid, parent, call = _place(stack)
+    _BUFFER.append(TraceEvent(
+        name=name, ph=ph, ts_us=ts_us, dur_us=dur_us,
+        tid=threading.get_ident(), depth=len(stack),
+        args=_norm_args(args), span_id=sid, parent=parent, call=call))
+
+
 def event(name: str, **args) -> None:
     """Record one instant marker."""
-    if not _recording():
-        return
-    _BUFFER.append(TraceEvent(
-        name=name, ph="i", ts_us=clock.now_us(), dur_us=0.0,
-        tid=threading.get_ident(), depth=len(_depth_stack()),
-        args=_norm_args(args)))
+    if _recording():
+        _append_inside(name, "i", clock.now_us(), 0.0, args)
 
 
 def add_complete(name: str, ts_us: float, dur_us: float, **args) -> None:
     """Record a span whose start/duration the caller measured itself
     (on the obs clock)."""
-    if not _recording():
-        return
-    _BUFFER.append(TraceEvent(
-        name=name, ph="X", ts_us=ts_us, dur_us=dur_us,
-        tid=threading.get_ident(), depth=len(_depth_stack()),
-        args=_norm_args(args)))
+    if _recording():
+        _append_inside(name, "X", ts_us, dur_us, args)
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +405,8 @@ def chrome_trace(evs: Optional[Iterable[TraceEvent]] = None, *,
             "pid": 1,
             "tid": ev.tid,
             "cat": ev.name.split(".", 1)[0],
-            "args": dict(ev.args, depth=ev.depth),
+            "args": dict(ev.args, depth=ev.depth, span_id=ev.span_id,
+                         parent=ev.parent, call=ev.call),
         }
         if ev.ph == "X":
             rec["dur"] = ev.dur_us

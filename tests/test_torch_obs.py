@@ -18,9 +18,13 @@
   events (no wait while a span's end event is pending, callbacks once
   resolved).
 * The solver's spans (the stage names ``core/stages.py`` recorded before
-  ``obs`` replaced it) for each solve path: names, repeats, a sum of
-  top-level spans within the wall time, results bit-equal with obs on
-  and off.
+  ``obs`` replaced it) for each solve path: names, repeats, the timed
+  children of the call's root span ``svd.call`` within the wall time,
+  results bit-equal with obs on and off.
+* The call tree: every span of an ``api.svd`` call carries the call's
+  id, its parent is the span around it, and ``svd.call`` is the root;
+  under ``torch.profiler`` each span is one range nested in its parent's,
+  and no range opens with obs or the profiler off.
 """
 import warnings
 
@@ -542,8 +546,8 @@ PATHS = [
      FRONT + ["local_svd_exact", "merge_panels_svd"], {}),
     (dict(backend="single", method="random", rank=8, power_iters=2,
           want_right=True),
-     FRONT + ["sketch", "pullback", "qr", "sketch_gram", "truncate_sketch",
-              "right_vectors"],
+     FRONT + ["sketch_index", "sketch", "pullback", "qr", "sketch_gram",
+              "truncate_sketch", "right_vectors"],
      {"sketch": 3, "pullback": 3, "qr": 2}),
 ]
 
@@ -558,20 +562,118 @@ def test_each_path_records_its_spans_where_they_run(obs_off, knobs, names,
     timed = api.svd(coo, cfg, device=CPU)
     evs = obs.trace.events()
     first_seen = list(dict.fromkeys(e.name for e in evs))
-    # "diagnostics" runs after the call's clock stops
-    assert sorted(first_seen) == sorted(names + ["diagnostics"])
+    # "diagnostics" runs after the call's clock stops, inside the call's
+    # root span "svd.call", which closes last
+    assert sorted(first_seen) == sorted(names + ["diagnostics", "svd.call"])
+    assert evs[-1].name == "svd.call"
     summary = {name: (count, us) for name, count, us
                in timed.diagnostics.span_summary}
     assert set(summary) == set(names)
     for name in names:
         assert summary[name][0] == repeats.get(name, 1), name
         assert summary[name][1] >= 0.0
-    top = sum(e.dur_us for e in evs
-              if e.depth == 0 and e.name != "diagnostics")
-    assert top <= timed.diagnostics.wall_time_s * 1e6
+    timed_children = sum(e.dur_us for e in evs
+                         if e.parent == evs[-1].span_id
+                         and e.name != "diagnostics")
+    assert timed_children <= timed.diagnostics.wall_time_s * 1e6
     assert torch.equal(plain.s, timed.s) and torch.equal(plain.u, timed.u)
     if plain.v is not None:
         assert torch.equal(plain.v, timed.v)
+
+
+# ---------------------------------------------------------------------------
+# The call tree, and the spans on the profiler's timeline
+# ---------------------------------------------------------------------------
+
+RANDOMIZED = dict(backend="single", method="random", rank=8,
+                  want_right=True)
+
+
+def _solve(**knobs):
+    coo = sparse.random_bipartite(48, 4096, 2e-3, seed=1)
+    return api.svd(coo, api.SolveConfig(num_blocks=4, **knobs), device=CPU)
+
+
+@pytest.mark.parametrize("knobs", [dict(merge_mode="gram", want_right=True),
+                                   RANDOMIZED])
+def test_every_span_of_a_call_carries_its_id(obs_on, knobs):
+    with obs.span("before"):
+        pass
+    _solve(**knobs)
+    obs.event("after")
+    evs = obs.trace.events()
+    before, *inside, after = evs
+    (root,) = [e for e in inside if e.name == "svd.call"]
+    # svd.call is the only root but for what was recorded outside it
+    assert [e for e in evs if e.parent is None] == [before, root, after]
+    assert (before.call, after.call) == (before.span_id, after.span_id)
+    assert len({e.span_id for e in evs}) == len(evs)
+    by_id = {e.span_id: e for e in evs}
+    for e in inside:
+        assert e.call == root.span_id, e.name
+        if e is root:
+            continue
+        p = by_id[e.parent]                 # the enclosing span
+        assert p.depth == e.depth - 1, e.name
+        assert p.ts_us <= e.ts_us, e.name
+        assert e.ts_us + e.dur_us <= p.ts_us + p.dur_us, e.name
+    assert {e.name for e in inside if e.parent == root.span_id} \
+        == {"describe_and_plan", "as_block_input", "svd.solve",
+            "diagnostics"}
+    recs = obs.chrome_trace(evs)["traceEvents"][1:]
+    assert [(r["args"]["span_id"], r["args"]["parent"], r["args"]["call"])
+            for r in recs] == [(e.span_id, e.parent, e.call) for e in evs]
+
+
+def _user_ranges(prof) -> dict:
+    """{name: [(start_ns, end_ns), ...] by start} of a profile's
+    ``record_function`` ranges."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():
+            out.setdefault(e.name(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    return {name: sorted(r) for name, r in out.items()}
+
+
+def _profiled(fn):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return _user_ranges(prof)
+
+
+def test_each_span_is_one_range_on_the_profilers_timeline(obs_on):
+    ranges = _profiled(lambda: _solve(**RANDOMIZED))
+    evs = obs.trace.events()
+    where = {}
+    for name in {e.name for e in evs}:
+        spans = sorted((e for e in evs if e.name == name),
+                       key=lambda e: e.ts_us)
+        assert len(ranges.get(name, ())) == len(spans), name
+        where.update((e.span_id, r) for e, r in zip(spans, ranges[name]))
+    for e in evs:
+        if e.parent is not None:
+            (a, b), (pa, pb) = where[e.span_id], where[e.parent]
+            assert pa <= a and b <= pb, e.name
+
+
+def test_no_range_opens_with_obs_or_the_profiler_off(obs_off, monkeypatch):
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(name, *args, **kw):
+        opened.append(name)
+        return real(name, *args, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    assert "svd.call" not in _profiled(lambda: _solve(**RANDOMIZED))
+    assert opened == []                     # obs off, the profiler on
+    obs.enable()
+    _solve(**RANDOMIZED)
+    assert obs.trace.events() and opened == []   # the profiler off
+    assert "svd.call" in _profiled(lambda: _solve(**RANDOMIZED))
+    assert "svd.call" in opened
 
 
 def test_nothing_is_recorded_while_off(obs_off):
