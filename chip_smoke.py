@@ -43,14 +43,23 @@ What it does, one JSON line per phase:
    mixed rows, and timed beside ``torch.bmm``.  ``sparse_gram`` is timed
    beside ``torch.sparse.mm`` of the block-diagonal CSR of the stored
    columns by its transpose (cuSPARSE SpGEMM), whose diagonal blocks are
-   held to the kernel's grams.
+   held to the kernel's grams.  ``right_vectors`` (V = A^T U / S) is held
+   to its plain version at 1e-5 of max|V| and to the same bits over 10
+   calls on the repaired paper matrix (U square: a row stride of 539
+   floats, the scalar path; a column slice of U into a strided, unaligned
+   column slice of a wider panel, S rank-deficient) and on a ragged stack
+   with two stored columns on one id and an all-padding block, and timed
+   beside ``torch.sparse.mm`` of A^T as CSR by U.
 4. ``solve_sparse_exact`` / 5. ``solve_dense_exact`` / 6. ``solve_randomized``
    / 7. ``solve_scaled``: ``repro_torch.core.api.svd`` on the paper's
    539 x 170,897 matrix (COO and dense input, exact and rank-16) and on two
    larger matrices, each result held against a float64 (or scipy) reference
    of the repaired matrix; ``sparse_gram`` at (a)'s ELL (0/1 and with
-   seeded weights) and ``sketch_panel`` at (b)'s (L = 64, K = 36, Omega in
-   both layouts) are checked and timed there, under the ``kernels`` line's
+   seeded weights), ``sketch_panel`` at (b)'s (L = 64, K = 36, Omega in
+   both layouts) and ``right_vectors`` at (a)'s (the exact cell's shape:
+   D 8, W 131,072, U 2,048 x 2,048; and U's first 72 columns into columns
+   64 - 135 of a (D*W, 136) panel, as the streaming merges pass it) are
+   checked and timed there, under the ``kernels`` line's
    ``timed_variants``.  Every kernel's launch counter is set to 0 just
    before each solve and read just after it; the counts are kept solve by
    solve and never added up across solves.  Stage times come from the
@@ -70,8 +79,9 @@ What it does, one JSON line per phase:
    Phases 8-10 also hold ``sparse_gram`` against its plain version on
    repaired batches that their ingests factor.
 10b. ``hierarchical``: the tree merge (``backend="hierarchical"``, D = 8,
-   fanout 4) on the paper matrix exact from COO (one ``sparse_gram``) and
-   dense input (one ``blockgram``), with right vectors, against float64;
+   fanout 4) on the paper matrix exact from COO (one ``sparse_gram``, one
+   ``right_vectors``) and dense input (one ``blockgram``), with right
+   vectors, against float64;
    the same at rank 16 against the same solve on the CPU; rule R2
    (``sketch=True``, rank 16) on phase 7b's 32,768 x 262,144 matrix (one
    ``sketch_panel`` a pass over the whole block stack), never above the
@@ -332,6 +342,7 @@ from repro_torch.data import tokens as data_mod  # noqa: E402
 from repro_torch.kernels import blockgram as bg_mod  # noqa: E402
 from repro_torch.kernels import build as kernel_build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import right_vectors as rv_mod  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels import sketch_panel as sp_mod  # noqa: E402
 from repro_torch.kernels import sparse_gram as sg_mod  # noqa: E402
@@ -415,7 +426,8 @@ WHISPER = dict(arch="whisper-small", batch=8, seq=448, decode=32,
                check=(2, 64))
 KERNEL_MODULES = {"sparse_gram": sg_mod, "blockgram": bg_mod,
                   "sketch_panel": sp_mod, "topk_score": tk_mod,
-                  "flash_attention": fa_mod, "ssd_scan": ss_mod}
+                  "flash_attention": fa_mod, "ssd_scan": ss_mod,
+                  "right_vectors": rv_mod}
 # ``launches_in``: the solve of the main path whose count is the kernel's
 # ``launches`` (the first solve that should reach it).  The counts of every
 # solve stand beside it under ``launches_by_solve``.
@@ -444,6 +456,11 @@ KERNEL_INFO = {
                      source="src/repro_torch/csrc/ssd_scan.cu",
                      replaces="src/repro/kernels/ssd_scan.py:112",
                      launches_in="lm_serve[prefill]"),
+    "right_vectors": dict(route="cuda",
+                          source="src/repro_torch/csrc/right_vectors.cu",
+                          replaces="no TPU kernel: src/repro/core/svd.py:195 "
+                                   "computes it as a jnp product",
+                          launches_in="solve_sparse_exact[gram]"),
 }
 
 
@@ -743,6 +760,150 @@ def sketch_timed(cases, case, omega, rows, vals, *, iters=10) -> dict:
         library="torch.sparse.mm((D*C, M) CSR, Omega^T), CSR built "
                 "outside the timed window")
     del csr
+    return fields
+
+
+def rv_args(rep, u, s):
+    """``rv_mod.right_vectors``' positional arguments for a repaired sparse
+    stack: its ELL arrays, the repair side-band, the block width, U, S."""
+    e = rep.ell
+    return (e.col_ids, e.col_rows, e.col_vals, rep.repair_cols,
+            rep.repair_mask, e.width, u, s)
+
+
+def right_vectors_bound(args):
+    """(bound_ms, bound_by): V written once, U read once, 8 bytes a term (a
+    non-zero slot or a repair: row and value); a multiply and an add a term
+    and column of V."""
+    ids, _, vals, _, rmask, w, u, _ = args
+    m, r = u.shape
+    terms = float((vals != 0).sum() + rmask.sum())
+    nbytes = ids.shape[0] * w * r * 4 + m * r * 4 + terms * 8
+    return bound(nbytes, 2.0 * terms * r)
+
+
+def max_err_rows(x, y, rows: int = 1 << 16) -> float:
+    """``max_err`` a chunk of rows at a time: V at the exact cell's shape
+    holds 2**31 floats, and its float64 copies would not fit beside it."""
+    return max((max_err(x[i:i + rows], y[i:i + rows])
+                for i in range(0, x.shape[0], rows)), default=0.0)
+
+
+def right_vectors_case(cases, case, args, *, out_cols=None,
+                       calls: int = 10) -> dict:
+    """right_vectors held to its plain version at 1e-5 of max|plain|,
+    ``calls`` further calls giving the same bits, and the device kernels of
+    one call.  ``out_cols`` (width, start): V goes into columns start .. of a
+    (D*W, width) panel of 7.0s, whose other columns must keep their
+    value."""
+    u = args[6]
+    r = u.shape[1]
+
+    def call(panels=None):
+        if out_cols is None:
+            return rv_mod.right_vectors(*args)
+        width, start = out_cols
+        panel = torch.full((args[0].shape[0] * args[5], width), 7.0,
+                           device=DEVICE)
+        if panels is not None:
+            panels.append(panel)
+        return rv_mod.right_vectors(*args, out=panel[:, start:start + r])
+
+    panels = []
+    got = call(panels)
+    if panels:
+        panel, start = panels.pop(), out_cols[1]
+        check(bool((panel[:, :start] == 7.0).all())
+              and bool((panel[:, start + r:] == 7.0).all()),
+              f"right_vectors[{case}]: wrote outside its columns")
+        del panel
+    want = rv_mod.right_vectors_ref(*args)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"right_vectors[{case}]: shape {tuple(got.shape)} or non-finite")
+    err = max_err_rows(got, want)
+    limit = 1e-5 * float(want.abs().max())
+    cases.append(dict(kernel="right_vectors", case=case, max_abs_err=err,
+                      limit=limit))
+    check(err <= limit, f"right_vectors[{case}]: max abs err {err} > limit "
+          f"{limit}")
+    equal = bool(torch.equal(got, want))
+    del want
+    check_bit_stable("right_vectors", case, got, call, calls)
+    vec, tpr = rv_mod.row_plan(
+        r, rv_mod.vec4_ok(r, rv_mod.rows_of(u), got))
+    fields = dict(case=case, max_abs_err=err, limit=limit,
+                  equal_to_plain=equal, bit_stable_calls=calls,
+                  u_strides=list(u.stride()), out_strides=list(got.stride()),
+                  vec=vec, threads_a_row=tpr,
+                  device_kernels=device_kernels_per_call(call))
+    # the panel's fill, and U's copy where its columns are strided
+    check_device_kernels("right_vectors", case, fields["device_kernels"],
+                         rv_mod.DEVICE_KERNELS + (out_cols is not None)
+                         + (rv_mod.rows_of(u) is not u))
+    del got
+    return fields
+
+
+def right_vectors_library(args, *, iters=10, want=None) -> dict:
+    """The library yardstick of right_vectors: ``torch.sparse.mm`` of A^T,
+    the (D*W, M) CSR of the stored non-zeros and the repairs (duplicates
+    summed; built outside the timed window; the port never calls it), by U.
+    With ``want`` (the kernel's V) its product times the masked 1/S is
+    held to it at 1e-5 of max|V|."""
+    from repro_torch.core.svd import masked_inverse
+
+    ids, rows, vals, rcols, rmask, w, u, s = args
+    d = ids.shape[0]
+    live = vals != 0
+    blk, col, _ = live.nonzero(as_tuple=True)
+    rb, rj = rmask.nonzero(as_tuple=True)
+    vrow = torch.cat([blk * w + ids[blk, col].long(),
+                      rb * w + rcols[rb, rj].long()])
+    urow = torch.cat([rows[live].long(), rj])
+    v = torch.cat([vals[live], torch.ones(rb.numel(), device=vals.device)])
+    at = torch.sparse_coo_tensor(torch.stack([vrow, urow]), v,
+                                 (d * w, u.shape[0])).coalesce()
+    at = at.to_sparse_csr()
+    del blk, col, rb, rj, vrow, urow, v
+    uc = u.contiguous()
+    fields = dict(
+        library_ms=time_ms(lambda: torch.sparse.mm(at, uc), iters=iters),
+        library="torch.sparse.mm(A^T, U), A^T the (D*W, M) CSR of the "
+                "stored non-zeros and repairs, built outside the timed window")
+    if want is not None:
+        lib = torch.sparse.mm(at, uc).mul_(masked_inverse(s)[None, :])
+        err = max_err_rows(lib, want)
+        check(err <= 1e-5 * float(want.abs().max()),
+              f"right_vectors' library yardstick computes another function: "
+              f"err {err}")
+        fields["library_max_abs_err"] = err
+        del lib
+    del at, uc
+    return fields
+
+
+def right_vectors_timed(cases, case, args, *, out_cols=None, iters=10,
+                        plain_iters=3) -> dict:
+    """right_vectors_case, then the kernel's time (into the same kind of
+    ``out``) beside its bound, its plain version and the library
+    yardstick."""
+    fields = right_vectors_case(cases, case, args, out_cols=out_cols)
+    r = args[6].shape[1]
+    out = None
+    if out_cols is not None:
+        width, start = out_cols
+        out = torch.zeros((args[0].shape[0] * args[5], width),
+                          device=DEVICE)[:, start:start + r]
+    b_ms, b_by = right_vectors_bound(args)
+    kernel = lambda: rv_mod.right_vectors(*args, out=out)   # noqa: E731
+    fields.update(
+        ms=time_ms(kernel, iters=iters), device_ms=device_ms(kernel),
+        plain_ms=time_ms(lambda: rv_mod.right_vectors_ref(*args),
+                         iters=plain_iters, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        **right_vectors_library(args, iters=iters, want=kernel()))
+    del out
     return fields
 
 
@@ -1082,6 +1243,55 @@ def sketch_panel_rows(cases, main, ell, well, ragged, rng) -> None:
     main["sketch_panel"]["checked"] = sp_cases
 
 
+def right_vectors_rows(cases, main, ell, rng) -> None:
+    """``right_vectors`` on the repaired paper matrix (U square: a row
+    stride of 539 floats takes the scalar path; timed), then a column slice
+    of U into an unaligned column slice of a wider panel with S
+    rank-deficient, and a ragged stack with two stored columns on one id
+    and an all-padding block, at a square U (67 floats a row: scalar) and
+    a narrow one (16: float4)."""
+    rep = ranky.split_and_repair(ell, NUM_BLOCKS, "neighbor_random",
+                                 api.SolveConfig().resolved_key())
+    m = ell.m
+    gen = torch.Generator(DEVICE).manual_seed(41)
+
+    def s_of(r):
+        return torch.sort(torch.rand(r, device=DEVICE, generator=gen) * 40
+                          + 0.5, descending=True).values
+
+    u = torch.randn((m, m), device=DEVICE, generator=gen)
+    main["right_vectors"] = right_vectors_timed(
+        cases, "paper ELL, repaired, U square", rv_args(rep, u, s_of(m)))
+    main["right_vectors"].update(
+        shape=f"ids {tuple(ell.col_ids.shape)}, rows/vals "
+              f"{tuple(ell.col_rows.shape)}, U {tuple(u.shape)} -> "
+              f"{(NUM_BLOCKS * ell.width, m)}",
+        timed_variants=[])
+    checked = []
+    u_wide = torch.randn((m, 40), device=DEVICE, generator=gen)
+    s24 = s_of(24)
+    s24[-3:] = torch.tensor([1e-9, 1e-12, 0.0], device=DEVICE)
+    checked.append(right_vectors_case(
+        cases, "paper ELL, U[:, 1:25] of a (539, 40) U into columns 13-36 "
+        "of a (D*W, 37) panel, S rank-deficient",
+        rv_args(rep, u_wide[:, 1:25], s24), out_cols=(37, 13)))
+    rows, vals = synthetic_ell(rng, 3, 37, 5, 67, weighted=True,
+                               empty_block=1)
+    w = 50
+    ids = np.stack([rng.choice(w, 37, replace=False) for _ in range(3)])
+    ids[0, 4] = ids[0, 2]
+    ids = torch.from_numpy(ids.astype(np.int32)).to(DEVICE)
+    rcols = torch.from_numpy(rng.integers(0, w, (3, 67)).astype(np.int32))
+    rmask = torch.from_numpy(rng.random((3, 67)) < 0.3)
+    for r in (67, 16):
+        checked.append(right_vectors_case(
+            cases, f"ragged D=3 C=37 K=5 M=67 W=50, two stored columns on "
+            f"one id, block 1 all padding, U (67, {r})",
+            (ids, rows, vals, rcols.to(DEVICE), rmask.to(DEVICE), w,
+             torch.randn((67, r), device=DEVICE, generator=gen), s_of(r))))
+    main["right_vectors"]["checked"] = checked
+
+
 def phase_kernels(state) -> None:
     cfg = RankyPaperConfig()
     coo = state["coo"]
@@ -1155,6 +1365,7 @@ def phase_kernels(state) -> None:
     del a_sl
 
     sketch_panel_rows(cases, main, ell, well, ragged, rng)
+    right_vectors_rows(cases, main, ell, rng)
     topk_kernel_rows(state, cases, main)
     flash_kernel_rows(cases, main)
     ssd_kernel_rows(cases, main)
@@ -1166,8 +1377,8 @@ def phase_kernels(state) -> None:
                    "topk_score (torch.equal on values and indices); else "
                    "1e-5 * max|plain| (f32 summation order; blockgram and "
                    "sparse_gram are held against the gram summed in "
-                   "float64); sparse_gram and sketch_panel also the same "
-                   "bits over 10 calls (torch.equal); "
+                   "float64); sparse_gram, sketch_panel and right_vectors "
+                   "also the same bits over 10 calls (torch.equal); "
                    "flash_attention 2e-5 and "
                    "ssd_scan 1e-4 of max|plain| in float32 (online against "
                    "direct softmax; chunked scan against the sequential "
@@ -1783,6 +1994,9 @@ def phase_solve_sparse_exact(state) -> None:
         check(res.plan.strategy == f"exact_{merge_mode}", f"{name}: strategy")
         check(counts["sparse_gram"] >= 1,
               f"{name}: sparse_gram was not launched")
+        check(counts["right_vectors"] == 1, f"{name}: right_vectors "
+              f"launched {counts['right_vectors']} times, want once over "
+              f"the D-stack")
         check(res.diagnostics.lonely_rows == res.diagnostics.repaired_rows,
               f"{name}: lonely_rows != repaired_rows")
         check(res.v is not None and res.v.shape == (coo.shape[1],
@@ -1954,7 +2168,6 @@ def phase_solve_scaled(state) -> None:
     repaired = ranky.split_and_repair(ell, NUM_BLOCKS, cfg.method,
                                       cfg.resolved_key())
     fields = check_exact_result(name, res, repaired, NUM_BLOCKS, recon=False)
-    del repaired
     res2, _ = timed_svd(ell, cfg)
     # The kernel at this shape: 0/1 (exact) and with seeded weights in
     # (0.5, 2) on the non-zero slots, each the same bits over 10 calls,
@@ -1982,11 +2195,27 @@ def phase_solve_scaled(state) -> None:
                 lambda: sg_mod.sparse_gram(ell.col_rows, vals, m)))
         main["timed_variants"].append(kf)
     del w_vals
+    # right_vectors at the exact cell's shape (this solve's U and S, the
+    # repaired ELL), then as the streaming merges call it: U's first 72
+    # columns, S = 1, into columns 64-135 of a (D*W, 136) panel.
+    rv_main = state["kernel_main"]["right_vectors"]
+    for tag, u, s_, out_cols in (
+            ("exact, U square", res.u, res.s, None),
+            ("streaming merge, U[:, :72] into columns 64-135 of a (D*W, "
+             "136) panel", res.u[:, :72], torch.ones(72, device=DEVICE),
+             (136, 64))):
+        rv_main["timed_variants"].append(right_vectors_timed(
+            state["kernel_cases"], f"{name} ({m} x {n}) {tag}, U "
+            f"{tuple(u.shape)}, rows/vals {tuple(ell.col_rows.shape)}",
+            rv_args(repaired, u, s_), out_cols=out_cols))
+        torch.cuda.empty_cache()
+    del repaired
     emit("solve_scaled", case="a", m=m, n=n, nnz=coo.nnz,
          ell_capacity=list(ell.capacity), host_generate_s=t_gen,
          host_block_ell_from_coo_s=t_ell,
          warm_wall_time_s_ell_input=res2.diagnostics.wall_time_s,
          sparse_gram=main["timed_variants"][-2:],
+         right_vectors=rv_main["timed_variants"][-2:],
          stage_ms=stage_ms(ell, cfg),
          **diag_fields(res, counts), **fields)
     del ell, res, res2
@@ -2559,7 +2788,9 @@ def phase_hierarchical(state) -> None:
             else api.as_block_input(inp, NUM_BLOCKS, device=DEVICE),
             NUM_BLOCKS, cfg.method, cfg.resolved_key())
         keep_counts(state, name, counts)
-        fields = tree_fields(name, res, counts, {kernel: 1})
+        # V of a sparse stack: one right_vectors launch over the stack
+        fields = tree_fields(name, res, counts, {
+            kernel: 1, "right_vectors": int(kernel == "sparse_gram")})
         check(res.s.shape == (m,) and res.v.shape == (n, m),
               f"{name}: S / V shape")
         fields.update(check_exact_result(name, res, repaired, NUM_BLOCKS))
@@ -2594,7 +2825,8 @@ def phase_hierarchical(state) -> None:
     res, counts = timed_svd(coo, cfg16, draws=draws)
     name = "hierarchical[rank 16]"
     keep_counts(state, name, counts)
-    fields = tree_fields(name, res, counts, {"sparse_gram": 1})
+    fields = tree_fields(name, res, counts, {"sparse_gram": 1,
+                                             "right_vectors": 1})
     t0 = time.perf_counter()
     cpu = api.svd(coo, cfg16, device="cpu",
                   draws=ranky.RepairDraws(draws.random_cols.cpu(),

@@ -556,23 +556,18 @@ def right_vectors_stack(blocks, u: torch.Tensor, s: torch.Tensor, *,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Right vectors of the REPAIRED matrix from a repaired block stack:
     per block ``V_blk = A_blk^T U diag(1/S)``, stacked to (D*W, r) in
-    padded column order.  ``out`` (D*W, r), which may be a column slice of
-    a wider panel, receives the result in place of a new tensor (the
-    streaming merge writes the batch's part of its panel this way)."""
+    padded column order; a sparse stack in one ``kops.right_vectors`` call.
+    ``out`` (D*W, r), which may be a column slice of a wider panel,
+    receives the result in place of a new tensor (the streaming merge
+    writes the batch's part of its panel this way)."""
     from repro_torch.core import svd as lsvd
+    from repro_torch.kernels import ops as kops
 
     if isinstance(blocks, sparse.RepairedSparseBlocks):
         ell = blocks.ell
-        d, w, r = ell.num_blocks, ell.width, u.shape[1]
-        if out is None:
-            out = torch.empty((d * w, r), dtype=u.dtype, device=u.device)
-        view = out.view(d, w, r)
-        for i in range(d):
-            lsvd.sparse_right_vectors(
-                ell.col_ids[i], ell.col_rows[i], ell.col_vals[i],
-                blocks.repair_cols[i], blocks.repair_mask[i], w, u, s,
-                out=view[i])
-        return out
+        return kops.right_vectors(ell.col_ids, ell.col_rows, ell.col_vals,
+                                  blocks.repair_cols, blocks.repair_mask,
+                                  ell.width, u, s, out=out)
     d, _, w = blocks.shape
     inv = lsvd.masked_inverse(s)
     if out is None:

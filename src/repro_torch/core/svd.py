@@ -277,24 +277,14 @@ def sparse_right_vectors(
     out: torch.Tensor = None,
 ) -> torch.Tensor:
     """Sparse-native right_vectors: V_blk (W, r) for one repaired sparse
-    block.  A_blk^T @ U reduces to one (C, M) x (M, r) product over stored
-    columns scattered to their local ids, plus the repair rows of U.
+    block, the stored columns' non-zeros and the repair rows of U summed
+    into each row of V (``kops.right_vectors`` over a stack of one block:
+    the kernel on a CUDA device, the plain panel product on the CPU).
     U may be square (exact paths) or truncated (M, r).  ``out`` (W, r),
     which may be a strided slice of a wider panel, receives the result.
+    The same input gives the same bits on every call."""
+    from repro_torch.kernels import ops as kops
 
-    Both adds give the same bits on every call: the live stored columns'
-    ids are distinct and padding columns add exact zeros, and the repair
-    rows of U that share a column are summed in row order
-    (``sparse.segment_sum``), not by float atomics."""
-    m = u.shape[0]
-    panel = sparse.stored_col_panel(col_rows, col_vals, m)   # (C, M)
-    if out is None:
-        out = torch.empty((width, u.shape[1]), dtype=u.dtype,
-                          device=u.device)
-    atu = out.zero_()
-    atu.index_add_(0, col_ids.long(), panel @ u)
-    del panel
-    order, offsets = sparse.sorted_segments(
-        torch.where(repair_mask, repair_cols.long(), width), width)
-    atu += sparse.segment_sum(u[order], offsets)
-    return atu.mul_(masked_inverse(s, rcond=rcond)[None, :])
+    return kops.right_vectors(col_ids[None], col_rows[None], col_vals[None],
+                              repair_cols[None], repair_mask[None], width,
+                              u, s, rcond=rcond, out=out)

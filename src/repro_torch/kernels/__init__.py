@@ -2,7 +2,7 @@
 version, plus the ``nvcc`` + ``ctypes`` build (``build.py``)."""
 
 KERNELS = ("sparse_gram", "blockgram", "sketch_panel", "topk_score",
-           "flash_attention", "ssd_scan")
+           "flash_attention", "ssd_scan", "right_vectors")
 
 # Cost counters open in this process (``launch/hlocost.Counter``), which
 # the counting mesh's collectives charge too (``hlocost.record_collective``).

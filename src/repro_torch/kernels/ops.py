@@ -8,6 +8,7 @@ padded or tiled on the way in.
 """
 from repro_torch.kernels.blockgram import blockgram  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.right_vectors import right_vectors  # noqa: F401
 from repro_torch.kernels.sketch_panel import sketch_panel  # noqa: F401
 from repro_torch.kernels.sparse_gram import sparse_gram  # noqa: F401
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: F401
