@@ -144,13 +144,21 @@ def block_ell(rows: torch.Tensor, cols: torch.Tensor, m: int, n: int,
 
 
 def repair_draws(gen: torch.Generator, num_blocks: int, m: int, c: int,
-                 w: int, device):
+                 n: int, device):
     """The random inputs of the repair, handed to the program and to the
     reference alike: a uniform in-block column per (block, row), and a
-    uniform score per (block, row, stored-column position)."""
+    uniform score per (block, row, stored-column position).  Where the
+    blocks of width ceil(n / num_blocks) overhang the n columns, the last
+    block's columns are drawn among its real ones (a draw more from
+    ``gen``), never in the padding past column n."""
     from repro_torch.core import ranky
 
+    w = width(n, num_blocks)
     random_cols = torch.randint(0, w, (num_blocks, m), generator=gen,
                                 device=device, dtype=torch.int32)
+    if n < num_blocks * w:
+        random_cols[-1] = torch.randint(
+            0, n - (num_blocks - 1) * w, (m,), generator=gen, device=device,
+            dtype=torch.int32)
     scores = torch.rand((num_blocks, m, c), generator=gen, device=device)
     return ranky.RepairDraws(random_cols=random_cols, neighbor_scores=scores)

@@ -1,0 +1,4 @@
+"""gram_ms.solve in the cells whose solves the host paces."""
+from perfbench import spec
+
+read = spec.layer_reader("gram_ms.solve").read

@@ -1,0 +1,4 @@
+"""plan_ms.solve in the cells whose solves the host paces."""
+from perfbench import spec
+
+read = spec.layer_reader("plan_ms.solve").read

@@ -1,0 +1,4 @@
+"""repair_ms.solve in the cells whose solves the host paces."""
+from perfbench import spec
+
+read = spec.layer_reader("repair_ms.solve").read

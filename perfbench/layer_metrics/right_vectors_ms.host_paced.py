@@ -1,0 +1,4 @@
+"""right_vectors_ms.solve in the cells whose solves the host paces."""
+from perfbench import spec
+
+read = spec.layer_reader("right_vectors_ms.solve").read

@@ -47,9 +47,9 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def block_width(n: int, num_blocks: int) -> int:
-    if n % num_blocks:
-        raise ValueError(f"n={n} must divide into {num_blocks} blocks")
-    return n // num_blocks
+    """Columns a block, ceil(n / num_blocks): where ``num_blocks`` does not
+    divide n, the last block ends at column n, short of a full width."""
+    return -(-n // num_blocks)
 
 
 def repair(rows: torch.Tensor, cols: torch.Tensor, *, m: int, n: int,

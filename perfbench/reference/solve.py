@@ -52,8 +52,8 @@ def exact(rows, cols, m: int, n: int, num_blocks: int, prec: Precision
     w = matrix.block_width(n, num_blocks)
     v = torch.empty((n, m), dtype=prec.dtype, device=u.device)
     for d in range(num_blocks):
-        v[d * w:(d + 1) * w] = matrix.at_times(
-            rows, cols, u, d * w, (d + 1) * w, prec) * inv[None, :]
+        lo, hi = d * w, min((d + 1) * w, n)
+        v[lo:hi] = matrix.at_times(rows, cols, u, lo, hi, prec) * inv[None, :]
     return u, s, v
 
 
@@ -107,10 +107,11 @@ def triplet_gap(rows, cols, m: int, n: int, num_blocks: int, u, s, v
     right2 = torch.zeros(m, dtype=torch.float64, device=u.device)
     w = matrix.block_width(n, num_blocks)
     for d in range(num_blocks):
-        v_d = v[d * w:(d + 1) * w].double()
-        sub = (cols >= d * w) & (cols < (d + 1) * w)
-        av += matrix.a_times(rows[sub], cols[sub] - d * w, v_d, m, REFERENCE)
-        r_d = matrix.at_times(rows, cols, u, d * w, (d + 1) * w, REFERENCE)
+        lo, hi = d * w, min((d + 1) * w, n)
+        v_d = v[lo:hi].double()
+        sub = (cols >= lo) & (cols < hi)
+        av += matrix.a_times(rows[sub], cols[sub] - lo, v_d, m, REFERENCE)
+        r_d = matrix.at_times(rows, cols, u, lo, hi, REFERENCE)
         right2 += ((r_d - v_d * s[None, :]) ** 2).sum(0)
         del v_d, r_d
     left = (torch.linalg.vector_norm(av - u * s[None, :], dim=0) * s

@@ -133,8 +133,11 @@ def run_cell(cell: dict, *, seed: int, seconds: float, trace: bool,
     if td is None:
         values = dict(win.metrics, setup_s=setup_s)
         for m in cell["end_to_end"]:
-            metrics[m["name"]] = {"value": values[m["name"]],
-                                  "unit": m["unit"]}
+            # ``<quantity>.<group>``: the traffic's ``<quantity>`` in a
+            # group of cells that a bound of its own holds.
+            name = m["name"]
+            key = name if name in values else name.split(".")[0]
+            metrics[name] = {"value": values[key], "unit": m["unit"]}
     else:
         for m in cell["per_layer"]:
             value = spec.layer_reader(m["name"]).read(td)

@@ -1,7 +1,8 @@
 """A run drives the timed path with a fault planted underneath and must
 come out not correct: a step that returns its state unchanged, half of
 the batch left out (the rest scaled to stand for it), an answer altered
-where it is produced, in its leading direction or in a later one.  (One
+where it is produced, in its leading direction or in a later one, and,
+in a cell that repairs lonely rows, some of the repair's picks altered.  (One
 card: no exchange between chips to leave out.)  Each run skips the look
 for a card and is the harness's own, at a small size on the CPU."""
 from __future__ import annotations
@@ -73,6 +74,20 @@ def _solve_faults():
         u, s, vproj = real_trunc(t, h, rank)
         return u, s, torch.cat([vproj[..., :-1], -vproj[..., -1:]], -1)
 
+    def picks_altered(every, most=None):
+        """The repair with the pick of every ``every``-th repaired row
+        (counted over the blocks in turn, from the first; at most
+        ``most``) moved one column on inside its block."""
+        def altered(a, *args, **kw):
+            rep = real_repair(a, *args, **kw)
+            which = torch.nonzero(rep.repair_mask.flatten()).squeeze(1)
+            which = which[::every][:most]
+            cols = rep.repair_cols.clone().flatten()
+            cols[which] = (cols[which] + 1) % rep.ell.width
+            return sparse.RepairedSparseBlocks(
+                rep.ell, cols.view_as(rep.repair_cols), rep.repair_mask)
+        return altered
+
     return {
         "half of the batch": [(ranky, "split_and_repair", half_repair)],
         "state unchanged": [(api, "_run_single", unchanged)],
@@ -83,13 +98,20 @@ def _solve_faults():
         "a later direction altered": [
             (lsvd, "merge_grams_eigh", later_eigh),
             (randomized, "truncate_sketch", later_sketch)],
+        "a third of the picks altered": [
+            (ranky, "split_and_repair", picks_altered(3))],
+        "one pick altered": [
+            (ranky, "split_and_repair", picks_altered(1, most=1))],
     }
 
 
 CASES = [(cell, fault) for cell in ("sparse-2048x1m.exact",
-                                    "sparse-2048x1m.rank16")
+                                    "sparse-2048x1m.rank16",
+                                    "ranky-paper.exact")
          for fault in ("half of the batch", "state unchanged",
-                       "answer altered", "a later direction altered")]
+                       "answer altered", "a later direction altered")] + [
+    ("ranky-paper.exact", fault) for fault in (
+        "a third of the picks altered", "one pick altered")]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)

@@ -150,11 +150,99 @@ def test_a_new_cell_is_files_and_an_entry(tmp_path):
     assert cell["workload"]["pool"] == 2
     assert [m["name"] for m in cell["per_layer"]] == ["solves_seen.pool2"]
     reader = spec.layer_reader("solves_seen.pool2", root=tmp_path)
-    cell["config"].update(helpers.TINY_CONFIG["sparse-2048x1m"])
+    cell["config"].update(helpers.cpu_size("sparse-2048x1m"))
     out = helpers.run_tiny("sparse-2048x1m.pool2", cell=cell)
     assert out["correct"] and set(out["metrics"]) == {"solve_ms",
                                                       "setup_s"}
     assert reader.read(type("T", (), {"count": lambda self, op: 3})()) == 3
+
+
+def _add_configuration(root: pathlib.Path, name: str, cpu_size=None):
+    """A copy of the checkout's benchmark files under ``root`` with one
+    configuration more, ``name`` (sparse-2048x1m's model at 1,024 rows),
+    and one exact cell of it, ``<name>.exact``; with ``cpu_size``, the
+    configuration's CPU size too."""
+    for sub in ("configs", "workloads"):
+        shutil.copytree(ROOT / "perfbench" / sub, root / "perfbench" / sub)
+    shutil.copytree(helpers.cpu_size_file("sparse-2048x1m").parent,
+                    helpers.cpu_size_file(name, root).parent)
+    conf = json.loads((ROOT / "perfbench" / "configs" /
+                       "sparse-2048x1m.json").read_text())
+    conf.update(name=name, rows=1024)
+    (root / "perfbench" / "configs" / f"{name}.json").write_text(
+        json.dumps(conf))
+    if cpu_size is not None:
+        helpers.cpu_size_file(name, root).write_text(json.dumps(cpu_size))
+    cell = f"{name}.exact"
+    why = "an exact cell of a configuration added as files only"
+    wl = json.loads((ROOT / "perfbench" / "workloads" /
+                     "sparse-2048x1m.exact.json").read_text())
+    wl.update(config=name, why=why)
+    (root / "perfbench" / "workloads" / f"{cell}.json").write_text(
+        json.dumps(wl))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append(dict(
+        name=name, source=BENCH["configs"][0]["source"],
+        file=f"perfbench/configs/{name}.json", reduced=["rows", "cols"],
+        why="sparse-2048x1m's model at half its rows"))
+    bench["workloads"].append(dict(name=cell, config=name, traffic="exact",
+                                   chips=1, why=why))
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "sparse-2048x1m.exact" in m.get("workloads", ()):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return bench, cell
+
+
+def test_every_configuration_has_a_cpu_size(tmp_path):
+    """Each configuration names the keys of its file that a CPU run cuts;
+    one without a CPU size is refused by name, never run at full size."""
+    for c in BENCH["configs"]:
+        size = helpers.cpu_size(c["name"])
+        conf = json.loads((ROOT / c["file"]).read_text())
+        assert size and set(size) <= set(conf), c["name"]
+        assert set(c["reduced"]) <= set(size), c["name"]
+    _, cell = _add_configuration(tmp_path, "sparse-1024x1m")
+    with pytest.raises(FileNotFoundError, match="'sparse-1024x1m'"):
+        helpers.tiny(cell, root=tmp_path)
+
+
+def test_a_new_configuration_is_files_only(tmp_path):
+    """A configuration added in a copy of the checkout, with its CPU size
+    and a cell, runs at its CPU size with no edit to any file already
+    there."""
+    bench, cell = _add_configuration(
+        tmp_path, "sparse-1024x1m",
+        cpu_size=dict(rows=48, cols=2048, density=0.03))
+    assert check_names(bench) == []
+    tiny = helpers.tiny(cell, root=tmp_path)
+    assert (tiny["config"]["rows"], tiny["config"]["cols"]) == (48, 2048)
+    out = helpers.run_tiny(cell, cell=tiny)
+    assert out["correct"], out["checks"]
+    assert set(out["metrics"]) == {"solve_ms", "setup_s"}
+
+
+@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
+def test_the_cpu_size_takes_the_cells_route(name):
+    """At its CPU size a cell's plan is the strategy its file wants, and
+    a cell whose why names the repair of lonely rows has some in every
+    block of every matrix of its pool."""
+    from perfbench import common
+    from perfbench.traffic import solve
+    from repro_torch.core import api, ranky
+
+    cell = helpers.tiny(name)
+    ctx = common.Context(name=name, seed=helpers.SEED, seconds=0.3,
+                         trace=False, device=torch.device("cpu"),
+                         config=cell["config"], workload=cell["workload"])
+    data = solve.make_data(ctx)
+    cfg = solve._solve_config(ctx)
+    want = cell["workload"]["solve"]["strategy"]
+    for ell in data["ells"]:
+        assert api.plan(ell, cfg, device="cpu").strategy == want
+        if "lonely rows" in cell["entry"]["why"]:
+            assert min(ranky.lonely_rows_per_block(
+                ell, cfg.num_blocks)) > 0, name
 
 
 def test_frozen_counts_equal_hand_counts():
@@ -232,6 +320,21 @@ def test_a_traced_run_reports_per_layer_metrics_only():
     assert "sparse_gram_roofline.solve" not in out["metrics"]
     assert out["device"]["window_s"] > 0
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+def test_a_host_paced_cell_reports_its_own_group():
+    """The paper's cell reports the traffic's solve time as
+    ``solve_ms.host_paced`` and its layers as ``<quantity>.host_paced``,
+    read as their ``.solve`` twins read them."""
+    name = "ranky-paper.exact"
+    cell = spec.cell(name)
+    assert {m["name"] for m in cell["end_to_end"]} == {
+        "solve_ms.host_paced", "setup_s"}
+    out = helpers.run_tiny(name, trace=True)
+    assert out["correct"], out["checks"]
+    assert {"repair_ms.host_paced", "gram_ms.host_paced",
+            "merge_ms.host_paced"} <= set(out["metrics"])
+    assert all(k.endswith(".host_paced") for k in out["metrics"])
 
 
 def test_same_seed_same_data():

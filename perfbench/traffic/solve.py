@@ -53,7 +53,7 @@ def make_data(ctx: Context) -> dict:
     ells = [bipartite.block_ell(r, cl, m, n, d, c_cap=c_cap, k_cap=k_cap)
             for r, cl in mats]
     draws = bipartite.repair_draws(ctx.generator(common.TAG_DRAWS), d, m,
-                                   c_cap, bipartite.width(n, d), ctx.device)
+                                   c_cap, n, ctx.device)
     rank = w["solve"].get("rank")
     omega = None
     if rank is not None:
